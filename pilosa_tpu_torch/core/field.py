@@ -1,0 +1,403 @@
+"""Field — container of views + typed options (reference field.go).
+
+Types: ``set`` (plain rows), ``int`` (bit-sliced integers with one
+bsiGroup named after the field), ``time`` (set + per-quantum views).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from datetime import datetime
+from typing import Iterable, Optional
+
+import numpy as np
+
+from pilosa_tpu_torch import SHARD_WIDTH
+from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core.fragment import _sized
+from pilosa_tpu_torch.core.row import Row
+from pilosa_tpu_torch.core.timequantum import views_by_time
+from pilosa_tpu_torch.core.view import VIEW_BSI_GROUP_PREFIX, VIEW_STANDARD, View
+
+FIELD_TYPE_SET = "set"
+FIELD_TYPE_INT = "int"
+FIELD_TYPE_TIME = "time"
+
+DEFAULT_CACHE_TYPE = cache_mod.CACHE_TYPE_RANKED
+DEFAULT_CACHE_SIZE = cache_mod.DEFAULT_CACHE_SIZE
+
+
+class FieldOptions:
+    """reference FieldOptions (field.go:1111-1120)."""
+
+    def __init__(
+        self,
+        type: str = FIELD_TYPE_SET,
+        cache_type: str = DEFAULT_CACHE_TYPE,
+        cache_size: int = DEFAULT_CACHE_SIZE,
+        min: int = 0,
+        max: int = 0,
+        time_quantum: str = "",
+        keys: bool = False,
+    ) -> None:
+        self.type = type
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.min = min
+        self.max = max
+        self.time_quantum = time_quantum
+        self.keys = keys
+
+    def to_dict(self) -> dict:
+        return {
+            "type": self.type,
+            "cacheType": self.cache_type,
+            "cacheSize": self.cache_size,
+            "min": self.min,
+            "max": self.max,
+            "timeQuantum": self.time_quantum,
+            "keys": self.keys,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FieldOptions":
+        return cls(
+            type=d.get("type", FIELD_TYPE_SET),
+            cache_type=d.get("cacheType", DEFAULT_CACHE_TYPE),
+            cache_size=d.get("cacheSize", DEFAULT_CACHE_SIZE),
+            min=d.get("min", 0),
+            max=d.get("max", 0),
+            time_quantum=d.get("timeQuantum", ""),
+            keys=d.get("keys", False),
+        )
+
+
+class BSIGroup:
+    """Bit-sliced integer group (reference bsiGroup, field.go:1218-1299)."""
+
+    def __init__(self, name: str, min_val: int, max_val: int) -> None:
+        self.name = name
+        self.min = min_val
+        self.max = max_val
+
+    def bit_depth(self) -> int:
+        """reference BitDepth: smallest i with max-min < 2^i."""
+        for i in range(63):
+            if self.max - self.min < (1 << i):
+                return i
+        return 63
+
+    def base_value(self, op: str, value: int) -> tuple[int, bool]:
+        """Map an absolute predicate onto the stored base-offset encoding
+        (reference baseValue, field.go). Returns (base_value, out_of_range)."""
+        base = 0
+        if op in (">", ">="):
+            if value > self.max:
+                return 0, True
+            if value > self.min:
+                base = value - self.min
+        elif op in ("<", "<="):
+            if value < self.min:
+                return 0, True
+            if value > self.max:
+                base = self.max - self.min
+            else:
+                base = value - self.min
+        elif op in ("==", "!="):
+            if value < self.min or value > self.max:
+                return 0, True
+            base = value - self.min
+        return base, False
+
+    def base_value_between(self, lo: int, hi: int) -> tuple[int, int, bool]:
+        if hi < self.min or lo > self.max:
+            return 0, 0, True
+        base_min = lo - self.min if lo > self.min else 0
+        if hi > self.max:
+            base_max = self.max - self.min
+        elif hi > self.min:
+            base_max = hi - self.min
+        else:
+            base_max = 0
+        return base_min, base_max, False
+
+
+class Field:
+    def __init__(
+        self,
+        path: Optional[str],
+        index: str,
+        name: str,
+        options: Optional[FieldOptions] = None,
+        row_attr_store=None,
+        broadcaster=None,
+    ) -> None:
+        self.path = path
+        self.index = index
+        self.name = name
+        self.options = options or FieldOptions()
+        self.row_attr_store = row_attr_store
+        self.broadcaster = broadcaster
+        self.views: dict[str, View] = {}
+        self.bsi_groups: dict[str, BSIGroup] = {}
+        self.mu = threading.RLock()
+        if self.options.type == FIELD_TYPE_INT:
+            self.bsi_groups[name] = BSIGroup(name, self.options.min, self.options.max)
+
+    # -- lifecycle --
+
+    def open(self) -> None:
+        if self.path:
+            os.makedirs(self.path, exist_ok=True)
+            self._load_meta()
+            views_dir = os.path.join(self.path, "views")
+            if os.path.isdir(views_dir):
+                for vname in sorted(os.listdir(views_dir)):
+                    v = self._new_view(vname)
+                    v.open()
+                    self.views[vname] = v
+        if self.options.type == FIELD_TYPE_INT and self.name not in self.bsi_groups:
+            self.bsi_groups[self.name] = BSIGroup(
+                self.name, self.options.min, self.options.max
+            )
+
+    def close(self) -> None:
+        for v in self.views.values():
+            v.close()
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.path, ".meta")
+
+    def save_meta(self) -> None:
+        if not self.path:
+            return
+        os.makedirs(self.path, exist_ok=True)
+        with open(self._meta_path(), "w") as f:
+            json.dump(self.options.to_dict(), f)
+
+    def _load_meta(self) -> None:
+        try:
+            with open(self._meta_path(), "rb") as f:
+                raw = f.read()
+        except FileNotFoundError:
+            self.save_meta()
+            return
+        try:
+            self.options = FieldOptions.from_dict(json.loads(raw))
+        except (ValueError, UnicodeDecodeError):
+            # reference data dir: .meta is a protobuf FieldOptions
+            from pilosa_tpu_torch.utils.protometa import decode_field_options
+
+            self.options = FieldOptions.from_dict(decode_field_options(raw))
+
+    # -- accessors --
+
+    def type(self) -> str:
+        return self.options.type
+
+    def time_quantum(self) -> str:
+        return self.options.time_quantum
+
+    def bsi_group(self, name: str) -> Optional[BSIGroup]:
+        return self.bsi_groups.get(name)
+
+    def _new_view(self, name: str) -> View:
+        return View(
+            os.path.join(self.path, "views", name) if self.path else None,
+            self.index,
+            self.name,
+            name,
+            cache_type=self.options.cache_type,
+            cache_size=self.options.cache_size,
+            row_attr_store=self.row_attr_store,
+            broadcaster=self.broadcaster,
+        )
+
+    def view(self, name: str) -> Optional[View]:
+        return self.views.get(name)
+
+    def create_view_if_not_exists(self, name: str) -> View:
+        with self.mu:
+            v = self.views.get(name)
+            if v is None:
+                v = self._new_view(name)
+                v.open()
+                self.views[name] = v
+            return v
+
+    def available_shards(self) -> list[int]:
+        shards: set[int] = set()
+        for v in self.views.values():
+            shards.update(v.fragments)
+        return sorted(shards)
+
+    def max_shard(self) -> int:
+        shards = self.available_shards()
+        return shards[-1] if shards else 0
+
+    # -- row / bit ops --
+
+    def row(self, row_id: int) -> Row:
+        if self.type() not in (FIELD_TYPE_SET, FIELD_TYPE_TIME):
+            raise ValueError(f"row method unsupported for field type: {self.type()}")
+        v = self.view(VIEW_STANDARD)
+        if v is None:
+            return Row()
+        return v.row(row_id)
+
+    def set_bit(self, row_id: int, col_id: int, t: Optional[datetime] = None) -> bool:
+        """reference Field.SetBit (field.go:683-719): standard view plus
+        time-quantum fan-out."""
+        changed = False
+        v = self.create_view_if_not_exists(VIEW_STANDARD)
+        changed |= v.set_bit(row_id, col_id)
+        if t is None:
+            return changed
+        for subname in views_by_time(VIEW_STANDARD, t, self.time_quantum()):
+            sv = self.create_view_if_not_exists(subname)
+            changed |= sv.set_bit(row_id, col_id)
+        return changed
+
+    def clear_bit(self, row_id: int, col_id: int) -> bool:
+        """reference Field.ClearBit (field.go:722-764): clear standard
+        view, then walk time views hierarchically, skipping subtrees
+        whose parent was already clear."""
+        v = self.view(VIEW_STANDARD)
+        if v is None:
+            raise ValueError("clearing missing view")
+        changed = v.clear_bit(row_id, col_id)
+        if len(self.views) == 1:
+            return changed
+        last_size = 0
+        level = 0
+        skip_above = 1 << 62
+        for view in self._all_time_views_sorted_by_quantum():
+            if last_size < len(view.name):
+                level += 1
+            elif last_size > len(view.name):
+                level -= 1
+            if level < skip_above:
+                c = view.clear_bit(row_id, col_id)
+                changed = c
+                skip_above = (level + 1) if not c else (1 << 62)
+            last_size = len(view.name)
+        return changed
+
+    def _all_time_views_sorted_by_quantum(self) -> list[View]:
+        """Time views ordered coarse→fine, depth-first (reference
+        allTimeViewsSortedByQuantum, field.go:766+)."""
+        names = sorted(
+            n for n in self.views if n.startswith(VIEW_STANDARD + "_")
+        )
+        return [self.views[n] for n in names]
+
+    # -- BSI ops --
+
+    def bsi_view_name(self) -> str:
+        return VIEW_BSI_GROUP_PREFIX + self.name
+
+    def value(self, col_id: int) -> tuple[int, bool]:
+        bsig = self.bsi_group(self.name)
+        if bsig is None:
+            raise ValueError(f"bsiGroup not found: {self.name}")
+        v = self.view(self.bsi_view_name())
+        if v is None:
+            return 0, False
+        val, exists = v.value(col_id, bsig.bit_depth())
+        if not exists:
+            return 0, False
+        return val + bsig.min, True
+
+    def set_value(self, col_id: int, value: int) -> bool:
+        bsig = self.bsi_group(self.name)
+        if bsig is None:
+            raise ValueError(f"bsiGroup not found: {self.name}")
+        if value < bsig.min or value > bsig.max:
+            raise ValueError(
+                f"value {value} out of range [{bsig.min}, {bsig.max}]"
+            )
+        v = self.create_view_if_not_exists(self.bsi_view_name())
+        return v.set_value(col_id, bsig.bit_depth(), value - bsig.min)
+
+    # -- bulk import (reference Import:960-1071) --
+
+    def import_bits(
+        self,
+        row_ids: Iterable[int],
+        column_ids: Iterable[int],
+        timestamps: Optional[Iterable[Optional[datetime]]] = None,
+    ) -> None:
+        """Group (row, col, ts) by (view, shard) then bulk-import each
+        fragment."""
+        rows = np.asarray(_sized(row_ids), dtype=np.uint64)
+        cols = np.asarray(_sized(column_ids), dtype=np.uint64)
+        tss = list(timestamps) if timestamps is not None else None
+        if rows.size != cols.size or (tss is not None and len(tss) != rows.size):
+            raise ValueError("row/col/timestamp length mismatch")
+        if rows.size == 0:
+            # no views created on an empty import (reference Import
+            # groups first and only touches views with data)
+            return
+        q = self.time_quantum()
+
+        def import_group(vname: str, rs, cs) -> None:
+            view = self.create_view_if_not_exists(vname)
+            shards = cs // np.uint64(SHARD_WIDTH)
+            order = np.argsort(shards, kind="stable")
+            shards, rs, cs = shards[order], rs[order], cs[order]
+            uniq, starts = np.unique(shards, return_index=True)
+            bounds = np.append(starts, shards.size)
+            for k, shard in enumerate(uniq):
+                frag = view.create_fragment_if_not_exists(int(shard))
+                frag.bulk_import(rs[bounds[k] : bounds[k + 1]], cs[bounds[k] : bounds[k + 1]])
+
+        if tss is None or not any(t is not None for t in tss):
+            # fast path: vectorised single-view grouping by shard
+            import_group(VIEW_STANDARD, rows, cols)
+            return
+        # timestamped bits fan out to quantum views; group per view name
+        if not q:
+            raise ValueError("time quantum not set in field")
+        per_view: dict[str, list[int]] = {VIEW_STANDARD: list(range(rows.size))}
+        for i, t in enumerate(tss):
+            if t is None:
+                continue
+            for vname in views_by_time(VIEW_STANDARD, t, q):
+                per_view.setdefault(vname, []).append(i)
+        for vname in sorted(per_view):
+            sel = np.asarray(per_view[vname], dtype=np.int64)
+            import_group(vname, rows[sel], cols[sel])
+
+    def import_values(
+        self, column_ids: Iterable[int], values: Iterable[int]
+    ) -> None:
+        bsig = self.bsi_group(self.name)
+        if bsig is None:
+            raise ValueError(f"bsiGroup not found: {self.name}")
+        cols = np.asarray(_sized(column_ids), dtype=np.uint64)
+        vals = np.asarray(_sized(values), dtype=np.int64)
+        if cols.size != vals.size:
+            raise ValueError("column/value mismatch")
+        if cols.size == 0:
+            return  # no views created on an empty import
+        if int(vals.min()) < bsig.min or int(vals.max()) > bsig.max:
+            bad = vals[(vals < bsig.min) | (vals > bsig.max)][0]
+            raise ValueError(
+                f"value {int(bad)} out of range [{bsig.min}, {bsig.max}]"
+            )
+        offsets = (vals - bsig.min).astype(np.uint64)
+        shards = cols // np.uint64(SHARD_WIDTH)
+        order = np.argsort(shards, kind="stable")
+        shards, cols, offsets = shards[order], cols[order], offsets[order]
+        uniq, starts = np.unique(shards, return_index=True)
+        bounds = np.append(starts, shards.size)
+        view = self.create_view_if_not_exists(self.bsi_view_name())
+        for k, shard in enumerate(uniq):
+            frag = view.create_fragment_if_not_exists(int(shard))
+            frag.import_value(
+                cols[bounds[k] : bounds[k + 1]],
+                offsets[bounds[k] : bounds[k + 1]],
+                bsig.bit_depth(),
+            )

@@ -1,0 +1,1635 @@
+"""Fragment — one shard of one field-view (L1).
+
+Mirrors the reference's fragment (reference fragment.go): a bitmap over
+positions ``pos = rowID * 2^20 + (columnID % 2^20)`` backed by one
+roaring file whose tail doubles as an append-only op log, snapshotted
+once the op count passes MAX_OP_N (reference fragment.go:62-64,
+1399-1468). Row materialisation is a container-level OffsetRange + clone
+(reference fragment.go:330-359).
+
+TPU integration: the fragment is the CPU source of truth; it exports
+packed-word row matrices / BSI plane stacks for HBM staging, keeps a
+``generation`` counter, and logs single-bit mutations in a bounded
+device-delta log so the stager can patch staged blocks forward
+(scatter-update kernels, ops/delta.py) instead of invalidating them on
+every write (SURVEY.md §7 step 3; the device-side analog of the
+reference's op log over the mmapped roaring file).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import heapq
+import math
+import mmap
+import os
+import threading
+import time
+from collections import deque
+from typing import Iterable, Optional
+
+import numpy as np
+
+from pilosa_tpu_torch import SHARD_WIDTH
+from pilosa_tpu_torch.roaring import Bitmap
+from pilosa_tpu_torch.roaring import bitmap as bitmap_mod
+from pilosa_tpu_torch.core.row import Row
+from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.utils import events, metrics
+
+# reference fragment.go:55-64
+HASH_BLOCK_SIZE = 100
+MAX_OP_N = 2000
+
+# Bound on the per-fragment device-delta log (entries, i.e. single-bit
+# mutations since the oldest replayable snapshot). The log is what lets
+# the HBM stager patch already-resident arrays instead of re-uploading
+# whole blocks on every write (executor/stager.py); once a staged
+# snapshot falls more than this many mutations behind, the stager full-
+# rebuilds anyway, so keeping more buys nothing. Overridable per process
+# via the `stager-delta-log-max` config knob (server/server.py sets the
+# class attribute).
+DELTA_LOG_MAX = 4096
+
+# Bulk imports at or under this many positions route through the
+# batched delta path (one OP_BATCH group-commit append + one device
+# scatter) instead of the merge+snapshot path that `_delta_reset()`s
+# and forces staged blocks to full-rebuild — the bulk-import cliff.
+# Overridable per process via the `ingest-delta-max-batch` config knob
+# (server/server.py sets the module attribute).
+DELTA_MAX_BATCH = 512
+
+DEFAULT_MIN_THRESHOLD = 1  # reference executor.go defaultMinThreshold
+
+
+# -- storage fault injection (tests/dryruns only) ----------------------------
+
+STORAGE_FAULTS_ENV = "PILOSA_TPU_STORAGE_FAULTS"
+
+
+class StorageFaultSpec:
+    """Deterministic fault schedule for the fragment op-log write path,
+    parsed from the ``storage-faults`` config knob (or
+    ``PILOSA_TPU_STORAGE_FAULTS``): ``fsync_fail_every=N`` raises EIO
+    on every Nth fsync (the record reached the page cache but
+    durability is unproven), ``torn_at=N`` tears the first append that
+    would push the cumulative appended byte count past N — only a
+    prefix reaches the file, then EIO (a partial sector landing before
+    power loss), ``enospc_after=K`` fails every append after the first
+    K with ENOSPC, writing nothing. No RNG — crash-recovery tests
+    reproduce exactly. Injected failures journal ``ingest.fault``.
+
+    Integrity faults (PR 15): ``corrupt_at=K`` flips one byte at file
+    offset K of the next snapshot base as it is written (a latent write
+    corruption the digest trailer must catch), ``bitrot=N`` flips one
+    on-disk base byte right before every Nth digest verification (a
+    latent sector flip under the mmap the scrubber must catch), and
+    ``snapshot_kill=pre|post`` hard-kills the process (os._exit) inside
+    ``snapshot()`` immediately before/after the atomic os.replace — the
+    crash-atomicity property test's kill switch."""
+
+    __slots__ = (
+        "fsync_fail_every",
+        "torn_at",
+        "enospc_after",
+        "corrupt_at",
+        "bitrot",
+        "snapshot_kill",
+        "_fsyncs",
+        "_bytes",
+        "_appends",
+        "_torn_done",
+        "_corrupt_done",
+        "_verifies",
+        "_mu",
+    )
+
+    def __init__(
+        self,
+        fsync_fail_every: int = 0,
+        torn_at: int = 0,
+        enospc_after: int = 0,
+        corrupt_at: int = 0,
+        bitrot: int = 0,
+        snapshot_kill: str = "",
+    ) -> None:
+        self.fsync_fail_every = fsync_fail_every
+        self.torn_at = torn_at
+        self.enospc_after = enospc_after
+        self.corrupt_at = corrupt_at
+        self.bitrot = bitrot
+        self.snapshot_kill = snapshot_kill
+        self._fsyncs = 0
+        self._bytes = 0
+        self._appends = 0
+        self._torn_done = False
+        self._corrupt_done = False
+        self._verifies = 0
+        self._mu = threading.Lock()
+
+    @classmethod
+    def parse(cls, text: str) -> "StorageFaultSpec":
+        spec = cls()
+        for part in (text or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            key, _, value = part.partition("=")
+            key = key.strip()
+            if key in (
+                "fsync_fail_every",
+                "torn_at",
+                "enospc_after",
+                "corrupt_at",
+                "bitrot",
+            ):
+                setattr(spec, key, int(value))
+            elif key == "snapshot_kill":
+                value = value.strip()
+                if value not in ("pre", "post"):
+                    raise ValueError(
+                        f"snapshot_kill must be 'pre' or 'post', got {value!r}"
+                    )
+                spec.snapshot_kill = value
+            else:
+                raise ValueError(f"unknown storage fault knob: {key!r}")
+        return spec
+
+    def __bool__(self) -> bool:
+        return bool(
+            self.fsync_fail_every
+            or self.torn_at
+            or self.enospc_after
+            or self.corrupt_at
+            or self.bitrot
+            or self.snapshot_kill
+        )
+
+    def _injected(self, fault: str) -> None:
+        metrics.count(metrics.INGEST_FAULTS_INJECTED, fault=fault)
+        events.record(events.INGEST_FAULT, fault=fault)
+
+    def write(self, f, rec: bytes) -> None:
+        """Append ``rec`` under the fault schedule; raises OSError on an
+        injected failure (a torn write lands its prefix first)."""
+        with self._mu:
+            self._appends += 1
+            n_appends = self._appends
+            start = self._bytes
+            self._bytes += len(rec)
+            tear = (
+                self.torn_at
+                and not self._torn_done
+                and start < self.torn_at < start + len(rec)
+            )
+            if tear:
+                self._torn_done = True
+        if self.enospc_after and n_appends > self.enospc_after:
+            self._injected("enospc")
+            raise OSError(28, "No space left on device (injected)")
+        if tear:
+            f.write(rec[: self.torn_at - start])
+            f.flush()
+            os.fsync(f.fileno())  # the torn prefix really lands
+            self._injected("torn_write")
+            raise OSError(5, f"torn write at byte {self.torn_at} (injected)")
+        f.write(rec)
+
+    def fsync(self, fd: int) -> None:
+        with self._mu:
+            self._fsyncs += 1
+            fail = (
+                self.fsync_fail_every
+                and self._fsyncs % self.fsync_fail_every == 0
+            )
+        if fail:
+            self._injected("fsync_fail")
+            raise OSError(5, "fsync failed (injected)")
+        os.fsync(fd)
+
+    def corrupt_offset(self, size: int) -> Optional[int]:
+        """Byte offset to flip in the snapshot base being written (once
+        per schedule), or None. Only offsets inside the base corrupt —
+        the point is a flip the digest trailer must catch."""
+        with self._mu:
+            if not self.corrupt_at or self._corrupt_done:
+                return None
+            if not (0 <= self.corrupt_at < size):
+                return None
+            self._corrupt_done = True
+        self._injected("corrupt_write")
+        return self.corrupt_at
+
+    def bitrot_due(self) -> bool:
+        """True on every Nth digest verification — the caller flips one
+        on-disk base byte before verifying (latent sector rot)."""
+        with self._mu:
+            if not self.bitrot:
+                return False
+            self._verifies += 1
+            due = self._verifies % self.bitrot == 0
+        if due:
+            self._injected("bitrot")
+        return due
+
+    def kill_point(self, phase: str) -> None:
+        """Hard-kill (no atexit, no flush) when the schedule names this
+        snapshot phase — simulates power loss at the worst moments."""
+        if self.snapshot_kill == phase:
+            os._exit(137)
+
+
+# Process-wide injected fault schedule (None = clean). Installed by the
+# server from the `storage-faults` config knob; tests install directly.
+FAULTS: Optional[StorageFaultSpec] = None
+
+
+def install_storage_faults(text: str = "") -> None:
+    """Parse and install the process-wide storage fault schedule; an
+    empty spec (or empty text) clears it."""
+    global FAULTS
+    text = text or os.environ.get(STORAGE_FAULTS_ENV, "")
+    spec = StorageFaultSpec.parse(text)
+    FAULTS = spec if spec else None
+
+
+class FragmentQuarantinedError(Exception):
+    """Raised by reads/writes on a quarantined fragment: verification
+    found corruption, so serving from it could return poisoned bits.
+    Maps to a clean HTTP 503 + Retry-After (never a wrong answer);
+    clients back off while repair pulls a healthy replica copy."""
+
+    status = 503
+    retry_after = 2
+
+    def __init__(self, index: str, field: str, view: str, shard: int, reason: str):
+        super().__init__(
+            f"fragment {index}/{field}/{view}/{shard} quarantined: {reason}"
+        )
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.reason = reason
+
+
+def pos(row_id: int, column_id: int) -> int:
+    """reference fragment.go:1935."""
+    return row_id * SHARD_WIDTH + (column_id % SHARD_WIDTH)
+
+
+def _sized(it):
+    """Materialize one-shot iterables so np.asarray sees a sequence
+    (the import signatures advertise Iterable)."""
+    return it if hasattr(it, "__len__") else list(it)
+
+
+class TopOptions:
+    """reference topOptions (fragment.go:1046-1058)."""
+
+    def __init__(
+        self,
+        n: int = 0,
+        src: Optional[Row] = None,
+        row_ids: Optional[list[int]] = None,
+        min_threshold: int = DEFAULT_MIN_THRESHOLD,
+        filter_name: str = "",
+        filter_values: Optional[list] = None,
+        tanimoto_threshold: int = 0,
+    ) -> None:
+        self.n = n
+        self.src = src
+        self.row_ids = row_ids or []
+        self.min_threshold = min_threshold
+        self.filter_name = filter_name
+        self.filter_values = filter_values or []
+        self.tanimoto_threshold = tanimoto_threshold
+
+
+class Fragment:
+    """One (index, field, view, shard) bitmap fragment."""
+
+    def __init__(
+        self,
+        path: Optional[str],
+        index: str,
+        field: str,
+        view: str,
+        shard: int,
+        cache_type: str = cache_mod.CACHE_TYPE_RANKED,
+        cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
+        row_attr_store=None,
+    ) -> None:
+        self.path = path
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.cache_type = cache_type
+        self.cache = cache_mod.new_cache(cache_type, cache_size)
+        self.row_attr_store = row_attr_store
+
+        self.storage = Bitmap()
+        self.op_n = 0
+        self.max_op_n = MAX_OP_N
+        self.max_row_id = 0
+        self.generation = 0  # bumped on every mutation; device-stager key
+        # Device-delta log: (generation, pos, is_set) per single-bit
+        # mutation, so the HBM stager can replay writes onto staged
+        # arrays instead of rebuilding them (snapshot + delta model).
+        # _delta_floor: staged snapshots at/after this generation can be
+        # patched forward. _delta_synced: the generation the log is
+        # authoritative through — any generation bump that bypasses
+        # _delta_append/_delta_reset (e.g. a raw restore assigning
+        # .generation) desyncs it and deltas_since answers None until
+        # the next tracked mutation re-anchors the log.
+        self.delta_log_max = DELTA_LOG_MAX
+        self.delta_max_batch = DELTA_MAX_BATCH
+        self._delta_log: deque[tuple[int, int, bool]] = deque()
+        self._delta_floor = 0
+        self._delta_synced = 0
+        self.checksums: dict[int, bytes] = {}
+        self.mu = threading.RLock()
+        self._row_cache: dict[int, Row] = {}
+        self._op_file = None
+        # set when a failed append could not be repaired in-place: the
+        # tail is in an unknown state, so appends are refused until
+        # snapshot() rebuilds the file (fsyncgate-style containment)
+        self._op_log_dirty = False
+        self._open = False
+        # occupancy index cache keyed by generation (mmap stores cache
+        # internally; dict stores would otherwise rebuild O(N log N)
+        # per query in the auto-policy estimate)
+        self._occ: Optional[tuple] = None
+        # integrity quarantine: set when verification found corruption.
+        # Reads/writes raise FragmentQuarantinedError (503) until repair
+        # replaces the data; the generation bump at quarantine time
+        # fences plan/device caches off the poisoned content.
+        self.quarantined = False
+        self.quarantine_reason = ""
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def open(self) -> None:
+        with self.mu:
+            if self._open:
+                return
+            if self.path and os.path.exists(self.path):
+                self._load_storage()
+            if self.path and not os.path.exists(self.path):
+                # Initialise new files with an empty snapshot header so the
+                # trailing op log always follows a valid roaring prefix
+                # (reference openStorage, fragment.go:167-224).
+                os.makedirs(os.path.dirname(self.path), exist_ok=True)
+                with open(self.path, "wb") as f:
+                    self.storage.write_to(f)
+            if self.path:
+                self._op_file = open(self.path, "ab")
+                self.storage.op_writer = self._op_file
+            self._recompute_max_row_id()
+            self._open_cache()
+            self._open = True
+
+    def ensure_open(self) -> "Fragment":
+        """Open on first touch (lazy holder trees open fragments in
+        O(touched), matching the reference's mmap-cheap startup)."""
+        if not self._open:
+            self.open()
+        return self
+
+    def _load_storage(self) -> None:
+        """Mmap the roaring file and parse lazily: headers become numpy
+        views over the map, payloads decode on demand, the op-log tail
+        replays into the overlay (reference openStorage,
+        fragment.go:167-224). The mmap stays alive for as long as the
+        storage references it (numpy buffer export); no explicit close.
+
+        Crash recovery runs FIRST: a torn op-log tail (a record cut by
+        SIGKILL or a torn sector write) is truncated to the last fully
+        valid record before the map is created, so every acknowledged
+        (fsynced) write replays and un-acked partials vanish instead of
+        failing the open."""
+        if os.path.getsize(self.path) == 0:
+            return
+        try:
+            self._recover_storage_tail()
+        except Exception:
+            # a rotted header/meta region can make even the recovery
+            # scan unparseable — that is corruption, not a crash
+            self._set_quarantined("snapshot header unparseable at open")
+            return
+        if os.path.getsize(self.path) == 0:
+            return
+        if not self._verify_snapshot_digest():
+            # Never parse (let alone serve) a base that fails its
+            # digest: leave storage empty and quarantine — reads 503
+            # until repair pulls a healthy replica copy.
+            self._set_quarantined("snapshot digest mismatch at open")
+            return
+        self.storage = Bitmap.open_mmap_file(self.path)
+        self.op_n = self.storage.op_n
+
+    def _recover_storage_tail(self) -> None:
+        """Validate the length-framed, checksummed op-log tail and
+        truncate anything past the last intact record. The snapshot
+        prefix is written atomically (tmp + fsync + rename), so only
+        the append-only tail can tear; a file too short to hold even
+        the snapshot header can hold no acknowledged op and resets to
+        empty. The scan maps the file read-only and closes the map
+        before truncating — no live views reference it."""
+        size = os.path.getsize(self.path)
+        if size < bitmap_mod.HEADER_BASE_SIZE:
+            valid_end, n_ops = 0, 0
+        else:
+            with open(self.path, "rb") as f:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                try:
+                    ops_off = bitmap_mod.ops_offset_of(mm)
+                    valid_end, n_ops = bitmap_mod.scan_op_log(mm, ops_off)
+                finally:
+                    mm.close()
+        if valid_end >= size:
+            return
+        truncated = size - valid_end
+        os.truncate(self.path, valid_end)
+        metrics.count(metrics.INGEST_RECOVERY_REPLAYS)
+        metrics.count(metrics.INGEST_RECOVERY_TRUNCATED_BYTES, truncated)
+        events.record(
+            events.INGEST_RECOVERY,
+            index=self.index,
+            field=self.field,
+            shard=self.shard,
+            truncated_bytes=truncated,
+            replayed_ops=n_ops,
+        )
+
+    # -- integrity: digest verification + quarantine (PR 15) -----------------
+
+    def check_serving(self) -> None:
+        """Raise when verification has found corruption: a quarantined
+        fragment must never serve (or accept) bits — a clean 503 beats
+        a silent wrong answer."""
+        if self.quarantined:
+            raise FragmentQuarantinedError(
+                self.index,
+                self.field,
+                self.view,
+                self.shard,
+                self.quarantine_reason,
+            )
+
+    def _set_quarantined(self, reason: str) -> None:
+        """Mark corrupt (caller holds mu, or is inside open()). The
+        generation bump fences plan/device caches off the poisoned
+        content: it bypasses the delta log, so staged snapshots can
+        never patch forward from it."""
+        if self.quarantined:
+            return
+        self.quarantined = True
+        self.quarantine_reason = reason
+        self.generation += 1
+        self._row_cache.clear()
+        self.checksums.clear()
+        self._occ = None
+        metrics.count(metrics.SCRUB_QUARANTINED)
+        events.record(
+            events.SCRUB_QUARANTINE,
+            index=self.index,
+            field=self.field,
+            view=self.view,
+            shard=self.shard,
+            reason=reason,
+        )
+
+    def quarantine(self, reason: str) -> None:
+        with self.mu:
+            self._set_quarantined(reason)
+
+    def clear_quarantine(self) -> None:
+        """Lift the quarantine after repair replaced the data (the
+        repair path bumps generation + delta_reset itself)."""
+        with self.mu:
+            self.quarantined = False
+            self.quarantine_reason = ""
+
+    def _verify_snapshot_digest(self) -> bool:
+        """True when the on-disk snapshot base matches its digest
+        trailer — or the file predates the checksummed format (no
+        trailer). Re-reads the file rather than trusting a live mmap,
+        so rot under the map is seen. The ``bitrot`` storage fault
+        injects here: one base byte flips on disk before the check."""
+        try:
+            with open(self.path, "rb") as f:
+                data = f.read()
+        except OSError:
+            return False
+        if len(data) < bitmap_mod.HEADER_BASE_SIZE:
+            return True  # recovery resets short files to empty
+        try:
+            end = bitmap_mod.snapshot_base_end(data)
+        except Exception:
+            return False  # unparseable header/metas: corrupt
+        if not bitmap_mod.has_digest_trailer(data, end):
+            return True  # legacy file: nothing to verify against
+        spec = FAULTS
+        if spec is not None and spec.bitrot_due():
+            self._flip_disk_byte(max(0, end - 1))
+            with open(self.path, "rb") as f:
+                data = f.read()
+        return bitmap_mod.verify_digest_trailer(data, end)
+
+    def _flip_disk_byte(self, off: int) -> None:
+        """Flip one byte of the on-disk file in place (bitrot fault).
+        Goes through the page cache, so live mmaps see it — exactly
+        the silent-corruption-under-the-map failure mode."""
+        with open(self.path, "r+b") as f:
+            f.seek(off)
+            b = f.read(1)
+            if not b:
+                return
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0x01]))
+            f.flush()
+            os.fsync(f.fileno())
+
+    def verify_integrity(self, deep: bool = False) -> Optional[str]:
+        """Scrub this fragment; returns a reason string when corruption
+        was found (the fragment is quarantined first) or None when
+        clean. Checks, cheapest first: (1) snapshot digest trailer vs a
+        fresh re-read of the base bytes, (2) op-log tail CRC walk, (3)
+        ``deep``: re-parse the file and compare block checksums against
+        the live in-memory storage (catches rot under the mmap that
+        landed after open). Holds mu throughout so no reader can race
+        a flip-then-verify window and serve poisoned bits."""
+        if not self.path:
+            return None
+        with self.mu:
+            if self.quarantined:
+                return self.quarantine_reason
+            if not os.path.exists(self.path):
+                return None
+            if self._op_file:
+                # the scan below reads the file: flush buffered appends
+                # so a half-buffered record isn't mistaken for a tear
+                try:
+                    self._op_file.flush()
+                except OSError:
+                    pass
+            if not self._verify_snapshot_digest():
+                self._set_quarantined("snapshot digest mismatch")
+                return self.quarantine_reason
+            try:
+                with open(self.path, "rb") as f:
+                    data = f.read()
+                ops_off = bitmap_mod.ops_offset_of(data)
+                valid_end, _ = bitmap_mod.scan_op_log(data, ops_off)
+            except Exception:
+                self._set_quarantined("op log unreadable")
+                return self.quarantine_reason
+            if valid_end < len(data):
+                self._set_quarantined(
+                    f"op log CRC mismatch at byte {valid_end}"
+                )
+                return self.quarantine_reason
+            if deep and self.storage.is_mmap_backed():
+                try:
+                    fresh = Bitmap.unmarshal_binary(data)
+                except Exception:
+                    self._set_quarantined("snapshot base unparseable")
+                    return self.quarantine_reason
+                if self._blocks_of(fresh) != self.blocks():
+                    self._set_quarantined(
+                        "on-disk blocks diverge from memory"
+                    )
+                    return self.quarantine_reason
+            return None
+
+    def close(self) -> None:
+        with self.mu:
+            if self._op_file:
+                self.flush_cache()
+                self._op_file.close()
+                self._op_file = None
+                self.storage.op_writer = None
+            self._open = False
+
+    def _recompute_max_row_id(self) -> None:
+        k = self.storage.max_key()
+        self.max_row_id = (k << 16) // SHARD_WIDTH if k is not None else 0
+
+    def cache_path(self) -> Optional[str]:
+        return self.path + ".cache" if self.path else None
+
+    def _open_cache(self) -> None:
+        """Restore cached row ids with a recount (reference openCache,
+        fragment.go:227-266). The recount is a vectorised pass over the
+        container occupancy index — no row materialisation."""
+        p = self.cache_path()
+        if not p or self.quarantined:
+            return  # cache rebuilds after repair
+        ids = cache_mod.read_cache(p)
+        if not ids:
+            return
+        counts = self.row_counts_for(np.asarray(ids, dtype=np.uint64))
+        # restore() recalculates UNCONDITIONALLY: a debounced
+        # invalidate() can be silently skipped when something touched
+        # this cache before the lazy open (e.g. /recalculate-caches
+        # sweeping unopened fragments stamps the debounce clock with
+        # empty rankings) — the restore is authoritative and must
+        # rebuild the rankings
+        self.cache.restore(ids, counts)
+
+    def _row_key_spans(
+        self, row_ids: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(keys, cumsum, lo, hi): each row's container-key range located
+        in ONE occupancy snapshot (row r spans keys [r*16, (r+1)*16));
+        callers must not mix arrays from separate snapshots — a mutation
+        between calls can change the index length."""
+        self.check_serving()
+        occ = self._occ
+        if occ is None or occ[0] != self.generation:
+            # capture the generation BEFORE reading: if a writer bumps
+            # it mid-read we cache under the OLD tag and refresh on the
+            # next call, instead of pinning a stale snapshot to the new
+            # generation
+            gen = self.generation
+            keys, cs = self.storage.occupancy()
+            self._occ = occ = (gen, keys, cs)
+        _, keys, cs = occ
+        first = row_ids.astype(np.uint64) * np.uint64(SHARD_WIDTH >> 16)
+        last = (row_ids.astype(np.uint64) + np.uint64(1)) * np.uint64(
+            SHARD_WIDTH >> 16
+        )
+        if keys.dtype != np.uint64:
+            # occupancy downcasts keys (with a 16-key margin) — clamp
+            # out-of-range rows to the dtype max; they bisect past every
+            # real key, so lo == hi and the row counts 0
+            cap = np.uint64(np.iinfo(keys.dtype).max)
+            first = np.minimum(first, cap)
+            last = np.minimum(last, cap)
+        first = first.astype(keys.dtype)
+        last = last.astype(keys.dtype)
+        return keys, cs, np.searchsorted(keys, first), np.searchsorted(keys, last)
+
+    def row_counts_for(self, row_ids: np.ndarray) -> np.ndarray:
+        """Per-row bit counts for many rows from container cardinalities
+        alone — O(R log N) over the cached occupancy index, no payload
+        decode."""
+        _, cs, lo, hi = self._row_key_spans(row_ids)
+        return cs[hi].astype(np.int64) - cs[lo].astype(np.int64)
+
+    def flush_cache(self) -> None:
+        p = self.cache_path()
+        if p:
+            # snapshot ids under the fragment lock (concurrent writers
+            # mutate cache entries); write_cache itself is atomic
+            with self.mu:
+                ids = self.cache.ids()
+            cache_mod.write_cache(p, ids)
+
+    # -- row materialisation -------------------------------------------------
+
+    def row(self, row_id: int) -> Row:
+        with self.mu:
+            return self._unprotected_row(row_id)
+
+    def _unprotected_row(self, row_id: int, update_cache: bool = True) -> Row:
+        self.check_serving()
+        r = self._row_cache.get(row_id)
+        if r is not None:
+            return r
+        data = self.storage.offset_range(
+            self.shard * SHARD_WIDTH, row_id * SHARD_WIDTH, (row_id + 1) * SHARD_WIDTH
+        ).clone()
+        r = Row.from_segment(self.shard, data)
+        if update_cache:
+            self._row_cache[row_id] = r
+        return r
+
+    def row_ids(self) -> list[int]:
+        """All rows with at least one bit (container key >> 4 = row id,
+        since 2^20/2^16 = 16 containers per row)."""
+        keys, _ = self.storage.keys_and_counts()
+        return np.unique(keys >> np.uint64(4)).tolist()
+
+    # -- bit ops -------------------------------------------------------------
+
+    def set_bit(self, row_id: int, column_id: int) -> bool:
+        with self.mu:
+            return self._unprotected_set_bit(row_id, column_id)
+
+    def _check_pos(self, row_id: int, column_id: int) -> int:
+        min_col = self.shard * SHARD_WIDTH
+        if not (min_col <= column_id < min_col + SHARD_WIDTH):
+            raise ValueError("column out of bounds")
+        return pos(row_id, column_id)
+
+    def _unprotected_set_bit(self, row_id: int, column_id: int) -> bool:
+        self.check_serving()
+        p = self._check_pos(row_id, column_id)
+        if not self.storage.add(p):
+            return False
+        self.generation += 1
+        self._delta_append(p, True)
+        self.checksums.pop(row_id // HASH_BLOCK_SIZE, None)
+        self._increment_op_n()
+        row = self._unprotected_row(row_id)
+        row.set_bit(column_id)
+        self.cache.add(row_id, row.count())
+        if row_id > self.max_row_id:
+            self.max_row_id = row_id
+        return True
+
+    def clear_bit(self, row_id: int, column_id: int) -> bool:
+        with self.mu:
+            return self._unprotected_clear_bit(row_id, column_id)
+
+    def _unprotected_clear_bit(self, row_id: int, column_id: int) -> bool:
+        self.check_serving()
+        p = self._check_pos(row_id, column_id)
+        if not self.storage.remove(p):
+            return False
+        self.generation += 1
+        self._delta_append(p, False)
+        self.checksums.pop(row_id // HASH_BLOCK_SIZE, None)
+        self._increment_op_n()
+        row = self._unprotected_row(row_id)
+        row.clear_bit(column_id)
+        self.cache.add(row_id, row.count())
+        return True
+
+    def bit(self, row_id: int, column_id: int) -> bool:
+        self.check_serving()
+        return self.storage.contains(self._check_pos(row_id, column_id))
+
+    def _increment_op_n(self) -> None:
+        self.op_n += 1
+        if self.op_n > self.max_op_n:
+            self.snapshot()
+
+    # -- group-committed write waves (server/ingest.py) ----------------------
+
+    def apply_bit_batch(self, row_ids, column_ids, is_set=None) -> int:
+        """Apply many single-bit mutations as ONE durable write wave:
+        every changed bit lands in a single length-framed, checksummed
+        OP_BATCH append followed by ONE fsync (group commit), the
+        device-delta log gains the whole wave under ONE generation bump
+        (one plan-cache invalidation, one stager scatter), and each
+        touched row recounts once. ``is_set`` defaults to all-True.
+        Returns the number of bits that actually changed. Raises
+        OSError when the append or fsync fails (real or injected) —
+        the caller must NOT acknowledge the wave; the fragment is
+        left unmodified, so retrying the wave is safe."""
+        rows = np.asarray(_sized(row_ids), dtype=np.uint64)
+        cols = np.asarray(_sized(column_ids), dtype=np.uint64)
+        if is_set is None:
+            sets = np.ones(rows.size, dtype=bool)
+        else:
+            sets = np.asarray(_sized(is_set), dtype=bool)
+        if rows.size != cols.size or rows.size != sets.size:
+            raise ValueError("row/column/is_set length mismatch")
+        if rows.size == 0:
+            return 0
+        with self.mu:
+            self.check_serving()
+            pairs = [
+                (self._check_pos(r, c), bool(s), int(r))
+                for r, c, s in zip(rows.tolist(), cols.tolist(), sets.tolist())
+            ]
+            return self._apply_op_wave(pairs)
+
+    def _apply_op_wave(self, pairs: list[tuple[int, bool, int]]) -> int:
+        """Apply (position, is_set, row_id) mutations in arrival order
+        as one group-committed wave. Called with mu held. Write-ahead
+        order: the wave's changed ops are computed against the current
+        bits, appended and fsynced FIRST, and only then applied in
+        memory — a failed append leaves the fragment untouched, so a
+        client retry of the nacked wave recomputes the identical ops
+        and re-appends them. (Without this, a retry after a failed
+        append would see every bit already set, log nothing, and get
+        acked with nothing in the fsynced log — losing the write on
+        the next crash.)"""
+        ops: list[tuple[int, int]] = []
+        deltas: list[tuple[int, bool]] = []
+        touched: set[int] = set()
+        pending: dict[int, bool] = {}  # intra-wave state (clear-then-set pairs)
+        for p, s, r in pairs:
+            cur = pending.get(p)
+            if cur is None:
+                cur = self.storage.contains(p)
+            if cur == s:
+                continue
+            pending[p] = s
+            ops.append((bitmap_mod.OP_ADD if s else bitmap_mod.OP_REMOVE, p))
+            deltas.append((p, s))
+            touched.add(r)
+        if not ops:
+            return 0
+        self._append_op_batch(ops)  # raises -> nothing mutated, clean nack
+        for op, p in ops:
+            if op == bitmap_mod.OP_ADD:
+                self.storage.add_no_oplog(p)
+            else:
+                self.storage.remove_no_oplog(p)
+        self.generation += 1
+        self._delta_extend(deltas)
+        for r in touched:
+            self._row_cache.pop(r, None)
+            self.checksums.pop(r // HASH_BLOCK_SIZE, None)
+        counts = self.row_counts_for(
+            np.fromiter(touched, dtype=np.uint64, count=len(touched))
+        )
+        for row_id, cnt in zip(touched, counts):
+            # drop first: bulk_add's threshold guard would keep a
+            # stale higher count for rows the wave cleared
+            self.cache.remove(row_id)
+            if cnt > 0:
+                self.cache.bulk_add(row_id, int(cnt))
+        self.cache.invalidate()
+        top = max(touched)
+        if top > self.max_row_id:
+            self.max_row_id = top
+        self.op_n += len(ops)
+        self.storage.op_n += len(ops)
+        if self.op_n > self.max_op_n:
+            self.snapshot()
+        return len(ops)
+
+    def _append_op_batch(self, ops: list[tuple[int, int]]) -> None:
+        """One OP_BATCH append + ONE fsync for the whole wave — the
+        group commit. Storage faults (if installed) inject here.
+
+        A failed append leaves a partial or un-durable record at the
+        tail; LATER appends must not land behind it (the recovery
+        scan stops at the first invalid record, which would strand
+        every acked wave after it). So on ANY failure — write OR
+        fsync, since after a real fsync EIO the kernel may already
+        have discarded the dirty pages — the log invariant is
+        restored in-place: truncate back to the pre-append offset
+        before re-raising the nack. If the repair itself fails the
+        log is poisoned and the next wave rebuilds the whole file
+        via snapshot() before it may append."""
+        if self._op_log_dirty:
+            # fsyncgate aftermath: a failed repair left the tail in an
+            # unknown state. snapshot() rebuilds the file wholesale
+            # (atomic tmp + fsync + rename) and clears the flag; if it
+            # raises, this wave nacks and the log stays poisoned.
+            self.snapshot()
+        f = self._op_file
+        if f is None:
+            if self.path and self._open:
+                raise OSError(5, "fragment op log unavailable")
+            return
+        rec = bitmap_mod.marshal_op_batch(ops)
+        spec = FAULTS
+        start = f.tell()
+        try:
+            if spec is not None:
+                spec.write(f, rec)
+            else:
+                f.write(rec)
+            f.flush()
+            t0 = time.monotonic()
+            if spec is not None:
+                spec.fsync(f.fileno())
+            else:
+                os.fsync(f.fileno())
+        except BaseException:
+            self._repair_op_log_tail(f, start)
+            raise
+        metrics.observe(metrics.INGEST_FSYNC_SECONDS, time.monotonic() - t0)
+
+    def _repair_op_log_tail(self, f, start: int) -> None:
+        """Drop whatever landed past the pre-append offset after a
+        failed wave append, then fsync the truncate so the repaired
+        tail is itself durable. Never raises: a repair failure (or a
+        flush that lost bytes BEFORE this wave's record, leaving an
+        unknowable tail) poisons the log instead, so no further
+        appends are admitted until snapshot() rebuilds the file."""
+        try:
+            try:
+                f.flush()
+            except OSError:
+                pass  # the truncate below drops whatever couldn't land
+            size = os.path.getsize(self.path)
+            if size < start:
+                # bytes buffered before this wave never reached the
+                # file: the tail may end in a partial earlier record
+                # at an offset we cannot recover from f's buffer
+                self._op_log_dirty = True
+                return
+            if size > start:
+                os.truncate(self.path, start)
+                os.fsync(f.fileno())
+            # resync the buffered writer: tell() must report the real
+            # tail, or the NEXT failed wave would truncate to a stale
+            # larger offset and extend the file with a zero gap
+            f.seek(0, os.SEEK_END)
+        except BaseException:
+            self._op_log_dirty = True
+
+    # -- device-delta log (snapshot + delta staging model) -------------------
+
+    def _delta_append(self, p: int, is_set: bool) -> None:
+        """Record one single-bit mutation; called with mu held, AFTER
+        the generation bump it describes."""
+        if self.generation != self._delta_synced + 1:
+            # untracked generation bumps happened since the last logged
+            # mutation (external restore, etc.) — nothing older than
+            # this write is provably replayable
+            self._delta_log.clear()
+            self._delta_floor = self.generation - 1
+        self._delta_log.append((self.generation, p, is_set))
+        self._delta_synced = self.generation
+        if len(self._delta_log) > self.delta_log_max:
+            dropped_gen, _, _ = self._delta_log.popleft()
+            self._delta_floor = dropped_gen
+
+    def _delta_extend(self, entries: list[tuple[int, bool]]) -> None:
+        """Batch form of :meth:`_delta_append`: the whole write wave
+        lands under ONE generation — the plan cache invalidates once
+        and the stager absorbs the wave as one coalesced scatter.
+        Called with mu held, AFTER the single generation bump."""
+        if self.generation != self._delta_synced + 1:
+            self._delta_log.clear()
+            self._delta_floor = self.generation - 1
+        self._delta_synced = self.generation
+        if len(entries) >= self.delta_log_max:
+            # the wave alone overflows the log: snapshots staged at any
+            # earlier generation full-rebuild, ones at THIS generation
+            # (staged after the wave) replay nothing — both provable
+            self._delta_log.clear()
+            self._delta_floor = self.generation
+            return
+        g = self.generation
+        for p, s in entries:
+            self._delta_log.append((g, p, s))
+        while len(self._delta_log) > self.delta_log_max:
+            dropped_gen, _, _ = self._delta_log.popleft()
+            self._delta_floor = dropped_gen
+
+    def _delta_reset(self) -> None:
+        """Invalidate the log after a wholesale content change (bulk
+        import, block merge, restore): staged snapshots older than the
+        current generation must full-rebuild. Called with mu held,
+        AFTER the generation bump."""
+        self._delta_log.clear()
+        self._delta_floor = self._delta_synced = self.generation
+
+    def delta_reset(self) -> None:
+        """Public form for callers that replace storage outright (e.g.
+        the fragment-restore API) — pairs with their generation bump."""
+        with self.mu:
+            self._delta_reset()
+
+    def deltas_since(
+        self, gen: int
+    ) -> Optional[tuple[np.ndarray, np.ndarray, int]]:
+        """Mutations between snapshot generation ``gen`` and now, as
+        (positions uint64[N], is_set bool[N], current_generation) in log
+        order, or None when the log cannot prove continuity (snapshot
+        older than the truncation floor, an untracked generation bump,
+        or a bulk rewrite since ``gen``). An empty N with a newer
+        current_generation happens only after content-preserving bumps
+        (snapshot()) and is a valid "nothing to replay" answer."""
+        with self.mu:
+            cur = self.generation
+            if cur != self._delta_synced or gen < self._delta_floor or gen > cur:
+                return None
+            entries = [(p, s) for g, p, s in self._delta_log if g > gen]
+            if not entries:
+                return np.empty(0, dtype=np.uint64), np.empty(0, dtype=bool), cur
+            pos = np.fromiter(
+                (p for p, _ in entries), dtype=np.uint64, count=len(entries)
+            )
+            is_set = np.fromiter(
+                (s for _, s in entries), dtype=bool, count=len(entries)
+            )
+            return pos, is_set, cur
+
+    # -- BSI value ops (reference fragment.go:467-836) -----------------------
+
+    def value(self, column_id: int, bit_depth: int) -> tuple[int, bool]:
+        with self.mu:
+            if not self.bit(bit_depth, column_id):
+                return 0, False
+            v = 0
+            for i in range(bit_depth):
+                if self.bit(i, column_id):
+                    v |= 1 << i
+            return v, True
+
+    def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
+        with self.mu:
+            changed = False
+            for i in range(bit_depth):
+                if (value >> i) & 1:
+                    changed |= self._unprotected_set_bit(i, column_id)
+                else:
+                    changed |= self._unprotected_clear_bit(i, column_id)
+            changed |= self._unprotected_set_bit(bit_depth, column_id)
+            return changed
+
+    def sum(self, filter_row: Optional[Row], bit_depth: int) -> tuple[int, int]:
+        row = self.row(bit_depth)
+        count = row.intersection_count(filter_row) if filter_row is not None else row.count()
+        total = 0
+        for i in range(bit_depth):
+            r = self.row(i)
+            cnt = r.intersection_count(filter_row) if filter_row is not None else r.count()
+            total += (1 << i) * cnt
+        return total, count
+
+    def min(self, filter_row: Optional[Row], bit_depth: int) -> tuple[int, int]:
+        consider = self.row(bit_depth)
+        if filter_row is not None:
+            consider = consider.intersect(filter_row)
+        if consider.count() == 0:
+            return 0, 0
+        vmin = 0
+        count = 0
+        for ii in reversed(range(bit_depth)):
+            row = self.row(ii)
+            x = consider.difference(row)
+            count = x.count()
+            if count > 0:
+                consider = x
+            else:
+                vmin += 1 << ii
+                if ii == 0:
+                    count = consider.count()
+        return vmin, count
+
+    def max(self, filter_row: Optional[Row], bit_depth: int) -> tuple[int, int]:
+        consider = self.row(bit_depth)
+        if filter_row is not None:
+            consider = consider.intersect(filter_row)
+        if consider.count() == 0:
+            return 0, 0
+        vmax = 0
+        count = 0
+        for ii in reversed(range(bit_depth)):
+            row = self.row(ii)
+            x = row.intersect(consider)
+            count = x.count()
+            if count > 0:
+                vmax += 1 << ii
+                consider = x
+            elif ii == 0:
+                count = consider.count()
+        return vmax, count
+
+    def range_op(self, op: str, bit_depth: int, predicate: int) -> Row:
+        if op == "==":
+            return self.range_eq(bit_depth, predicate)
+        if op == "!=":
+            return self.range_neq(bit_depth, predicate)
+        if op in ("<", "<="):
+            return self.range_lt(bit_depth, predicate, op == "<=")
+        if op in (">", ">="):
+            return self.range_gt(bit_depth, predicate, op == ">=")
+        raise ValueError(f"invalid range operation: {op}")
+
+    def range_eq(self, bit_depth: int, predicate: int) -> Row:
+        b = self.row(bit_depth)
+        for i in reversed(range(bit_depth)):
+            row = self.row(i)
+            if (predicate >> i) & 1:
+                b = b.intersect(row)
+            else:
+                b = b.difference(row)
+        return b
+
+    def range_neq(self, bit_depth: int, predicate: int) -> Row:
+        return self.row(bit_depth).difference(self.range_eq(bit_depth, predicate))
+
+    def range_lt(self, bit_depth: int, predicate: int, allow_equality: bool) -> Row:
+        keep = Row()
+        b = self.row(bit_depth)
+        leading_zeros = True
+        for i in reversed(range(bit_depth)):
+            row = self.row(i)
+            bit = (predicate >> i) & 1
+            if leading_zeros:
+                if bit == 0:
+                    b = b.difference(row)
+                    continue
+                leading_zeros = False
+            if i == 0 and not allow_equality:
+                if bit == 0:
+                    return keep
+                return b.difference(row.difference(keep))
+            if bit == 0:
+                b = b.difference(row.difference(keep))
+                continue
+            if i > 0:
+                keep = keep.union(b.difference(row))
+        return b
+
+    def range_gt(self, bit_depth: int, predicate: int, allow_equality: bool) -> Row:
+        b = self.row(bit_depth)
+        keep = Row()
+        for i in reversed(range(bit_depth)):
+            row = self.row(i)
+            bit = (predicate >> i) & 1
+            if i == 0 and not allow_equality:
+                if bit == 1:
+                    return keep
+                return b.difference(b.difference(row).difference(keep))
+            if bit == 1:
+                b = b.difference(b.difference(row).difference(keep))
+                continue
+            if i > 0:
+                keep = keep.union(b.intersect(row))
+        return b
+
+    def not_null(self, bit_depth: int) -> Row:
+        return self.row(bit_depth)
+
+    def range_between(self, bit_depth: int, pred_min: int, pred_max: int) -> Row:
+        b = self.row(bit_depth)
+        keep1 = Row()
+        keep2 = Row()
+        for i in reversed(range(bit_depth)):
+            row = self.row(i)
+            bit1 = (pred_min >> i) & 1
+            bit2 = (pred_max >> i) & 1
+            if bit1 == 1:
+                b = b.difference(b.difference(row).difference(keep1))
+            elif i > 0:
+                keep1 = keep1.union(b.intersect(row))
+            if bit2 == 0:
+                b = b.difference(row.difference(keep2))
+            elif i > 0:
+                keep2 = keep2.union(b.difference(row))
+        return b
+
+    # -- TopN (reference fragment.top:867-1002) ------------------------------
+
+    def top(self, opt: TopOptions) -> list[tuple[int, int]]:
+        """Returns [(row_id, count)] ranked descending, reproducing the
+        reference's ranked-cache + threshold-pruning walk."""
+        pairs = self._top_bitmap_pairs(opt.row_ids)
+        n = 0 if opt.row_ids else opt.n
+
+        filters = None
+        if opt.filter_name and opt.filter_values:
+            filters = set()
+            for v in opt.filter_values:
+                filters.add(v if not isinstance(v, list) else tuple(v))
+
+        tanimoto_threshold = 0
+        min_tanimoto = max_tanimoto = 0.0
+        src_count = 0
+        if opt.tanimoto_threshold > 0 and opt.src is not None:
+            tanimoto_threshold = opt.tanimoto_threshold
+            src_count = opt.src.count()
+            min_tanimoto = float(src_count * tanimoto_threshold) / 100
+            max_tanimoto = float(src_count * 100) / float(tanimoto_threshold)
+
+        results: list[tuple[int, int]] = []  # min-heap of (count, row_id)
+        for row_id, cnt in pairs:
+            if cnt <= 0:
+                continue
+            if tanimoto_threshold > 0:
+                if float(cnt) <= min_tanimoto or float(cnt) >= max_tanimoto:
+                    continue
+            elif cnt < opt.min_threshold:
+                continue
+            if filters is not None:
+                attr = (
+                    self.row_attr_store.attrs(row_id) if self.row_attr_store else None
+                )
+                if not attr:
+                    continue
+                value = attr.get(opt.filter_name)
+                if value is None or value not in filters:
+                    continue
+
+            if n == 0 or len(results) < n:
+                count = cnt
+                if opt.src is not None:
+                    count = opt.src.intersection_count(self.row(row_id))
+                if count == 0:
+                    continue
+                if tanimoto_threshold > 0:
+                    tanimoto = math.ceil(
+                        float(count * 100) / float(cnt + src_count - count)
+                    )
+                    if tanimoto <= float(tanimoto_threshold):
+                        continue
+                elif count < opt.min_threshold:
+                    continue
+                heapq.heappush(results, (count, row_id))
+                if n > 0 and len(results) == n and opt.src is None:
+                    break
+                continue
+
+            threshold = results[0][0]
+            if threshold < opt.min_threshold or cnt < threshold:
+                break
+            count = opt.src.intersection_count(self.row(row_id))
+            if count < threshold:
+                continue
+            heapq.heappush(results, (count, row_id))
+
+        out = []
+        while results:
+            count, row_id = heapq.heappop(results)
+            out.append((row_id, count))
+        out.reverse()
+        return out
+
+    def _top_bitmap_pairs(self, row_ids: list[int]) -> list[tuple[int, int]]:
+        """reference topBitmapPairs (fragment.go:1004-1044)."""
+        if self.cache_type == cache_mod.CACHE_TYPE_NONE:
+            return self.cache.top()
+        if not row_ids:
+            with self.mu:
+                self.cache.invalidate()
+                return self.cache.top()
+        pairs = []
+        missing = []
+        for row_id in row_ids:
+            n = self.cache.get(row_id)
+            if n > 0:
+                pairs.append((row_id, n))
+            else:
+                missing.append(row_id)
+        if missing:
+            # vectorised recount from the occupancy index — same number
+            # as row(id).count() without materialising the rows
+            counts = self.row_counts_for(np.asarray(missing, dtype=np.uint64))
+            pairs += [
+                (r, int(cnt)) for r, cnt in zip(missing, counts) if cnt > 0
+            ]
+        return cache_mod.sort_pairs(pairs)
+
+    # -- bulk import (reference bulkImport:1296-1397) ------------------------
+
+    def bulk_import(self, row_ids: Iterable[int], column_ids: Iterable[int]) -> None:
+        """Vectorised set of many bits, bypassing the op log, then snapshot.
+
+        The reference loops storage.Add per bit; we merge a bulk-built
+        bitmap (union of sorted positions) — same result, orders of
+        magnitude faster in Python, and the post-import snapshot persists
+        identically.
+        """
+        rows = np.asarray(_sized(row_ids), dtype=np.uint64)
+        cols = np.asarray(_sized(column_ids), dtype=np.uint64)
+        if rows.size != cols.size:
+            raise ValueError("row/column id mismatch")
+        if rows.size == 0:
+            return
+        with self.mu:
+            positions = rows * np.uint64(SHARD_WIDTH) + (
+                cols % np.uint64(SHARD_WIDTH)
+            )
+            positions = np.unique(positions)
+            if positions.size <= self.delta_max_batch:
+                # small batch: the delta path (one group-commit append,
+                # one generation bump, one device scatter) — routing it
+                # through merge+snapshot would `_delta_reset()` and
+                # force every staged block to full-rebuild (the
+                # bulk-import cliff)
+                self._apply_op_wave(
+                    [
+                        (int(p), True, int(p // np.uint64(SHARD_WIDTH)))
+                        for p in positions
+                    ]
+                )
+                return
+            self.storage.merge_positions(add=positions)
+            self.generation += 1
+            self._delta_reset()  # bulk rewrite: staged snapshots rebuild
+            self._row_cache.clear()
+            self.checksums.clear()
+            # recount touched rows from container cardinalities in one
+            # vectorized pass — materializing each row walked the whole
+            # container key space per row (observed: 65 s of a 71 s
+            # 2M-bit import, O(rows × containers))
+            touched = np.unique(rows)
+            counts = self.row_counts_for(touched)
+            for row_id, n in zip(touched.tolist(), counts.tolist()):
+                self.cache.bulk_add(int(row_id), int(n))
+            top = int(touched[-1])
+            if top > self.max_row_id:
+                self.max_row_id = top
+            self.cache.invalidate()
+            self.snapshot()
+
+    def import_value(
+        self, column_ids: Iterable[int], values: Iterable[int], bit_depth: int
+    ) -> None:
+        """Bulk BSI import (reference importValue:1363-1397), vectorised:
+        clear every imported column's bit planes in one difference, then
+        union in the set bits — identical to the reference's per-bit
+        add/remove loop, last write winning for duplicate columns."""
+        cols = np.asarray(_sized(column_ids), dtype=np.uint64)
+        vals = np.asarray(_sized(values), dtype=np.uint64)
+        if cols.size != vals.size:
+            raise ValueError("column/value mismatch")
+        if cols.size == 0:
+            return
+        min_col = self.shard * SHARD_WIDTH
+        if int(cols.min()) < min_col or int(cols.max()) >= min_col + SHARD_WIDTH:
+            raise ValueError("column out of bounds")
+        with self.mu:
+            # last write wins for duplicate columns (the reference's
+            # sequential loop overwrites earlier values)
+            _, last_idx = np.unique(cols[::-1], return_index=True)
+            keep = cols.size - 1 - last_idx
+            cols_l = (cols[keep] % np.uint64(SHARD_WIDTH)).astype(np.uint64)
+            vals_k = vals[keep]
+            sw = np.uint64(SHARD_WIDTH)
+            clear_pos = []
+            set_pos = []
+            for i in range(bit_depth):
+                base = np.uint64(i) * sw
+                clear_pos.append(base + cols_l)
+                mask = (vals_k >> np.uint64(i)) & np.uint64(1) == 1
+                set_pos.append(base + cols_l[mask])
+            nn = np.uint64(bit_depth) * sw + cols_l  # not-null plane
+            set_pos.append(nn)
+            set_all = np.unique(np.concatenate(set_pos))
+            clear_all = (
+                np.unique(np.concatenate(clear_pos)) if clear_pos else None
+            )  # bit_depth == 0 (min == max) has no planes
+            self.storage.merge_positions(add=set_all, remove=clear_all)
+            self.generation += 1
+            self._delta_reset()  # bulk rewrite: staged snapshots rebuild
+            self._row_cache.clear()
+            self.checksums.clear()
+            self._recompute_max_row_id()
+            self.snapshot()
+
+    # -- snapshot / persistence ---------------------------------------------
+
+    def snapshot(self) -> None:
+        """Write a full roaring snapshot and truncate the op log
+        (reference snapshot:1425-1468)."""
+        with self.mu:
+            self.generation += 1
+            if self._delta_synced == self.generation - 1:
+                # content-preserving bump: the snapshot changes the
+                # on-disk base, not the bit set, so staged snapshots
+                # remain patchable — the log stays authoritative
+                self._delta_synced = self.generation
+            if not self.path:
+                self.op_n = 0
+                self.storage.op_n = 0
+                self._op_log_dirty = False
+                return
+            if self._op_file:
+                self._op_file.close()
+                self._op_file = None
+            tmp = self.path + ".snapshotting"
+            spec = FAULTS
+            with open(tmp, "w+b") as f:
+                n = self.storage.write_to(f)
+                f.flush()
+                f.seek(0)
+                base = f.read(n)
+                # digest the base BEFORE any injected corruption: the
+                # corrupt_write fault models bytes rotting between the
+                # digest computation and the media, which is exactly
+                # what verification must catch
+                trailer = bitmap_mod.make_digest_trailer(base)
+                if spec is not None:
+                    off = spec.corrupt_offset(n)
+                    if off is not None:
+                        f.seek(off)
+                        f.write(bytes([base[off] ^ 0x01]))
+                f.seek(n)
+                f.write(trailer)
+                f.flush()
+                os.fsync(f.fileno())
+            if spec is not None:
+                spec.kill_point("pre")
+            os.replace(tmp, self.path)
+            if spec is not None:
+                spec.kill_point("post")
+            # the base just changed: the occupancy sidecar is stale by
+            # construction (its stamp may even collide — equal size +
+            # container count after a balanced clear/set pair), so
+            # remove it; the next occupancy() regenerates it
+            try:
+                os.unlink(self.path + ".occ")
+            except OSError:
+                pass
+            if self.storage.is_mmap_backed():
+                # Re-map the fresh snapshot so the overlay drains back
+                # into the frozen base (reference snapshot re-mmaps,
+                # fragment.go:1425-1468). The old map is freed when the
+                # last view into it is garbage-collected.
+                self._load_storage()
+            self._op_file = open(self.path, "ab")
+            self.storage.op_writer = self._op_file
+            self.op_n = 0
+            self.storage.op_n = 0
+            # the file was rebuilt wholesale: any poisoned tail is gone
+            self._op_log_dirty = False
+
+    # -- block checksums for anti-entropy (reference Blocks:1078) ------------
+
+    def checksum(self) -> bytes:
+        """Checksum of the entire fragment."""
+        h = hashlib.blake2b(digest_size=16)
+        for _, digest in self.blocks():
+            h.update(digest)
+        return h.digest()
+
+    def blocks(self) -> list[tuple[int, bytes]]:
+        """(block_id, checksum) for each 100-row block with any bits."""
+        return self._blocks_of(self.storage)
+
+    @staticmethod
+    def _blocks_of(storage) -> list[tuple[int, bytes]]:
+        """blocks() over an arbitrary Bitmap — the deep scrub compares
+        the live storage against a fresh re-read of the file."""
+        out: dict[int, "hashlib._Hash"] = {}
+        order: list[int] = []
+        for key in storage._iter_keys_sorted():
+            c = storage.containers[key]
+            if not c.n:
+                continue
+            row_id = (key << 16) // SHARD_WIDTH
+            block = row_id // HASH_BLOCK_SIZE
+            h = out.get(block)
+            if h is None:
+                h = hashlib.blake2b(digest_size=16)
+                out[block] = h
+                order.append(block)
+            h.update(key.to_bytes(8, "little"))
+            h.update(c.positions().tobytes())
+        return [(b, out[b].digest()) for b in order]
+
+    def block_data(self, block_id: int) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ids, column_ids) pairs for one block (reference
+        fragment.rowColumnPairs path used by BlockData)."""
+        start = block_id * HASH_BLOCK_SIZE * SHARD_WIDTH
+        end = (block_id + 1) * HASH_BLOCK_SIZE * SHARD_WIDTH
+        positions = self.storage.slice_range(start, end)
+        rows = positions // np.uint64(SHARD_WIDTH)
+        cols = positions % np.uint64(SHARD_WIDTH)
+        return rows, cols
+
+    def import_block_pairs(self, rows: np.ndarray, cols: np.ndarray, clear_rows=None, clear_cols=None) -> None:
+        """Apply an anti-entropy block merge: set the given pairs, clear others."""
+        with self.mu:
+            n_pairs = len(rows) + (len(clear_rows) if clear_rows is not None else 0)
+            if 0 < n_pairs <= self.delta_max_batch:
+                # small merge: delta path — clears before sets, so a
+                # pair in both ends set (same order as the loop below)
+                wave: list[tuple[int, bool, int]] = []
+                if clear_rows is not None and len(clear_rows):
+                    wave += [
+                        (pos(int(r), int(c)), False, int(r))
+                        for r, c in zip(clear_rows, clear_cols)
+                    ]
+                wave += [
+                    (pos(int(r), int(c)), True, int(r))
+                    for r, c in zip(rows, cols)
+                ]
+                self._apply_op_wave(wave)
+                return
+            if clear_rows is not None and len(clear_rows):
+                for r, c in zip(clear_rows, clear_cols):
+                    p = pos(int(r), int(c))
+                    self.storage.remove_no_oplog(p)
+            for r, c in zip(rows, cols):
+                self.storage.add_no_oplog(pos(int(r), int(c)))
+            self.generation += 1
+            self._delta_reset()  # block merge: staged snapshots rebuild
+            self._row_cache.clear()
+            self.checksums.clear()
+            self._recompute_max_row_id()
+            # recount touched rows so the TopN cache tracks the merged
+            # state (the reference's write paths recount via cache.Add)
+            touched = {int(r) for r in rows}
+            if clear_rows is not None:
+                touched.update(int(r) for r in clear_rows)
+            if touched:
+                counts = self.row_counts_for(
+                    np.fromiter(touched, dtype=np.uint64, count=len(touched))
+                )
+                for row_id, cnt in zip(touched, counts):
+                    # drop first: bulk_add's threshold guard would
+                    # otherwise keep a stale higher count for rows the
+                    # merge shrank or emptied
+                    self.cache.remove(row_id)
+                    if cnt > 0:
+                        self.cache.bulk_add(row_id, int(cnt))
+                self.cache.invalidate()
+
+    # -- packed-word export for device staging -------------------------------
+
+    def row_words(self, row_id: int) -> np.ndarray:
+        """One row as packed uint64[16384] (2^20 bits)."""
+        self.check_serving()
+        return self.storage.to_words_range(
+            row_id * SHARD_WIDTH, (row_id + 1) * SHARD_WIDTH
+        )
+
+    def packed_rows(self, row_ids: list[int]) -> np.ndarray:
+        """Stack of rows: uint64[len(row_ids), 16384]."""
+        out = np.zeros((len(row_ids), SHARD_WIDTH // 64), dtype=np.uint64)
+        for i, r in enumerate(row_ids):
+            out[i] = self.row_words(r)
+        return out
+
+    def row_matrix(self) -> tuple[list[int], np.ndarray]:
+        """(row_ids, uint64[R, 16384]) for all non-empty rows — the HBM
+        staging block for whole-fragment scans (TopN)."""
+        ids = self.row_ids()
+        return ids, self.packed_rows(ids)
+
+    def sparse_block_count(self, row_ids: list[int]) -> int:
+        """Number of nonempty container blocks across the given rows —
+        the sparse-staging cost estimate (dense cost is 16 per row)."""
+        _, _, lo, hi = self._row_key_spans(np.asarray(row_ids, dtype=np.uint64))
+        return int((hi - lo).sum())
+
+    def sparse_row_blocks(
+        self, row_ids: list[int]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Block-sparse staging form of the given rows: only nonempty
+        2^16-bit container blocks, as (blocks u64[B, 1024],
+        block_row i32[B] — index into row_ids, block_slot i32[B] — the
+        block's position within its row). The container occupancy index
+        is the sparsity map (SURVEY.md §7 hard part 2)."""
+        from pilosa_tpu_torch.roaring.bitmap import BITMAP_N
+
+        rids = np.asarray(row_ids, dtype=np.uint64)
+        per = 16
+        keys, _, lo, hi = self._row_key_spans(rids)
+        counts = (hi - lo).astype(np.int64)
+        B = int(counts.sum())
+        blocks = np.zeros((B, BITMAP_N), dtype=np.uint64)
+        block_row = np.repeat(np.arange(rids.size, dtype=np.int32), counts)
+        if B == 0:
+            return blocks, block_row, np.zeros(0, dtype=np.int32)
+        key_idx = np.concatenate(
+            [np.arange(l, h, dtype=np.int64) for l, h in zip(lo, hi) if h > l]
+        )
+        sel_keys = keys[key_idx]
+        block_slot = (sel_keys.astype(np.int64) % per).astype(np.int32)
+        store = self.storage.containers
+        # fast path: for a PURE mmap store the occupancy indices ARE
+        # base indices, and the native kernel expands every selected
+        # container straight from the map into `blocks` — no Python
+        # iteration per container (the staging pack's hot loop). The
+        # snapshot length rides along so a stale occupancy snapshot
+        # (taken mid-mutation by this lockless reader) can never feed
+        # shifted indices to the native decode.
+        if not (
+            hasattr(store, "expand_base_blocks")
+            and store.expand_base_blocks(key_idx, blocks, snapshot_len=keys.size)
+        ):
+            for j, k in enumerate(sel_keys):
+                c = store.get(int(k))
+                if c is not None and c.n:
+                    blocks[j] = c.words()
+        return blocks, block_row, block_slot
+
+    def bsi_planes(self, bit_depth: int) -> np.ndarray:
+        """uint64[bit_depth+1, 16384] plane stack (plane bit_depth = not-null)."""
+        return self.packed_rows(list(range(bit_depth + 1)))
+
+    def container_blocks(
+        self, row_ids: list[int]
+    ) -> tuple[list[tuple[int, int, int, np.ndarray]], int]:
+        """Container-level serialization of the given rows — the T1
+        (host-RAM compressed tier) block form and the compressed-upload
+        payload. Returns (entries, nbytes): entries is one
+        ``(row_index, slot, typ, payload)`` per nonempty container,
+        where ``row_index`` indexes into ``row_ids``, ``slot`` is the
+        container's position within its row (0..15), ``typ`` is the
+        roaring container type, and ``payload`` is a private copy of
+        its native form — uint16 positions (array), uint16 [start,
+        last] pairs (run), or packed uint64[1024] words (bitmap).
+        ``nbytes`` is the summed payload size, the T1 accounting unit.
+        """
+        from pilosa_tpu_torch.roaring.bitmap import CONTAINER_ARRAY, CONTAINER_RUN
+
+        rids = np.asarray(row_ids, dtype=np.uint64)
+        keys, _, lo, hi = self._row_key_spans(rids)
+        store = self.storage.containers
+        entries: list[tuple[int, int, int, np.ndarray]] = []
+        nbytes = 0
+        for i, (l, h) in enumerate(zip(lo, hi)):
+            for k in keys[l:h]:
+                c = store.get(int(k))
+                if c is None or not c.n:
+                    continue
+                slot = int(k) % (SHARD_WIDTH >> 16)
+                if c.typ == CONTAINER_ARRAY:
+                    payload = np.array(c.array, dtype=np.uint16)
+                elif c.typ == CONTAINER_RUN:
+                    payload = np.array(c.runs, dtype=np.uint16).reshape(-1, 2)
+                else:
+                    payload = np.array(c.words(), dtype=np.uint64)
+                entries.append((i, slot, int(c.typ), payload))
+                nbytes += payload.nbytes
+        return entries, nbytes

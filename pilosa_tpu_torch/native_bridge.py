@@ -1,0 +1,302 @@
+"""ctypes binding for the native C++ bitmap kernels (native/).
+
+Auto-builds ``native/libpilosa_kernels.so`` with g++ on first import if
+missing, and degrades to numpy implementations when no compiler is
+available — the roaring engine works either way, the native path just
+removes temporaries and Python overhead from the hot loops.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
+_SO_PATH = os.path.join(_NATIVE_DIR, "libpilosa_kernels.so")
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _build() -> bool:
+    src = os.path.join(_NATIVE_DIR, "bitmap_kernels.cpp")
+    if not os.path.exists(src):
+        return False
+    try:
+        subprocess.run(
+            [
+                "g++",
+                "-O3",
+                "-march=native",
+                "-funroll-loops",
+                "-fPIC",
+                "-shared",
+                "-std=c++17",
+                "-o",
+                _SO_PATH,
+                src,
+            ],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+
+
+def _stale() -> bool:
+    """The .so predates the source — a prebuilt library from an older
+    checkout would be missing newer symbols."""
+    try:
+        src = os.path.getmtime(os.path.join(_NATIVE_DIR, "bitmap_kernels.cpp"))
+        so = os.path.getmtime(_SO_PATH)
+        return src > so
+    except OSError:
+        return False
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib
+    if _lib is not None:
+        return _lib
+    if (not os.path.exists(_SO_PATH) or _stale()) and not _build():
+        if not os.path.exists(_SO_PATH):
+            return None
+    try:
+        lib = ctypes.CDLL(_SO_PATH)
+    except OSError:
+        return None
+    try:
+        _bind(lib)
+    except AttributeError:
+        # stale prebuilt .so missing a newer symbol (e.g. built before
+        # the mtime check existed): rebuild once, then degrade to numpy
+        # rather than crash — the module contract
+        if not _build():
+            return None
+        try:
+            lib = ctypes.CDLL(_SO_PATH)
+            _bind(lib)
+        except (OSError, AttributeError):
+            return None
+    _lib = lib
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.pt_popcount.restype = ctypes.c_uint64
+    lib.pt_popcount.argtypes = [u64p, ctypes.c_size_t]
+    lib.pt_intersection_count.restype = ctypes.c_uint64
+    lib.pt_intersection_count.argtypes = [u64p, u64p, ctypes.c_size_t]
+    for name in ("pt_and", "pt_or", "pt_xor", "pt_andnot"):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [u64p, u64p, u64p, ctypes.c_size_t]
+    lib.pt_intersect_sorted_u16.restype = ctypes.c_size_t
+    lib.pt_intersect_sorted_u16.argtypes = [
+        u16p, ctypes.c_size_t, u16p, ctypes.c_size_t, u16p,
+    ]
+    lib.pt_intersection_count_sorted_u16.restype = ctypes.c_size_t
+    lib.pt_intersection_count_sorted_u16.argtypes = [
+        u16p, ctypes.c_size_t, u16p, ctypes.c_size_t,
+    ]
+    lib.pt_intersection_counts_matrix.restype = None
+    lib.pt_intersection_counts_matrix.argtypes = [
+        u64p, u64p, ctypes.c_size_t, ctypes.c_size_t, i64p,
+    ]
+    lib.pt_popcount_per_block.restype = None
+    lib.pt_popcount_per_block.argtypes = [
+        u64p, ctypes.c_size_t, ctypes.c_size_t, i64p,
+    ]
+    lib.pt_parse_csv_pairs.restype = ctypes.c_longlong
+    lib.pt_parse_csv_pairs.argtypes = [
+        ctypes.c_void_p,  # buf
+        ctypes.c_size_t,  # len
+        u64p,             # out a
+        u64p,             # out b
+        ctypes.c_size_t,  # max_out
+    ]
+    lib.pt_format_csv_pairs.restype = ctypes.c_longlong
+    lib.pt_format_csv_pairs.argtypes = [
+        u64p,             # a
+        u64p,             # b
+        ctypes.c_size_t,  # n
+        ctypes.c_void_p,  # out
+        ctypes.c_size_t,  # out_cap
+    ]
+    lib.pt_expand_blocks_v2.restype = ctypes.c_int
+    lib.pt_expand_blocks_v2.argtypes = [
+        ctypes.c_void_p,  # buf base
+        ctypes.c_size_t,  # buf length (bounds-checks file-provided offsets)
+        ctypes.c_void_p,  # metas base
+        ctypes.POINTER(ctypes.c_uint32),
+        i64p,
+        ctypes.c_size_t,
+        u64p,
+    ]
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _u64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+
+
+def _u16p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def popcount(words: np.ndarray) -> int:
+    lib = _load()
+    if lib is None:
+        return int(np.bitwise_count(words).sum())
+    words = np.ascontiguousarray(words, dtype=np.uint64)
+    return int(lib.pt_popcount(_u64p(words), words.size))
+
+
+def intersection_count_words(a: np.ndarray, b: np.ndarray) -> int:
+    lib = _load()
+    if lib is None:
+        return int(np.bitwise_count(a & b).sum())
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    return int(lib.pt_intersection_count(_u64p(a), _u64p(b), a.size))
+
+
+def intersect_sorted_u16(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lib = _load()
+    if lib is None:
+        return np.intersect1d(a, b, assume_unique=True)
+    a = np.ascontiguousarray(a, dtype=np.uint16)
+    b = np.ascontiguousarray(b, dtype=np.uint16)
+    out = np.empty(min(a.size, b.size), dtype=np.uint16)
+    n = lib.pt_intersect_sorted_u16(_u16p(a), a.size, _u16p(b), b.size, _u16p(out))
+    return out[:n]
+
+
+def intersection_count_sorted_u16(a: np.ndarray, b: np.ndarray) -> int:
+    lib = _load()
+    if lib is None:
+        return int(np.intersect1d(a, b, assume_unique=True).size)
+    a = np.ascontiguousarray(a, dtype=np.uint16)
+    b = np.ascontiguousarray(b, dtype=np.uint16)
+    return int(lib.pt_intersection_count_sorted_u16(_u16p(a), a.size, _u16p(b), b.size))
+
+
+def intersection_counts_matrix(src: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    lib = _load()
+    if lib is None:
+        return np.bitwise_count(mat & src[None, :]).sum(axis=1).astype(np.int64)
+    src = np.ascontiguousarray(src, dtype=np.uint64)
+    mat = np.ascontiguousarray(mat, dtype=np.uint64)
+    out = np.empty(mat.shape[0], dtype=np.int64)
+    lib.pt_intersection_counts_matrix(
+        _u64p(src), _u64p(mat), mat.shape[0], mat.shape[1], _i64p(out)
+    )
+    return out
+
+
+def popcount_per_block(words: np.ndarray, words_per_block: int) -> np.ndarray:
+    lib = _load()
+    n_blocks = words.size // words_per_block
+    if lib is None:
+        return (
+            np.bitwise_count(words.reshape(n_blocks, words_per_block))
+            .sum(axis=1)
+            .astype(np.int64)
+        )
+    words = np.ascontiguousarray(words, dtype=np.uint64)
+    out = np.empty(n_blocks, dtype=np.int64)
+    lib.pt_popcount_per_block(_u64p(words), n_blocks, words_per_block, _i64p(out))
+    return out
+
+
+def parse_csv_pairs(data: bytes):
+    """Parse strict ``<u64>,<u64>`` CSV lines into two u64 arrays —
+    the import fast path (minutes of per-line Python at 2^30-bit
+    imports). Returns (a, b) numpy arrays, or None when the native
+    library is absent OR the data deviates in any way (quoting,
+    spaces, a third/timestamp field, overflow): the caller re-parses
+    with the Python csv path, which owns error reporting."""
+    lib = _load()
+    if lib is None or len(data) == 0:
+        return None
+    # accept any buffer (bytes, mmap) without copying
+    buf = np.frombuffer(data, dtype=np.uint8)
+    # every pair needs >= 4 bytes ("a,b\n"), so this bounds the output
+    max_out = buf.size // 4 + 1
+    a = np.empty(max_out, dtype=np.uint64)
+    b = np.empty(max_out, dtype=np.uint64)
+    n = lib.pt_parse_csv_pairs(
+        ctypes.c_void_p(buf.ctypes.data), buf.size, _u64p(a), _u64p(b), max_out
+    )
+    if n < 0:
+        return None
+    return a[:n], b[:n]
+
+
+def format_csv_pairs(a: np.ndarray, b: np.ndarray):
+    """Format two u64 arrays as ``<a>,<b>\\n`` CSV bytes — the export
+    fast path (inverse of parse_csv_pairs). Returns bytes, or None
+    when the native library is absent (caller formats in Python)."""
+    lib = _load()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    if a.size != b.size:
+        return None  # mismatched inputs must not read past b
+    out = np.empty(a.size * 42, dtype=np.uint8)
+    n = lib.pt_format_csv_pairs(
+        _u64p(a), _u64p(b), a.size, ctypes.c_void_p(out.ctypes.data), out.size
+    )
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def expand_blocks(
+    buf_addr: int,
+    buf_len: int,
+    metas_addr: int,
+    offsets: np.ndarray,
+    sel: np.ndarray,
+    out: np.ndarray,
+) -> bool:
+    """Expand selected base containers (by index) into dense 1024-word
+    blocks, decoding straight from the mmapped file. ``out`` must be a
+    caller-zeroed C-contiguous u64[len(sel), 1024]. Returns False when
+    the native library is unavailable OR the kernel detects a payload
+    running past ``buf_len`` (truncated/corrupt file) — either way the
+    caller takes the Python decode path, which raises a proper error."""
+    lib = _load()
+    if lib is None:
+        return False
+    sel = np.ascontiguousarray(sel, dtype=np.int64)
+    offsets = np.ascontiguousarray(offsets, dtype=np.uint32)
+    rc = lib.pt_expand_blocks_v2(
+        ctypes.c_void_p(buf_addr),
+        buf_len,
+        ctypes.c_void_p(metas_addr),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        _i64p(sel),
+        sel.size,
+        _u64p(out),
+    )
+    if rc != 0:
+        out[:] = 0  # discard any partial expansion
+        return False
+    return True

@@ -1,0 +1,145 @@
+"""Build the hand-written CUDA kernels at first use and bind them.
+
+Each ``ops/kernels/*.cu`` source holds one kernel behind a plain C entry
+point. ``build_all`` starts one ``nvcc`` per source, all at once, each
+producing a shared library under ``pilosa_tpu_torch/_build/`` (listed
+in ``.gitignore``); ``ctypes`` loads them. A library's file name carries
+a hash of its sources and flags, so an edited source rebuilds and an
+unchanged one is reused.
+
+No source includes a PyTorch header: nvcc builds a plain C interface in
+seconds but a file that includes ``torch/extension.h`` in minutes, and
+the build counts against ``chip_smoke.py``'s time limit. Pointers and
+the stream cross as integers (``ctypes.c_void_p``), and each entry point
+returns ``cudaGetLastError()`` so a refused launch raises in the
+wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+from pilosa_tpu_torch.analysis.locks import OrderedLock
+
+KERNEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
+)
+SOURCES = ("dense_scores", "sparse_scores", "tree_count")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-O3",
+    "-std=c++17",
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "dense_scores": (
+        "pilosa_dense_scores",
+        # srcs, mat, out, q, r, w, device, stream
+        [_P, _P, _P, _I, _I, _LL, _I, _P],
+    ),
+    "sparse_scores": (
+        "pilosa_sparse_scores",
+        # srcs, blocks, block_row, block_slot, block_shard, out,
+        # q, s, w, nb, num_rows, device, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P],
+    ),
+    "tree_count": (
+        "pilosa_tree_count",
+        # leaf_ptrs (host u64[q * nleaves]), code, code_len, nleaves,
+        # n_words, q, out, device, stream
+        [_P, _P, _I, _I, _LL, _I, _P, _I, _P],
+    ),
+}
+
+_build_lock = OrderedLock("ops.build")
+_LIBS: dict[str, ctypes.CDLL] = {}
+# source -> {"seconds": float, "cached": bool, "ptxas": str}; read by
+# chip_smoke.py to report the build
+BUILD_LOG: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: install the CUDA toolkit or set CUDA_HOME")
+    return found
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in (name + ".cu",) + HEADERS:
+        with open(os.path.join(KERNEL_DIR, fn), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_all() -> dict:
+    """Compile every source that has no current build, in parallel, and
+    load all libraries. Idempotent; raises with nvcc's output if a
+    source does not compile."""
+    with _build_lock:
+        if len(_LIBS) == len(SOURCES):
+            return BUILD_LOG
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        jobs = {}
+        for name in SOURCES:
+            so = _lib_path(name)
+            if os.path.exists(so):
+                BUILD_LOG[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(KERNEL_DIR, name + ".cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )
+            jobs[name] = (proc, tmp, so, time.monotonic())
+        failed = []
+        for name, (proc, tmp, so, t0) in jobs.items():
+            out, err = proc.communicate()
+            BUILD_LOG[name] = {
+                "seconds": time.monotonic() - t0,
+                "cached": False,
+                "ptxas": (out + err).strip(),
+            }
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{out}{err}")
+                continue
+            os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for name in SOURCES:
+            lib = ctypes.CDLL(_lib_path(name))
+            sym, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return BUILD_LOG
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, building every kernel on the
+    first call."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all()
+        lib = _LIBS[name]
+    return lib

@@ -1,0 +1,215 @@
+"""Wrappers of the hand-written CUDA kernels (``ops/kernels/*.cu``).
+
+Each wrapper checks device, dtype, shape, contiguity and alignment and
+raises on what its kernel does not take, allocates the output, launches
+on PyTorch's current stream without synchronising, raises if the launch
+was refused, and adds one to its kernel's launch count. Nothing here
+runs on the CPU: the plain versions in ``packed.py`` are the CPU path.
+
+The kernels are built on first use (see ``_build.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from pilosa_tpu_torch.ops import _build
+
+
+class Kernel:
+    """One hand-written kernel: its source, the TPU-side function it
+    replaces, and how many times it was launched. ``batched_launches``
+    counts launches that served more than one query."""
+
+    def __init__(self, name: str, source: str, replaces: str) -> None:
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+        self.batched_launches = 0
+        self._mu = threading.Lock()
+
+    def note_launch(self, q: int) -> None:
+        with self._mu:
+            self.launches += 1
+            if q > 1:
+                self.batched_launches += 1
+
+    def reset(self) -> None:
+        with self._mu:
+            self.launches = 0
+            self.batched_launches = 0
+
+
+DENSE_SCORES = Kernel(
+    "dense_scores",
+    "pilosa_tpu_torch/ops/kernels/dense_scores.cu",
+    "pilosa_tpu/ops/pallas_kernels.py:55",
+)
+SPARSE_STACKED_SCORES = Kernel(
+    "sparse_stacked_scores",
+    "pilosa_tpu_torch/ops/kernels/sparse_scores.cu",
+    "pilosa_tpu/ops/packed.py:129",
+)
+TREE_COUNT = Kernel(
+    "tree_count",
+    "pilosa_tpu_torch/ops/kernels/tree_count.cu",
+    "pilosa_tpu/executor/executor.py:1526",
+)
+KERNELS = (DENSE_SCORES, SPARSE_STACKED_SCORES, TREE_COUNT)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.reset()
+
+
+def build_kernels() -> dict:
+    """Build (or load the cached build of) every kernel; returns the
+    per-source build log (seconds, ptxas report)."""
+    return _build.build_all()
+
+
+def _check_words(t: torch.Tensor, what: str) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what} must be int32, got {t.dtype}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned for vector loads")
+
+
+def _same_device(device, *ts) -> None:
+    for t in ts:
+        if t.device != device:
+            raise ValueError(f"tensors on different devices: {t.device} vs {device}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dense_scores(srcs: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """K1: popcount(srcs[q] & mat[r]) -> i32[Q, R]. srcs i32[Q, W],
+    mat i32[R, W], W a multiple of 4."""
+    _check_words(srcs, "srcs")
+    _check_words(mat, "mat")
+    _same_device(mat.device, srcs)
+    if srcs.dim() != 2 or mat.dim() != 2 or srcs.shape[1] != mat.shape[1]:
+        raise ValueError(f"shape mismatch: srcs {tuple(srcs.shape)}, mat {tuple(mat.shape)}")
+    q, w = srcs.shape
+    r = mat.shape[0]
+    if w % 4:
+        raise ValueError(f"words per row must be a multiple of 4, got {w}")
+    out = torch.empty((q, r), dtype=torch.int32, device=mat.device)
+    if q == 0 or r == 0:
+        return out
+    if w == 0:
+        return out.zero_()
+    lib = _build.library("dense_scores")
+    err = lib.pilosa_dense_scores(
+        srcs.data_ptr(), mat.data_ptr(), out.data_ptr(), q, r, w,
+        mat.device.index, _stream(mat.device),
+    )
+    _raise_on(err, "dense_scores")
+    DENSE_SCORES.note_launch(q)
+    return out
+
+
+def sparse_stacked_scores(
+    srcs: torch.Tensor,
+    blocks: torch.Tensor,
+    block_row: torch.Tensor,
+    block_slot: torch.Tensor,
+    block_shard,
+    num_rows: int,
+) -> torch.Tensor:
+    """K2: block-sparse scoring -> i32[Q, num_rows]. srcs i32[Q, S, W]
+    (W a multiple of 2048), blocks i32[B, 2048], index arrays i32[B]
+    (block_shard None = shard 0)."""
+    _check_words(srcs, "srcs")
+    _check_words(blocks, "blocks")
+    idx = [block_row, block_slot] + ([block_shard] if block_shard is not None else [])
+    for t, what in zip(idx, ("block_row", "block_slot", "block_shard")):
+        _check_words(t, what)
+        if t.dim() != 1 or t.shape[0] != blocks.shape[0]:
+            raise ValueError(f"{what} must be i32[B], got {tuple(t.shape)}")
+    _same_device(blocks.device, srcs, *idx)
+    if srcs.dim() != 3 or srcs.shape[2] % 2048:
+        raise ValueError(f"srcs must be i32[Q, S, W], W % 2048 == 0: {tuple(srcs.shape)}")
+    if blocks.dim() != 2 or blocks.shape[1] != 2048:
+        raise ValueError(f"blocks must be i32[B, 2048], got {tuple(blocks.shape)}")
+    q, s, w = srcs.shape
+    nb = blocks.shape[0]
+    # integer atomics give the same sum in any order; they add into zeros
+    out = torch.zeros((q, num_rows), dtype=torch.int32, device=blocks.device)
+    if q == 0 or nb == 0 or num_rows == 0 or s == 0:
+        return out
+    lib = _build.library("sparse_scores")
+    err = lib.pilosa_sparse_scores(
+        srcs.data_ptr(),
+        blocks.data_ptr(),
+        block_row.data_ptr(),
+        block_slot.data_ptr(),
+        block_shard.data_ptr() if block_shard is not None else None,
+        out.data_ptr(),
+        q, s, w, nb, num_rows,
+        blocks.device.index,
+        _stream(blocks.device),
+    )
+    _raise_on(err, "sparse_stacked_scores")
+    SPARSE_STACKED_SCORES.note_launch(q)
+    return out
+
+
+# Leaf pointers one tree_count launch carries (TC_MAX_PTRS in tree_count.cu).
+TREE_MAX_POINTERS = 448
+
+
+def tree_count(leaves_by_query, program) -> torch.Tensor:
+    """K3: popcount of a boolean tree over each query's leaves -> i32[Q].
+    Every leaf is a same-shape int32 tensor; ``program`` is an
+    ops.TreeProgram. Queries x leaves is at most TREE_MAX_POINTERS."""
+    q = len(leaves_by_query)
+    first = leaves_by_query[0][0]
+    device = first.device
+    n_words = first.numel()
+    ptrs = []
+    for leaves in leaves_by_query:
+        if len(leaves) != program.nleaves:
+            raise ValueError(f"query has {len(leaves)} leaves, program needs {program.nleaves}")
+        for t in leaves:
+            _check_words(t, "leaf")
+            _same_device(device, t)
+            if t.numel() != n_words:
+                raise ValueError(f"leaf sizes differ: {t.numel()} vs {n_words}")
+            ptrs.append(t.data_ptr())
+    if n_words % 4:
+        raise ValueError(f"leaf words must be a multiple of 4, got {n_words}")
+    if len(ptrs) > TREE_MAX_POINTERS:
+        raise ValueError(
+            f"{q} queries x {program.nleaves} leaves > {TREE_MAX_POINTERS} leaf pointers per launch"
+        )
+    out = torch.zeros(q, dtype=torch.int32, device=device)
+    if n_words == 0:
+        return out
+    code = program.device_code(device)
+    lib = _build.library("tree_count")
+    # the pointers travel by value in the kernel's parameter block
+    err = lib.pilosa_tree_count(
+        (ctypes.c_uint64 * len(ptrs))(*ptrs), code.data_ptr(), len(program.code),
+        program.nleaves, n_words, q, out.data_ptr(), device.index, _stream(device),
+    )
+    _raise_on(err, "tree_count")
+    TREE_COUNT.note_launch(q)
+    return out

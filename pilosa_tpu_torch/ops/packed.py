@@ -1,0 +1,361 @@
+"""Packed-word bitmap ops — the port's device data plane (L0 compute).
+
+Counterpart of the main-path part of ``pilosa_tpu/ops/packed.py``. A
+fragment row (2^20 columns) is 32,768 packed words. On the device the
+words are ``int32`` views of the same little-endian ``u32`` bits the JAX
+package stages: torch's ``uint32`` has no ``~`` and no shifts on the
+CPU, and every op here only reads bit patterns.
+
+Each scorer has two implementations with one public entry point:
+
+  * a plain PyTorch version (``*_plain``). Torch has no popcount op, so
+    popcount is SWAR arithmetic in ``int64``. The CPU tests run it
+    against the JAX functions, and ``chip_smoke.py`` holds each kernel
+    against it on the card;
+  * a hand-written CUDA kernel (``ops/kernels/*.cu``, bound in
+    ``ops/cuda.py``).
+
+The public function picks by where its tensor lies: the plain version
+for a CPU tensor, the kernel for a CUDA tensor. There is no fallback —
+a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.ops import cuda
+
+# Words per shard-row on device: 2^20 bits / 32.
+SHARD_WIDTH = 1 << 20
+WORDS_PER_ROW = SHARD_WIDTH // 32
+# Words per 2^16-bit container block: the sparse-staging granule.
+CONTAINER_WORDS = (1 << 16) // 32
+CONTAINERS_PER_ROW = SHARD_WIDTH >> 16  # 16
+
+
+def u64_to_u32(words64: np.ndarray) -> np.ndarray:
+    """Reinterpret uint64 packed words as uint32 words (little-endian:
+    bit p of the row lands in u32 word p>>5, bit p&31)."""
+    return words64.view("<u8").view("<u4")
+
+
+def u32_to_u64(words32: np.ndarray) -> np.ndarray:
+    return words32.view("<u4").view("<u8")
+
+
+def words_from_numpy(words: np.ndarray, device) -> torch.Tensor:
+    """Host packed words (``u32`` as the JAX package stages them, or the
+    CPU engine's ``u64``) as the port's ``int32`` device words, same
+    bits. A CUDA upload goes through pinned memory without blocking the
+    host; a CPU result is a private copy."""
+    w = np.require(words, requirements=["C"])
+    if w.dtype.itemsize not in (4, 8) or w.dtype.kind not in "ui":
+        raise TypeError(f"packed words must be 32- or 64-bit integers, got {w.dtype}")
+    t = torch.from_numpy(np.require(w.view("<i4"), requirements=["W"]))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device: {device}")
+    return t.clone()
+
+
+def words_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """Device ``int32`` words back to host ``u32`` (same bits)."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"packed words are int32, got {words.dtype}")
+    return words.detach().cpu().numpy().view("<u4")
+
+
+# -- elementwise boolean algebra --------------------------------------------
+# Named so lowered call trees read like the PQL ops they implement
+# (reference executor.go:704-1000).
+
+
+def and_(a, b):
+    return torch.bitwise_and(a, b)
+
+
+def or_(a, b):
+    return torch.bitwise_or(a, b)
+
+
+def xor_(a, b):
+    return torch.bitwise_xor(a, b)
+
+
+def andnot(a, b):
+    """a AND NOT b — the Difference op."""
+    return torch.bitwise_and(a, torch.bitwise_not(b))
+
+
+def not_(a):
+    return torch.bitwise_not(a)
+
+
+def eval_tree(tree, leaves):
+    """Evaluate a lowered boolean call tree over leaf word tensors —
+    the counterpart of the JAX executor's ``_eval_tree``. ``tree`` is
+    ``("leaf", i)`` or ``(name, (subtrees...))`` with name one of
+    Intersect/Union/Xor/Difference; n-ary nodes fold left."""
+    tag = tree[0]
+    if tag == "leaf":
+        return leaves[tree[1]]
+    acc = eval_tree(tree[1][0], leaves)
+    for sub in tree[1][1:]:
+        v = eval_tree(sub, leaves)
+        if tag == "Intersect":
+            acc = and_(acc, v)
+        elif tag == "Union":
+            acc = or_(acc, v)
+        elif tag == "Xor":
+            acc = xor_(acc, v)
+        else:
+            acc = andnot(acc, v)
+    return acc
+
+
+# -- popcount (plain) ---------------------------------------------------------
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Per-word set-bit counts of ``int32`` words, as ``int64`` (SWAR:
+    torch has no popcount op; widening first keeps the shifts logical)."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """The one routing decision: a CUDA tensor goes to the kernel, a CPU
+    tensor to the plain version; anything else is refused."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device: {t.device}")
+
+
+# -- K1: dense scoring --------------------------------------------------------
+
+
+def intersection_counts_matrix_plain(srcs: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """popcount(srcs[q] & mat[r]) for every (q, r): i32[Q, W], i32[R, W]
+    -> i32[Q, R]."""
+    out = torch.empty((srcs.shape[0], mat.shape[0]), dtype=torch.int32, device=mat.device)
+    for q in range(srcs.shape[0]):
+        out[q] = popcount(mat & srcs[q]).sum(dim=-1)
+    return out
+
+
+def _dense_scores(srcs: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(mat):
+        return cuda.dense_scores(srcs, mat)
+    return intersection_counts_matrix_plain(srcs, mat)
+
+
+def intersection_counts_matrix(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """TopN scoring: popcount(src & row) for every row. src i32[W],
+    mat i32[R, W] -> i32[R]. One pass over the staged matrix replaces
+    the reference's per-candidate heap loop (fragment.go:985)."""
+    return _dense_scores(src.reshape(1, -1), mat)[0]
+
+
+def intersection_counts_matrix_batch_list(
+    srcs: Sequence[torch.Tensor], mat: torch.Tensor
+) -> torch.Tensor:
+    """Batched dense scoring of a list of Q sources against one staged
+    matrix: the matrix is read once for all Q. -> i32[Q, R]."""
+    return _dense_scores(torch.stack(list(srcs)), mat)
+
+
+# -- K2: block-sparse stacked scoring ------------------------------------------
+
+
+def sparse_stacked_scores_plain(
+    srcs: torch.Tensor,
+    blocks: torch.Tensor,
+    block_row: torch.Tensor,
+    block_slot: torch.Tensor,
+    block_shard,
+    num_rows: int,
+) -> torch.Tensor:
+    """Block-sparse scoring over staged candidate blocks.
+
+    srcs i32[Q, S, W]; blocks i32[B, 2048] with block_row (segment id),
+    block_slot (container position within the row) and block_shard
+    (which of the S source rows; None = shard 0) i32[B]. Gathers each
+    block's source container, popcounts the AND and segment-sums per
+    row -> i32[Q, num_rows]. Blocks whose row, slot or shard lies out of
+    range contribute nothing."""
+    q, s, w = srcs.shape
+    slots = w // CONTAINER_WORDS
+    per = srcs.reshape(q, s, slots, CONTAINER_WORDS)
+    if block_shard is None:
+        block_shard = torch.zeros_like(block_row)
+    valid = (
+        (block_row >= 0)
+        & (block_row < num_rows)
+        & (block_slot >= 0)
+        & (block_slot < slots)
+        & (block_shard >= 0)
+        & (block_shard < s)
+    )
+    rows = block_row[valid].to(torch.int64)
+    slot = block_slot[valid].to(torch.int64)
+    shard = block_shard[valid].to(torch.int64)
+    blk = blocks[valid]
+    out = torch.zeros((q, num_rows), dtype=torch.int64, device=blocks.device)
+    for qi in range(q):
+        per_block = popcount(blk & per[qi, shard, slot]).sum(dim=-1)
+        out[qi].index_add_(0, rows, per_block)
+    return out.to(torch.int32)
+
+
+def _sparse_scores(srcs, blocks, block_row, block_slot, block_shard, num_rows: int):
+    if _on_cuda(blocks):
+        return cuda.sparse_stacked_scores(
+            srcs, blocks, block_row, block_slot, block_shard, num_rows
+        )
+    return sparse_stacked_scores_plain(
+        srcs, blocks, block_row, block_slot, block_shard, num_rows
+    )
+
+
+def sparse_intersection_counts(src, blocks, block_row, block_slot, num_rows: int):
+    """Single-shard block-sparse TopN scoring: src i32[W] -> i32[num_rows].
+    Only nonempty container blocks are staged; absent blocks contribute
+    zero to an intersection, so this is bit-identical to the dense pass."""
+    return _sparse_scores(
+        src.reshape(1, 1, -1), blocks, block_row, block_slot, None, num_rows
+    )[0]
+
+
+def sparse_intersection_counts_stacked(
+    srcs, blocks, block_row, block_slot, block_shard, num_rows: int
+):
+    """Cross-shard TopN scoring in one launch: srcs i32[S, W], block_row
+    a global segment id (shard_index * chunk + candidate index) ->
+    i32[num_rows]."""
+    return _sparse_scores(
+        srcs.unsqueeze(0), blocks, block_row, block_slot, block_shard, num_rows
+    )[0]
+
+
+def sparse_intersection_counts_stacked_batch_list(
+    srcs, blocks, block_row, block_slot, block_shard, num_rows: int
+):
+    """Concurrent-query batch of the stacked scorer: a list of Q source
+    stacks i32[S, W]; the staged blocks stream once for the whole batch.
+    -> i32[Q, num_rows]."""
+    return _sparse_scores(
+        torch.stack(list(srcs)), blocks, block_row, block_slot, block_shard, num_rows
+    )
+
+
+# -- K3: fused tree count --------------------------------------------------------
+
+# Interpreter limits shared with ops/kernels/tree_count.cu (TC_MAX_*);
+# TREE_MAX_LEAVES stays within cuda.TREE_MAX_POINTERS.
+TREE_MAX_STACK = 16
+TREE_MAX_LEAVES = 256
+TREE_MAX_CODE = 512
+_OPCODES = {"Intersect": -1, "Union": -2, "Xor": -3, "Difference": -4}
+
+
+class TreeProgram:
+    """A lowered boolean call tree encoded for the tree-count kernel: a
+    postfix program of int32 instructions, ``i >= 0`` pushing leaf i
+    and ``-1..-4`` (Intersect, Union, Xor, Difference) combining the top
+    two stack entries. One kernel interprets any tree shape, so query
+    shapes never multiply builds. Trees past the interpreter's limits
+    raise here, before any launch."""
+
+    def __init__(self, tree) -> None:
+        self.tree = tree
+        code: list[int] = []
+        self.depth = self._emit(tree, code)
+        self.code = tuple(code)
+        self.nleaves = max(i for i in code if i >= 0) + 1
+        if self.depth > TREE_MAX_STACK:
+            raise ValueError(
+                f"tree needs stack depth {self.depth} > {TREE_MAX_STACK}"
+            )
+        if self.nleaves > TREE_MAX_LEAVES:
+            raise ValueError(f"tree has {self.nleaves} leaves > {TREE_MAX_LEAVES}")
+        if len(self.code) > TREE_MAX_CODE:
+            raise ValueError(f"tree program of {len(self.code)} > {TREE_MAX_CODE}")
+        self._dev: dict = {}
+        self._mu = threading.Lock()
+
+    @classmethod
+    def _emit(cls, t, out: list) -> int:
+        """Append t's postfix code to out; return the stack depth it needs."""
+        if t[0] == "leaf":
+            out.append(int(t[1]))
+            return 1
+        op = _OPCODES.get(t[0])
+        if op is None or not t[1]:
+            raise ValueError(f"not a boolean tree node: {t[0]!r}")
+        depth = cls._emit(t[1][0], out)
+        for sub in t[1][1:]:
+            depth = max(depth, 1 + cls._emit(sub, out))
+            out.append(op)
+        return depth
+
+    def device_code(self, device) -> torch.Tensor:
+        """The program as an int32 tensor on ``device`` (uploaded once)."""
+        key = str(device)
+        with self._mu:
+            t = self._dev.get(key)
+            if t is None:
+                t = self._dev[key] = torch.tensor(
+                    self.code, dtype=torch.int32
+                ).to(device)
+        return t
+
+
+def tree_count_plain(leaves_by_query, program: TreeProgram) -> torch.Tensor:
+    """popcount(tree(leaves)) for each query's leaf list -> i32[Q].
+    Evaluates the tree itself, not the postfix code, so it checks the
+    kernel's encoding too."""
+    first = leaves_by_query[0][0]
+    out = torch.empty(len(leaves_by_query), dtype=torch.int32, device=first.device)
+    for qi, leaves in enumerate(leaves_by_query):
+        out[qi] = popcount(eval_tree(program.tree, leaves)).sum()
+    return out
+
+
+def tree_count(leaves_by_query, program: TreeProgram) -> torch.Tensor:
+    """Fused Count over a boolean tree: Q queries, each a list of
+    ``program.nleaves`` same-shape word tensors (u32[S, W] leaf stacks
+    in the executor) -> i32[Q]. Q = 1 is the per-query form. A launch
+    carries at most cuda.TREE_MAX_POINTERS leaf pointers, so a wider
+    batch runs as several launches."""
+    if _on_cuda(leaves_by_query[0][0]):
+        per = cuda.TREE_MAX_POINTERS // program.nleaves
+        if len(leaves_by_query) <= per:
+            return cuda.tree_count(leaves_by_query, program)
+        return torch.cat(
+            [
+                cuda.tree_count(leaves_by_query[i : i + per], program)
+                for i in range(0, len(leaves_by_query), per)
+            ]
+        )
+    return tree_count_plain(leaves_by_query, program)
+
+
+_ONE_LEAF = TreeProgram(("leaf", 0))
+
+
+def count_bits(words: torch.Tensor) -> torch.Tensor:
+    """Total set bits of a word tensor (any shape) -> int32 scalar (the
+    one-leaf tree count)."""
+    return tree_count([[words]], _ONE_LEAF)[0]

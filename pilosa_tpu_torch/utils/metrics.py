@@ -1,0 +1,1197 @@
+"""Shared metric registry — ONE canonical set of metric names for the
+server's ``/metrics`` Prometheus surface, ``/debug/vars``, the bench
+scripts, and the docs table (docs/administration.md §Metric reference).
+
+Every metric name emitted anywhere in the codebase is declared in
+``METRICS`` below and referenced through the module constants; a unit
+test (tests/test_observability.py) asserts the docs table and this
+registry agree in both directions, so names cannot drift.
+
+The process-global ``REGISTRY`` aggregates counters/gauges/histograms
+from the deep layers (executor routing, batcher, stager, rank caches,
+device health, cluster fan-out) that have no reference to a Server —
+the same model as Prometheus client libraries' default registry. The
+server merges its per-instance expvar snapshot into the rendered
+exposition; bench scripts attach ``snapshot()`` to their JSON output so
+offline runs speak the same names as a live server.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from bisect import bisect_right
+from typing import Optional
+
+# -- log-spaced histogram (shared with stats.ExpvarStatsClient) ------------
+
+# Bucket upper bounds: 8 per decade, 1e-6 .. 1e7 (105 bounds) — covers
+# microsecond timings through multi-hour counts with <=33% relative
+# error per bucket, at a fixed ~1 KB per histogram.
+_HIST_BOUNDS = tuple(10.0 ** (e / 8.0) for e in range(-48, 57))
+
+
+class LogHistogram:
+    """Fixed log-spaced-bucket histogram reporting count/sum/min/max and
+    estimated p50/p95/p99 (bucket upper bound, clamped to [min, max]).
+    Not thread-safe on its own — callers hold their registry lock."""
+
+    __slots__ = ("count", "sum", "min", "max", "buckets")
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.sum = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self.buckets = [0] * (len(_HIST_BOUNDS) + 1)
+
+    def observe(self, value: float) -> None:
+        self.count += 1
+        self.sum += value
+        self.min = value if self.min is None else min(self.min, value)
+        self.max = value if self.max is None else max(self.max, value)
+        self.buckets[bisect_right(_HIST_BOUNDS, value)] += 1
+
+    def quantile(self, q: float) -> float:
+        if self.count == 0:
+            return 0.0
+        target = q * self.count
+        seen = 0
+        for i, n in enumerate(self.buckets):
+            seen += n
+            if seen >= target and n:
+                hi = _HIST_BOUNDS[i] if i < len(_HIST_BOUNDS) else self.max
+                return max(self.min, min(self.max, hi))
+        return self.max
+
+    def summary(self) -> dict:
+        return {
+            "count": self.count,
+            "sum": self.sum,
+            "min": self.min,
+            "max": self.max,
+            "p50": self.quantile(0.50),
+            "p95": self.quantile(0.95),
+            "p99": self.quantile(0.99),
+        }
+
+
+# -- canonical metric names ------------------------------------------------
+
+# executor
+EXECUTOR_CALLS = "executor.calls"
+EXECUTOR_ROUTE_DEVICE = "executor.route.device"
+EXECUTOR_ROUTE_CPU = "executor.route.cpu"
+EXECUTOR_DEVICE_DOWN_FALLBACK = "executor.device_down_fallback"
+SPMD_COMPILE_SECONDS = "spmd.compile_seconds"
+SPMD_EXECUTE_SECONDS = "spmd.execute_seconds"
+# batched scorers
+BATCHER_DISPATCHES = "batcher.dispatches"
+BATCHER_BATCH_SIZE = "batcher.batch_size"
+BATCHER_SLOT_WAIT_SECONDS = "batcher.slot_wait_seconds"
+BATCHER_RESCUES = "batcher.rescues"
+# HBM staging
+STAGER_HITS = "stager.hits"
+STAGER_MISSES = "stager.misses"
+STAGER_MISSES_COLD = "stager.misses_cold"
+STAGER_MISSES_INVALIDATION = "stager.misses_invalidation"
+STAGER_STAGE_SECONDS = "stager.stage_seconds"
+STAGER_BYTES = "stager.bytes"
+STAGER_RESTAGED_BYTES = "stager.restaged_bytes"
+# incremental delta staging (snapshot + delta model, executor/stager.py)
+STAGER_DELTA_APPLIED = "stager.delta_applied"
+STAGER_DELTA_FALLBACK = "stager.delta_fallback"
+STAGER_DELTA_APPLY_SECONDS = "stager.delta_apply_seconds"
+STAGER_AHEAD_ERRORS = "stager.ahead_errors"
+# tiered block staging (ISSUE 17, executor/tiering.py): the host-RAM
+# compressed tier (T1), compressed-upload-then-expand, and the
+# plan-driven prefetcher's accuracy counters
+TIER1_HITS = "tiering.tier1_hits"
+TIER1_MISSES = "tiering.tier1_misses"
+TIER1_BYTES = "tiering.tier1_bytes"
+TIER1_ADMITTED = "tiering.tier1_admitted"
+TIER1_REJECTED = "tiering.tier1_rejected"
+TIER1_EVICTED = "tiering.tier1_evicted"
+TIERING_COMPRESSED_UPLOADS = "tiering.compressed_uploads"
+TIERING_UPLOAD_BYTES_SAVED = "tiering.upload_bytes_saved"
+PREFETCH_ISSUED = "tiering.prefetch_issued"
+PREFETCH_USED = "tiering.prefetch_used"
+PREFETCH_EVICTED = "tiering.prefetch_evicted"
+# TopN rank/LRU caches
+CACHE_HITS = "cache.hits"
+CACHE_MISSES = "cache.misses"
+# query plan result cache (plan/cache.py)
+PLANCACHE_HITS = "plancache.hits"
+PLANCACHE_MISSES = "plancache.misses"
+PLANCACHE_INVALIDATIONS = "plancache.invalidations"
+PLANCACHE_EVICTIONS = "plancache.evictions"
+PLANCACHE_BYTES = "plancache.bytes"
+# distributed map-reduce
+CLUSTER_MAP_REMOTE_SECONDS = "cluster.map_remote_seconds"
+CLUSTER_REMOTE_ERRORS = "cluster.remote_errors"
+# internal HTTP client retry layer (parallel/client.py)
+CLIENT_RETRIES = "client.retries"
+CLIENT_RETRY_EXHAUSTED = "client.retry_exhausted"
+# multihost gang dispatch (parallel/multihost.py)
+MULTIHOST_DISPATCHES = "multihost.dispatches"
+MULTIHOST_BROADCAST_SECONDS = "multihost.broadcast_seconds"
+MULTIHOST_TICKS = "multihost.ticks"
+MULTIHOST_ABORTS = "multihost.aborts"
+MULTIHOST_DEGRADED = "multihost.degraded"
+MULTIHOST_STATE = "multihost.state"
+MULTIHOST_EPOCH = "multihost.epoch"
+MULTIHOST_REFORMS = "multihost.reforms"
+MULTIHOST_FOLLOWER_LAG_SECONDS = "multihost.follower_lag_seconds"
+MULTIHOST_FOLLOWER_ERRORS = "multihost.follower_errors"
+# serving pipeline (server/pipeline.py)
+PIPELINE_ADMITTED = "pipeline.admitted"
+PIPELINE_SHEDS = "pipeline.sheds"
+# multi-tenant QoS (ISSUE 19, server/tenancy.py): per-index admission
+# buckets, weighted-fair scheduling, HBM quotas, per-tenant SLOs
+TENANT_ADMITTED = "tenant.admitted"
+TENANT_THROTTLED = "tenant.throttled"
+TENANT_SHEDS = "tenant.sheds"
+TENANT_QUEUE_WAIT_SECONDS = "tenant.queue_wait_seconds"
+TENANT_STAGE_SECONDS = "tenant.stage_seconds"
+TENANT_INFLIGHT_BYTES = "tenant.inflight_bytes"
+TENANT_HBM_BYTES = "tenant.hbm_bytes"
+TENANT_HBM_EVICTIONS = "tenant.hbm_evictions"
+PIPELINE_QUEUE_DEPTH = "pipeline.queue_depth"
+PIPELINE_WAIT_SECONDS = "pipeline.wait_seconds"
+PIPELINE_COALESCE_HITS = "pipeline.coalesce_hits"
+PIPELINE_BATCHES = "pipeline.batches"
+PIPELINE_BATCH_WIDTH = "pipeline.batch_width"
+PIPELINE_DEADLINE_EXPIRED = "pipeline.deadline_expired"
+PIPELINE_DRAIN_SECONDS = "pipeline.drain_seconds"
+# durable streaming ingest (server/ingest.py + core/fragment.py)
+INGEST_QUEUE_DEPTH = "ingest.queue_depth"
+INGEST_WAVE_SIZE = "ingest.wave_size"
+INGEST_WAVE_COMMIT_SECONDS = "ingest.wave_commit_seconds"
+INGEST_FSYNC_SECONDS = "ingest.fsync_seconds"
+INGEST_ACKED = "ingest.acked"
+INGEST_SHEDS = "ingest.sheds"
+INGEST_RECOVERY_REPLAYS = "ingest.recovery_replays"
+INGEST_RECOVERY_TRUNCATED_BYTES = "ingest.recovery_truncated_bytes"
+INGEST_FAULTS_INJECTED = "ingest.faults_injected"
+# key translation (ISSUE 20, pilosa_tpu/translate/): durable sharded
+# key↔id stores, federated assignment, hot reverse-translation LRU
+TRANSLATE_CACHE_HITS = "translate.cache_hits"
+TRANSLATE_CACHE_MISSES = "translate.cache_misses"
+TRANSLATE_MINTED = "translate.minted"
+TRANSLATE_ADOPTED = "translate.adopted"
+TRANSLATE_FORWARDS = "translate.forwards"
+TRANSLATE_STORE_BYTES = "translate.store_bytes"
+TRANSLATE_RECOVERY_TRUNCATED_BYTES = "translate.recovery_truncated_bytes"
+# end-to-end data integrity (ISSUE 15): background scrubber findings,
+# quarantine/repair lifecycle, holder backup/restore
+SCRUB_SWEEPS = "scrub.sweeps"
+SCRUB_FRAGMENTS_SCANNED = "scrub.fragments_scanned"
+SCRUB_CORRUPTIONS = "scrub.corruptions"
+SCRUB_QUARANTINED = "scrub.quarantined"
+SCRUB_REPAIRS = "scrub.repairs"
+SCRUB_UNRECOVERABLE = "scrub.unrecoverable"
+SCRUB_SWEEP_SECONDS = "scrub.sweep_seconds"
+BACKUP_ARCHIVES = "backup.archives"
+RESTORE_APPLIED = "restore.applied"
+RESTORE_REFUSED = "restore.refused"
+# async continuous-batching dispatch engine (executor/dispatch.py)
+DISPATCH_WAVE_SIZE = "dispatch.wave_size"
+DISPATCH_INFLIGHT_DEPTH = "dispatch.inflight_depth"
+DISPATCH_DEVICE_IDLE_FRACTION = "dispatch.device_idle_fraction"
+DISPATCH_QUEUE_WAIT_SECONDS = "dispatch.queue_wait_seconds"
+# device-resident query fusion (executor/fusion.py)
+FUSION_FUSED_LAUNCHES = "fusion.fused_launches"
+FUSION_FUSED_CALLS_PER_LAUNCH = "fusion.fused_calls_per_launch"
+FUSION_BYTES_RETURNED = "fusion.bytes_returned"
+FUSION_BYPASSES = "fusion.bypasses"
+FUSION_ADMISSION_SPLITS = "fusion.admission_splits"
+# device-resident analytics (executor/analytics.py, ISSUE 18): GroupBy
+# panels lowered as segmented reductions, Distinct / Percentile BSI scans
+FUSION_GROUPBY_LAUNCHES = "fusion.groupby_launches"
+FUSION_GROUPBY_GROUPS = "fusion.groupby_groups"
+ANALYTICS_QUERIES = "analytics.queries"
+ANALYTICS_DEGRADED_LEGS = "analytics.degraded_legs"
+# device-resident plan cache (plan/cache.py DevicePlanCache)
+PLANCACHE_DEVICE_HITS = "plancache.device_hits"
+PLANCACHE_DEVICE_EVICTIONS = "plancache.device_evictions"
+PLANCACHE_DEVICE_BYTES = "plancache.device_bytes"
+# invariant checker — dynamic lock-order detection (analysis/locks.py)
+ANALYSIS_LOCK_CYCLES = "analysis.lock_cycles"
+ANALYSIS_LOCK_GRAPH_EDGES = "analysis.lock_graph_edges"
+# device health gate
+DEVICEHEALTH_HEALTHY = "devicehealth.healthy"
+DEVICEHEALTH_TRIPS = "devicehealth.trips"
+DEVICEHEALTH_RESTORES = "devicehealth.restores"
+DEVICEHEALTH_SLOW_CALLS = "devicehealth.slow_calls"
+DEVICEHEALTH_SATURATIONS = "devicehealth.saturations"
+# fleet observability (ISSUE 10): self-identifying scrapes, telemetry
+# federation, lifecycle event journal, remote trace stitching
+BUILD_INFO = "build_info"
+EVENTS_RECORDED = "events.recorded"
+FLEET_SCRAPES = "fleet.scrapes"
+TRACE_REMOTE_SPANS = "trace.remote_spans"
+# workload heat + durable journal + telemetry export (ISSUE 16)
+HEAT_CELLS = "heat.cells"
+JOURNAL_BYTES = "journal.bytes"
+JOURNAL_SEGMENTS = "journal.segments"
+JOURNAL_ERRORS = "journal.errors"
+EXPORT_ENQUEUED = "export.enqueued"
+EXPORT_DROPPED = "export.dropped"
+EXPORT_FLUSHES = "export.flushes"
+EXPORT_ERRORS = "export.errors"
+# performance attribution (ISSUE 12): always-on latency waterfalls,
+# device telemetry, continuous profiler, SLO burn-rate monitoring
+LATENCY_STAGE_SECONDS = "latency.stage_seconds"
+EXECUTOR_RTT_FRACTION = "executor.rtt_fraction"
+HBM_BYTES_IN_USE = "hbm.bytes_in_use"
+HBM_PEAK_BYTES = "hbm.peak_bytes"
+HBM_BYTES_LIMIT = "hbm.bytes_limit"
+HBM_STAGER_FRACTION = "hbm.stager_fraction"
+# device robustness (ISSUE 14): the process-wide HBM governor ledger,
+# OOM recovery at the kernel/fusion/batcher boundaries, and the device
+# fault-injection schedule (executor/hbm.py, utils/chaos.py)
+HBM_GOVERNOR_BYTES = "hbm.governor_bytes"
+HBM_GOVERNOR_EVICTIONS = "hbm.governor_evictions"
+DEVICE_OOM = "device.oom"
+DEVICE_OOM_RECOVERED = "device.oom_recovered"
+DEVICE_OOM_CPU_DEGRADES = "device.oom_cpu_degrades"
+DEVICE_FAULTS_INJECTED = "device.faults_injected"
+PROFILER_COMPILES = "profiler.compiles"
+PROFILER_RECOMPILE_STORMS = "profiler.recompile_storms"
+PROFILER_SAMPLES = "profiler.samples"
+PROFILER_STACK_KEYS = "profiler.stack_keys"
+SLO_BURN_RATE = "slo.burn_rate"
+SLO_BUDGET_REMAINING = "slo.budget_remaining"
+SLO_BURNS = "slo.burns"
+UPTIME_SECONDS = "uptime_seconds"
+PROCESS_START_TIME_SECONDS = "process_start_time_seconds"
+# server-level (emitted through the server's expvar/statsd stats client;
+# merged into /metrics from the expvar snapshot)
+QUERY_TIME = "query_time"
+SLOW_QUERY = "slow_query"
+MAX_RSS_KB = "maxRSSKB"
+THREADS = "threads"
+GC_GEN0 = "gcGen0"
+GARBAGE_COLLECTION = "garbage_collection"
+OPEN_FRAGMENTS = "openFragments"
+ANTI_ENTROPY_SECONDS = "antiEntropyDurationSeconds"
+ANTI_ENTROPY_ERRORS = "antiEntropyErrors"
+
+# name -> (prometheus type, help). "summary" renders quantiles + _sum/_count.
+METRICS: dict[str, tuple[str, str]] = {
+    EXECUTOR_CALLS: ("counter", "PQL calls executed, by call type (label: call)"),
+    EXECUTOR_ROUTE_DEVICE: (
+        "counter",
+        "per-shard routing decisions that picked the device path (label: call)",
+    ),
+    EXECUTOR_ROUTE_CPU: (
+        "counter",
+        "per-shard routing decisions that picked the CPU roaring path (label: call)",
+    ),
+    EXECUTOR_DEVICE_DOWN_FALLBACK: (
+        "counter",
+        "read calls re-run on the CPU path after the device health gate tripped",
+    ),
+    SPMD_COMPILE_SECONDS: (
+        "summary",
+        "first invocation (JIT trace + compile) of each cached kernel (label: kind)",
+    ),
+    SPMD_EXECUTE_SECONDS: (
+        "summary",
+        "warm dispatches of cached compiled kernels (label: kind)",
+    ),
+    BATCHER_DISPATCHES: (
+        "counter",
+        "kernel dispatch rounds launched by the batched scorers",
+    ),
+    BATCHER_BATCH_SIZE: ("summary", "coalesced queries per batched kernel launch"),
+    BATCHER_SLOT_WAIT_SECONDS: (
+        "summary",
+        "time a scoring request waited from enqueue to result",
+    ),
+    BATCHER_RESCUES: ("counter", "orphaned batch queues adopted by a blocked waiter"),
+    STAGER_HITS: ("counter", "HBM staging-cache hits"),
+    STAGER_MISSES: ("counter", "HBM staging-cache misses (block built + uploaded)"),
+    STAGER_MISSES_COLD: (
+        "counter",
+        "staging misses with no prior entry for the key (first touch)",
+    ),
+    STAGER_MISSES_INVALIDATION: (
+        "counter",
+        "staging misses caused by a fragment generation bump that could "
+        "not be absorbed as a delta (full rebuild + re-upload)",
+    ),
+    STAGER_STAGE_SECONDS: ("summary", "host packing + upload time per staged block"),
+    STAGER_BYTES: ("gauge", "bytes resident in the HBM staging cache"),
+    STAGER_RESTAGED_BYTES: (
+        "counter",
+        "bytes rebuilt + re-uploaded that an earlier stage already paid "
+        "for: invalidation misses (the cost delta staging avoids) and "
+        "capacity-eviction re-entries (the cost tiering cheapens)",
+    ),
+    STAGER_DELTA_APPLIED: (
+        "counter",
+        "staged blocks patched in place with scatter-update delta kernels "
+        "instead of rebuilt (snapshot + delta model)",
+    ),
+    STAGER_DELTA_FALLBACK: (
+        "counter",
+        "generation-mismatched blocks that fell back to a full re-stage "
+        "(label: reason = log | ratio | shape | sparse_form | multihost; "
+        "sparse_form also carries label: form = the concrete block-"
+        "sparse form that has no delta path)",
+    ),
+    STAGER_DELTA_APPLY_SECONDS: (
+        "summary",
+        "host mask coalesce + device scatter time per delta apply",
+    ),
+    STAGER_AHEAD_ERRORS: (
+        "counter",
+        "prefetch thunks that raised inside the stage-ahead loop (the "
+        "loop survives; first error per reason also journals "
+        "stager.ahead_error)",
+    ),
+    TIER1_HITS: (
+        "counter",
+        "T0 misses served from the host-RAM compressed tier (T1) "
+        "instead of a fragment walk",
+    ),
+    TIER1_MISSES: (
+        "counter",
+        "T0 misses that also missed T1 and rebuilt from the mmapped "
+        "fragment (T2)",
+    ),
+    TIER1_BYTES: (
+        "gauge",
+        "serialized roaring-container bytes resident in the host-RAM "
+        "compressed tier (T1)",
+    ),
+    TIER1_ADMITTED: (
+        "counter",
+        "blocks admitted into T1 by the cost-model (bytes x rebuild-cost "
+        "vs EWMA heat) admission policy",
+    ),
+    TIER1_REJECTED: (
+        "counter",
+        "blocks the T1 admission policy refused (evicting hotter "
+        "entries would cost more than the candidate is worth)",
+    ),
+    TIER1_EVICTED: (
+        "counter",
+        "T1 entries evicted (LRU byte pressure or generation staleness)",
+    ),
+    TIERING_COMPRESSED_UPLOADS: (
+        "counter",
+        "staged blocks uploaded as compressed roaring containers and "
+        "expanded to packed words on device (ratio cleared "
+        "compressed-upload-min-ratio)",
+    ),
+    TIERING_UPLOAD_BYTES_SAVED: (
+        "counter",
+        "PCIe bytes saved by compressed uploads: packed-word size minus "
+        "the compressed buffers actually transferred",
+    ),
+    PREFETCH_ISSUED: (
+        "counter",
+        "blocks the plan-driven prefetcher staged ahead of compute "
+        "(next-wave operands promoted from T1/T2)",
+    ),
+    PREFETCH_USED: (
+        "counter",
+        "prefetched blocks later hit by a real query before eviction — "
+        "the prefetch-accuracy numerator",
+    ),
+    PREFETCH_EVICTED: (
+        "counter",
+        "prefetched blocks evicted unused — wasted prefetch bandwidth",
+    ),
+    CACHE_HITS: ("counter", "TopN rank/LRU cache hits"),
+    CACHE_MISSES: ("counter", "TopN rank/LRU cache misses"),
+    PLANCACHE_HITS: (
+        "counter",
+        "plan-cache lookups served from a generation-valid cached result",
+    ),
+    PLANCACHE_MISSES: (
+        "counter",
+        "plan-cache lookups that executed the call (no valid entry)",
+    ),
+    PLANCACHE_INVALIDATIONS: (
+        "counter",
+        "cached results dropped because a contributing fragment's "
+        "generation no longer matched the entry's stamp",
+    ),
+    PLANCACHE_EVICTIONS: (
+        "counter",
+        "cached results evicted LRU to stay under plan-cache-max-bytes",
+    ),
+    PLANCACHE_BYTES: ("gauge", "bytes resident in the plan result cache"),
+    CLUSTER_MAP_REMOTE_SECONDS: (
+        "summary",
+        "distributed map-reduce remote leg latency (label: node)",
+    ),
+    CLUSTER_REMOTE_ERRORS: (
+        "counter",
+        "remote map-reduce legs that failed and re-mapped onto replicas (label: node)",
+    ),
+    CLIENT_RETRIES: (
+        "counter",
+        "internal HTTP requests retried after a transient failure (label: op)",
+    ),
+    CLIENT_RETRY_EXHAUSTED: (
+        "counter",
+        "internal HTTP requests that failed after exhausting all retries "
+        "(label: op)",
+    ),
+    MULTIHOST_DISPATCHES: (
+        "counter",
+        "gang work descriptors dispatched (leader) / applied (follower) "
+        "(label: role)",
+    ),
+    MULTIHOST_BROADCAST_SECONDS: (
+        "summary",
+        "leader-side latency of one descriptor broadcast over the "
+        "collective plane",
+    ),
+    MULTIHOST_TICKS: (
+        "counter",
+        "idle heartbeat broadcasts that completed (leader)",
+    ),
+    MULTIHOST_ABORTS: (
+        "counter",
+        "gang aborts: leader degrade-to-local-mesh events and follower "
+        "loop exits on leader loss (label: role)",
+    ),
+    MULTIHOST_DEGRADED: (
+        "gauge",
+        "1 after the gang degraded to the local mesh, else 0",
+    ),
+    MULTIHOST_STATE: (
+        "gauge",
+        "gang lifecycle state: 0=FORMING 1=ACTIVE 2=DEGRADED 3=REFORMING",
+    ),
+    MULTIHOST_EPOCH: (
+        "gauge",
+        "gang epoch, bumped on every re-formation to fence stale replay",
+    ),
+    MULTIHOST_REFORMS: (
+        "counter",
+        "gang re-formations completed (DEGRADED/REFORMING back to ACTIVE)",
+    ),
+    MULTIHOST_FOLLOWER_LAG_SECONDS: (
+        "summary",
+        "follower clock lag behind the leader's idle-tick timestamps",
+    ),
+    MULTIHOST_FOLLOWER_ERRORS: (
+        "counter",
+        "descriptors whose follower-side replay raised (divergence signal)",
+    ),
+    PIPELINE_ADMITTED: (
+        "counter",
+        "requests admitted to the serving pipeline (label: cls)",
+    ),
+    PIPELINE_SHEDS: (
+        "counter",
+        "requests shed 503 + Retry-After because a class admission "
+        "queue was full — whole-server overload, distinct from the "
+        "per-tenant 429 throttle (label: cls)",
+    ),
+    TENANT_ADMITTED: (
+        "counter",
+        "requests admitted through a tenant's token bucket into the "
+        "pipeline (labels: tenant, cls)",
+    ),
+    TENANT_THROTTLED: (
+        "counter",
+        "requests refused 429 + Retry-After by a tenant's own "
+        "admission bucket (labels: tenant; reason = qps | bytes)",
+    ),
+    TENANT_SHEDS: (
+        "counter",
+        "per-tenant view of class-queue sheds: requests this tenant "
+        "lost to whole-server overload (labels: tenant, cls)",
+    ),
+    TENANT_QUEUE_WAIT_SECONDS: (
+        "summary",
+        "per-tenant admission-queue wait under weighted-fair dequeue "
+        "(labels: tenant, cls)",
+    ),
+    TENANT_STAGE_SECONDS: (
+        "summary",
+        "per-tenant latency waterfall: seconds spent in one pipeline "
+        "stage serving one tenant's queries (labels: tenant, stage)",
+    ),
+    TENANT_INFLIGHT_BYTES: (
+        "gauge",
+        "request bytes currently in flight per tenant (admission "
+        "ledger, label: tenant)",
+    ),
+    TENANT_HBM_BYTES: (
+        "gauge",
+        "HBM-domain bytes attributed to one tenant across governor "
+        "subsystems: staged blocks + device plan cache (label: tenant)",
+    ),
+    TENANT_HBM_EVICTIONS: (
+        "counter",
+        "blocks evicted from an over-quota tenant by a quota-preferring "
+        "relief sweep or same-tenant insert eviction (labels: tenant; "
+        "tier = stager | device_cache)",
+    ),
+    PIPELINE_QUEUE_DEPTH: (
+        "gauge",
+        "current admission-queue depth, per request class (label: cls)",
+    ),
+    PIPELINE_WAIT_SECONDS: (
+        "summary",
+        "time an admitted request waited in the queue before execution (label: cls)",
+    ),
+    PIPELINE_COALESCE_HITS: (
+        "counter",
+        "duplicate concurrent queries that attached to an in-flight execution",
+    ),
+    PIPELINE_BATCHES: (
+        "counter",
+        "cross-request gangs executed as one combined query",
+    ),
+    PIPELINE_BATCH_WIDTH: (
+        "summary",
+        "requests per cross-request combined execution",
+    ),
+    PIPELINE_DEADLINE_EXPIRED: (
+        "counter",
+        "requests cancelled at a stage boundary after their deadline passed (label: stage)",
+    ),
+    PIPELINE_DRAIN_SECONDS: (
+        "summary",
+        "graceful-drain duration at shutdown",
+    ),
+    INGEST_QUEUE_DEPTH: (
+        "gauge",
+        "mutations queued in the write-ahead ingest queue awaiting a wave",
+    ),
+    INGEST_WAVE_SIZE: (
+        "summary",
+        "mutations coalesced per group-committed write wave",
+    ),
+    INGEST_WAVE_COMMIT_SECONDS: (
+        "summary",
+        "write-wave commit latency: dequeue through group-commit fsync "
+        "and gang replication — the write-ack latency submitters see",
+    ),
+    INGEST_FSYNC_SECONDS: (
+        "summary",
+        "fsync latency of one OP_BATCH group-commit append to a "
+        "fragment op log",
+    ),
+    INGEST_ACKED: (
+        "counter",
+        "mutations acknowledged durable (their wave's group commit "
+        "fsynced; acked writes survive SIGKILL)",
+    ),
+    INGEST_SHEDS: (
+        "counter",
+        "mutations shed 429 + Retry-After because the ingest queue was full",
+    ),
+    INGEST_RECOVERY_REPLAYS: (
+        "counter",
+        "fragment opens that truncated a torn op-log tail before replay",
+    ),
+    INGEST_RECOVERY_TRUNCATED_BYTES: (
+        "counter",
+        "bytes of torn/un-acked op-log tail truncated at fragment open",
+    ),
+    INGEST_FAULTS_INJECTED: (
+        "counter",
+        "storage faults injected by the storage-faults schedule "
+        "(label: fault = fsync_fail | torn_write | enospc | "
+        "corrupt_write | bitrot)",
+    ),
+    TRANSLATE_CACHE_HITS: (
+        "counter",
+        "ids→keys reverse translations served from the bounded hot-"
+        "translation LRU (no log pread)",
+    ),
+    TRANSLATE_CACHE_MISSES: (
+        "counter",
+        "ids→keys reverse translations that missed the LRU and pread "
+        "the key bytes back from a translate log",
+    ),
+    TRANSLATE_MINTED: (
+        "counter",
+        "key→id assignments minted locally (this node owns the key's "
+        "partition and is its sole id allocator)",
+    ),
+    TRANSLATE_ADOPTED: (
+        "counter",
+        "key→id assignments adopted durably from another node (owner "
+        "forward replies and replicated frames)",
+    ),
+    TRANSLATE_FORWARDS: (
+        "counter",
+        "key batches forwarded to a partition's owning node for minting",
+    ),
+    TRANSLATE_STORE_BYTES: (
+        "gauge",
+        "bytes across this node's translate logs (all key spaces)",
+    ),
+    TRANSLATE_RECOVERY_TRUNCATED_BYTES: (
+        "counter",
+        "bytes of torn/corrupt translate-log tail truncated at open",
+    ),
+    SCRUB_SWEEPS: (
+        "counter",
+        "background-scrub sweeps completed over the owned fragment set",
+    ),
+    SCRUB_FRAGMENTS_SCANNED: (
+        "counter",
+        "fragments verified by the scrubber (digest + op-log CRC, and "
+        "block compare when scrub-deep)",
+    ),
+    SCRUB_CORRUPTIONS: (
+        "counter",
+        "corruptions detected by verification (label: reason)",
+    ),
+    SCRUB_QUARANTINED: (
+        "counter",
+        "fragments quarantined after failing verification (reads 503 "
+        "until repaired)",
+    ),
+    SCRUB_REPAIRS: (
+        "counter",
+        "quarantined fragments repaired from a healthy replica copy",
+    ),
+    SCRUB_UNRECOVERABLE: (
+        "counter",
+        "quarantined fragments with no healthy replica to repair from",
+    ),
+    SCRUB_SWEEP_SECONDS: (
+        "summary",
+        "wall time of one full scrub sweep (includes throttle sleeps)",
+    ),
+    BACKUP_ARCHIVES: (
+        "counter",
+        "holder backup archives streamed (CLI or GET /backup)",
+    ),
+    RESTORE_APPLIED: (
+        "counter",
+        "holder restores applied after full archive checksum verification",
+    ),
+    RESTORE_REFUSED: (
+        "counter",
+        "restores refused: archive failed checksum/manifest verification "
+        "before any byte was applied",
+    ),
+    DISPATCH_WAVE_SIZE: (
+        "summary",
+        "queries admitted per continuous-batching dispatch wave",
+    ),
+    DISPATCH_INFLIGHT_DEPTH: (
+        "gauge",
+        "dispatch waves currently executing (double/triple buffering depth)",
+    ),
+    DISPATCH_DEVICE_IDLE_FRACTION: (
+        "gauge",
+        "fraction of wall time since first submit with NO wave executing — the number continuous batching drives down",
+    ),
+    DISPATCH_QUEUE_WAIT_SECONDS: (
+        "summary",
+        "time a submitted query waited in the dispatch queue before its wave launched",
+    ),
+    FUSION_FUSED_LAUNCHES: (
+        "counter",
+        "fused device launches: one jitted program serving a whole "
+        "multi-call query (or coalesced dispatch-wave group)",
+    ),
+    FUSION_FUSED_CALLS_PER_LAUNCH: (
+        "summary",
+        "PQL calls served per fused launch — the round-trips one "
+        "program replaced",
+    ),
+    FUSION_BYTES_RETURNED: (
+        "counter",
+        "bytes transferred device→host by fused launches (final "
+        "scalars/score heads only; intermediates stay in HBM)",
+    ),
+    FUSION_BYPASSES: (
+        "counter",
+        "queries that skipped fusion and took the per-call path "
+        "(label: reason)",
+    ),
+    FUSION_ADMISSION_SPLITS: (
+        "counter",
+        "fused launches split into smaller programs (or partially "
+        "routed to the classic path) because the estimated transient "
+        "peak exceeded governor HBM headroom",
+    ),
+    FUSION_GROUPBY_LAUNCHES: (
+        "counter",
+        "GroupBy panels answered by one segmented-reduction device "
+        "launch (the K point queries a panel would have cost collapse "
+        "to a single jitted program)",
+    ),
+    FUSION_GROUPBY_GROUPS: (
+        "summary",
+        "cross-product group count (K) per segmented GroupBy launch",
+    ),
+    ANALYTICS_QUERIES: (
+        "counter",
+        "analytic bulk queries executed (label: call = "
+        "GroupBy/Distinct/Percentile)",
+    ),
+    ANALYTICS_DEGRADED_LEGS: (
+        "counter",
+        "analytic device launches degraded to the classic per-shard "
+        "path (quarantined fragment inside the batch, staging failure); "
+        "the classic leg then surfaces the clean error or result",
+    ),
+    PLANCACHE_DEVICE_HITS: (
+        "counter",
+        "__cached subtree stacks served from the device-resident plan "
+        "cache (no host re-pack + re-upload)",
+    ),
+    PLANCACHE_DEVICE_EVICTIONS: (
+        "counter",
+        "device-resident plan-cache entries evicted LRU to stay under "
+        "plan-cache-device-bytes",
+    ),
+    PLANCACHE_DEVICE_BYTES: (
+        "gauge",
+        "HBM bytes held by device-resident plan-cache entries",
+    ),
+    ANALYSIS_LOCK_CYCLES: (
+        "gauge",
+        "distinct lock-order cycles observed by the OrderedLock graph "
+        "(any nonzero value is a latent deadlock; strict mode raises instead)",
+    ),
+    ANALYSIS_LOCK_GRAPH_EDGES: (
+        "gauge",
+        "acquired-while-holding edges recorded in the global lock graph",
+    ),
+    DEVICEHEALTH_HEALTHY: ("gauge", "1 while the device path is open, 0 while gated"),
+    DEVICEHEALTH_TRIPS: ("counter", "device health gate trips (device gated off)"),
+    DEVICEHEALTH_RESTORES: ("counter", "device health gate restores"),
+    DEVICEHEALTH_SLOW_CALLS: (
+        "counter",
+        "guarded calls past their deadline whose probe cleared the device",
+    ),
+    DEVICEHEALTH_SATURATIONS: ("counter", "guard-pool admission timeouts"),
+    BUILD_INFO: (
+        "gauge",
+        "always 1; the process identifies itself via labels (version, "
+        "jax, backend, pid, gang, rank, leader) — fleet scrapes are "
+        "self-identifying",
+    ),
+    EVENTS_RECORDED: (
+        "counter",
+        "lifecycle events appended to the /debug/events journal (label: kind)",
+    ),
+    FLEET_SCRAPES: (
+        "counter",
+        "per-instance registry pulls attempted by the fleet telemetry "
+        "collector (label: outcome = ok | error)",
+    ),
+    HEAT_CELLS: (
+        "gauge",
+        "live (index, field, shard) cells tracked by the workload heat ledger",
+    ),
+    JOURNAL_BYTES: (
+        "gauge",
+        "bytes resident across the durable event journal's on-disk segments",
+    ),
+    JOURNAL_SEGMENTS: (
+        "gauge",
+        "on-disk segment files backing the durable event journal",
+    ),
+    JOURNAL_ERRORS: (
+        "counter",
+        "durable-journal IO failures (recording falls back to ring-only; "
+        "label: op = append | open | prune)",
+    ),
+    EXPORT_ENQUEUED: (
+        "counter",
+        "telemetry records accepted by the export queue (label: stream = "
+        "events | spans | metrics)",
+    ),
+    EXPORT_DROPPED: (
+        "counter",
+        "telemetry records dropped on a full export queue — producers "
+        "never block (label: stream)",
+    ),
+    EXPORT_FLUSHES: (
+        "counter",
+        "export batches flushed to sinks (label: sink = jsonl | otlp)",
+    ),
+    EXPORT_ERRORS: (
+        "counter",
+        "export sink write failures; the batch is dropped, the pipeline "
+        "keeps running (label: sink)",
+    ),
+    TRACE_REMOTE_SPANS: (
+        "counter",
+        "remote span subtrees stitched into local traces (label: "
+        "source = push | envelope)",
+    ),
+    LATENCY_STAGE_SECONDS: (
+        "summary",
+        "per-query latency waterfall leg, per request class and "
+        "waterfall stage (labels: cls, stage — see §Waterfall stages)",
+    ),
+    EXECUTOR_RTT_FRACTION: (
+        "gauge",
+        "EMA of the device+transfer share of served-query latency — "
+        "the live is-it-still-RTT-bound signal",
+    ),
+    HBM_BYTES_IN_USE: (
+        "gauge",
+        "device memory in use, from device.memory_stats() (label: device)",
+    ),
+    HBM_PEAK_BYTES: (
+        "gauge",
+        "peak device memory in use since process start (label: device)",
+    ),
+    HBM_BYTES_LIMIT: (
+        "gauge",
+        "device memory capacity, from device.memory_stats() (label: device)",
+    ),
+    HBM_STAGER_FRACTION: (
+        "gauge",
+        "fraction of device memory held by the HBM staging cache "
+        "(stager bytes / device limit)",
+    ),
+    HBM_GOVERNOR_BYTES: (
+        "gauge",
+        "bytes reserved in the process-wide HBM governor ledger "
+        "(label: tenant = stager | device_cache | batcher | transient)",
+    ),
+    HBM_GOVERNOR_EVICTIONS: (
+        "counter",
+        "entries evicted by the governor's pressure tiers to restore "
+        "HBM headroom (label: tier = device_cache | stager)",
+    ),
+    DEVICE_OOM: (
+        "counter",
+        "device allocation failures (RESOURCE_EXHAUSTED) caught at a "
+        "kernel/fusion/batcher boundary (label: kind; label: cls = "
+        "alloc | wedge)",
+    ),
+    DEVICE_OOM_RECOVERED: (
+        "counter",
+        "device OOMs recovered in place: governor eviction freed "
+        "headroom and the single retry succeeded",
+    ),
+    DEVICE_OOM_CPU_DEGRADES: (
+        "counter",
+        "device OOMs that degraded the call to the CPU roaring leg "
+        "after the evict-and-retry failed",
+    ),
+    DEVICE_FAULTS_INJECTED: (
+        "counter",
+        "device faults injected by the device-faults schedule "
+        "(label: fault = oom | stall | poison_jit)",
+    ),
+    PROFILER_COMPILES: (
+        "counter",
+        "XLA compiles observed at the jit entry points (label: kind); "
+        "per-plan-signature detail at /debug/profile",
+    ),
+    PROFILER_RECOMPILE_STORMS: (
+        "counter",
+        "recompile-storm detections (compile burst over the storm "
+        "window) — each also journals a profiler.recompile_storm event",
+    ),
+    PROFILER_SAMPLES: (
+        "counter",
+        "thread-stack samples taken by the continuous profiler",
+    ),
+    PROFILER_STACK_KEYS: (
+        "gauge",
+        "distinct aggregated stack keys held by the continuous profiler "
+        "(bounded; overflow folds into an 'other' bucket)",
+    ),
+    SLO_BURN_RATE: (
+        "gauge",
+        "error-budget burn rate over a trailing window (labels: cls, "
+        "window = 5m | 1h); 1.0 burns the budget exactly at period "
+        "end. Per-tenant objectives appear as cls=tenant:<index>",
+    ),
+    SLO_BUDGET_REMAINING: (
+        "gauge",
+        "fraction of the error budget left over the long (1h) window, "
+        "per request class or tenant objective (label: cls)",
+    ),
+    SLO_BURNS: (
+        "counter",
+        "SLO burn alerts fired (both windows over slo-burn-threshold; "
+        "label: cls) — each also journals an slo.burn event",
+    ),
+    UPTIME_SECONDS: (
+        "gauge",
+        "seconds since this process's server opened (companion to "
+        "build_info; refreshed at scrape time)",
+    ),
+    PROCESS_START_TIME_SECONDS: (
+        "gauge",
+        "unix timestamp at which this process's server opened",
+    ),
+    QUERY_TIME: ("summary", "whole-query wall time, server-level (label: index)"),
+    SLOW_QUERY: ("counter", "queries slower than cluster.long-query-time"),
+    MAX_RSS_KB: ("gauge", "process max RSS in KB"),
+    THREADS: ("gauge", "live Python threads"),
+    GC_GEN0: ("gauge", "gc generation-0 object count"),
+    GARBAGE_COLLECTION: ("counter", "completed gc collection cycles"),
+    OPEN_FRAGMENTS: ("gauge", "fragments currently open in the holder"),
+    ANTI_ENTROPY_SECONDS: ("summary", "anti-entropy sweep duration"),
+    ANTI_ENTROPY_ERRORS: (
+        "counter",
+        "anti-entropy sweeps that failed (per-fragment sync errors "
+        "also journal antientropy.error) — a silently dead syncer is "
+        "visible on the fleet scrape",
+    ),
+}
+
+# -- trace stage names (pilosa_tpu/utils/trace.py span names) --------------
+
+STAGE_QUERY = "query"
+STAGE_PIPELINE_WAIT = "pipeline.wait"
+STAGE_PLAN_CANON = "plan.canon"
+STAGE_EXECUTOR = "executor"
+STAGE_CALL = "executor.call"
+STAGE_MAP_SHARD = "executor.map_shard"
+STAGE_ROUTE = "executor.route"
+STAGE_DEVICE_BATCH = "executor.device_batch"
+STAGE_SPMD_KERNEL = "spmd.kernel"
+STAGE_BATCH_SCORE = "batcher.score"
+STAGE_STAGE = "stager.stage"
+STAGE_DELTA = "stager.delta_apply"
+STAGE_MAP_REMOTE = "cluster.map_remote"
+STAGE_MAP_LOCAL = "cluster.map_local"
+STAGE_GANG = "multihost.gang"
+STAGE_PIPELINE_COALESCE = "pipeline.coalesce"
+STAGE_DISPATCH_DEDUP = "dispatch.dedup"
+STAGE_MH_REPLAY = "multihost.replay"
+
+STAGES: dict[str, str] = {
+    STAGE_QUERY: "root span, one per query (API layer)",
+    STAGE_PIPELINE_WAIT: "admission-queue wait before execution (backfilled)",
+    STAGE_PLAN_CANON: "plan canonicalization + CSE rewrite against the result cache",
+    STAGE_EXECUTOR: "Executor.execute body",
+    STAGE_CALL: "one PQL call dispatch (meta: call)",
+    STAGE_MAP_SHARD: "per-shard map leg (meta: shard)",
+    STAGE_ROUTE: "device-vs-CPU routing decision event (meta: call, shard, path)",
+    STAGE_DEVICE_BATCH: "shard-batched device fast path (Count/Sum/TopN)",
+    STAGE_SPMD_KERNEL: "compiled kernel invocation (meta: kind, first)",
+    STAGE_BATCH_SCORE: "batched-scorer scoring request, enqueue to result",
+    STAGE_STAGE: "HBM staging-cache miss build (meta: nbytes)",
+    STAGE_DELTA: "delta scatter-apply onto a resident block (meta: nupdates)",
+    STAGE_MAP_REMOTE: "distributed map-reduce remote leg (meta: node)",
+    STAGE_MAP_LOCAL: "distributed map-reduce local leg",
+    STAGE_GANG: "gang-dispatched multihost execution (meta: plan, kind)",
+    STAGE_PIPELINE_COALESCE: (
+        "point entry for a coalesced pipeline follower: a span-link to "
+        "the in-flight leader execution that served it"
+    ),
+    STAGE_DISPATCH_DEDUP: (
+        "point entry for a wave-deduped dispatch item: a span-link to "
+        "the executed item (meta: wave)"
+    ),
+    STAGE_MH_REPLAY: (
+        "gang-follower replay of a dispatched descriptor under the "
+        "originating trace id (meta: rank, epoch)"
+    ),
+}
+
+
+# -- registry --------------------------------------------------------------
+
+
+def _labels_key(labels: dict) -> tuple:
+    if not labels:
+        return ()
+    return tuple(sorted(labels.items()))
+
+
+class Registry:
+    """Process-global aggregation: counters/gauges sum or overwrite under
+    one lock; histograms aggregate into LogHistogram buckets. Cheap
+    enough for per-shard counters (~dict update per call)."""
+
+    def __init__(self) -> None:
+        self._mu = threading.Lock()
+        self._counters: dict[tuple, float] = {}
+        self._gauges: dict[tuple, float] = {}
+        self._hists: dict[tuple, LogHistogram] = {}
+
+    def count(self, name: str, value: float = 1, **labels) -> None:
+        k = (name, _labels_key(labels))
+        with self._mu:
+            self._counters[k] = self._counters.get(k, 0) + value
+
+    def gauge(self, name: str, value: float, **labels) -> None:
+        with self._mu:
+            self._gauges[(name, _labels_key(labels))] = value
+
+    def observe(self, name: str, value: float, **labels) -> None:
+        k = (name, _labels_key(labels))
+        with self._mu:
+            h = self._hists.get(k)
+            if h is None:
+                h = self._hists[k] = LogHistogram()
+            h.observe(value)
+
+    def snapshot(self) -> dict:
+        """JSON-safe flat snapshot: ``name[;k:v,...]`` -> number or
+        histogram summary dict (the expvar key convention, so bench
+        output and /debug/vars read the same way)."""
+        out = {}
+        with self._mu:
+            for (name, lbl), v in self._counters.items():
+                out[_flat_key(name, lbl)] = v
+            for (name, lbl), v in self._gauges.items():
+                out[_flat_key(name, lbl)] = v
+            for (name, lbl), h in self._hists.items():
+                out[_flat_key(name + ".hist", lbl)] = h.summary()
+        return out
+
+    def clear(self) -> None:
+        with self._mu:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+
+    def _families(self) -> dict:
+        """name -> list[(labels tuple, value-or-LogHistogram)]."""
+        fams: dict[str, list] = {}
+        with self._mu:
+            for (name, lbl), v in self._counters.items():
+                fams.setdefault(name, []).append((lbl, v))
+            for (name, lbl), v in self._gauges.items():
+                fams.setdefault(name, []).append((lbl, v))
+            for (name, lbl), h in self._hists.items():
+                fams.setdefault(name, []).append((lbl, h.summary()))
+        return fams
+
+
+REGISTRY = Registry()
+
+# module-level conveniences (the instrumentation call surface)
+count = REGISTRY.count
+gauge = REGISTRY.gauge
+observe = REGISTRY.observe
+snapshot = REGISTRY.snapshot
+
+
+def _flat_key(name: str, labels: tuple) -> str:
+    if not labels:
+        return name
+    return name + ";" + ",".join(f"{k}:{v}" for k, v in labels)
+
+
+# -- Prometheus text exposition --------------------------------------------
+
+
+def _prom_name(name: str) -> str:
+    s = "".join(ch if ch.isalnum() or ch == "_" else "_" for ch in name)
+    if not s or not (s[0].isalpha() or s[0] == "_"):
+        s = "_" + s
+    return "pilosa_" + s
+
+
+def _prom_label_value(v) -> str:
+    return (
+        str(v)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _prom_labels(labels: tuple, extra: Optional[tuple] = None) -> str:
+    items = list(labels) + list(extra or ())
+    if not items:
+        return ""
+    body = ",".join(
+        f'{_prom_name(k)[len("pilosa_"):]}="{_prom_label_value(v)}"'
+        for k, v in items
+    )
+    return "{" + body + "}"
+
+
+def _parse_expvar_key(key: str) -> tuple[str, tuple]:
+    """``name[.timing][.hist];t1:v1,t2:v2`` -> (base name, labels)."""
+    name, _, tagstr = key.partition(";")
+    for suffix in (".hist", ".timing"):
+        if name.endswith(suffix):
+            name = name[: -len(suffix)]
+    labels = []
+    if tagstr:
+        for tag in tagstr.split(","):
+            k, sep, v = tag.partition(":")
+            labels.append((k, v) if sep else ("tag", k))
+    return name, tuple(labels)
+
+
+def _fmt(v: float) -> str:
+    if isinstance(v, float) and (math.isnan(v) or math.isinf(v)):
+        return "NaN"
+    if isinstance(v, float) and v == int(v):
+        return str(int(v))
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def _merge_snapshot(fams: dict, snap: dict, extra: tuple = ()) -> None:
+    """Fold one expvar-style snapshot into the family map, optionally
+    tagging every sample with extra labels (the fleet collector's
+    ``instance`` label)."""
+    for key, v in snap.items():
+        if isinstance(v, dict) and "count" in v and "sum" in v:
+            name, labels = _parse_expvar_key(key)
+            fams.setdefault(name, []).append((labels + extra, v))
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            name, labels = _parse_expvar_key(key)
+            fams.setdefault(name, []).append((labels + extra, v))
+        # strings (stats .set values) have no Prometheus shape: skip
+
+
+def render_prometheus(
+    extra_snapshots: Optional[list[dict]] = None,
+    registry: Optional[Registry] = None,
+    instances: Optional[list[tuple[str, dict]]] = None,
+) -> str:
+    """Render the global registry (plus optional expvar-style snapshots,
+    e.g. the server's per-instance stats) as Prometheus text exposition.
+    Histogram summaries render as summary-typed families (quantile
+    labels + _sum/_count); everything else as its declared type.
+
+    ``instances`` is the telemetry-federation surface: a list of
+    ``(instance_label, snapshot)`` pairs pulled from other processes by
+    the fleet collector — every sample from such a snapshot carries an
+    ``instance="<label>"`` label so per-rank series stay distinct in
+    the aggregated ``/metrics?fleet=true`` view."""
+    fams: dict[str, list] = (registry if registry is not None else REGISTRY)._families()
+    for snap in extra_snapshots or []:
+        _merge_snapshot(fams, snap)
+    for inst, snap in instances or []:
+        _merge_snapshot(fams, snap, extra=(("instance", inst),))
+
+    lines: list[str] = []
+    for name in sorted(fams):
+        pname = _prom_name(name)
+        typ, help_ = METRICS.get(name, ("gauge", ""))
+        samples = fams[name]
+        if any(isinstance(v, dict) for _, v in samples):
+            typ = "summary"
+        if help_:
+            lines.append(f"# HELP {pname} {help_}")
+        lines.append(f"# TYPE {pname} {typ}")
+        for labels, v in samples:
+            if isinstance(v, dict):
+                for q, kq in (("0.5", "p50"), ("0.95", "p95"), ("0.99", "p99")):
+                    qv = v.get(kq)
+                    if qv is not None:
+                        lines.append(
+                            f"{pname}{_prom_labels(labels, (('quantile', q),))} {_fmt(qv)}"
+                        )
+                lines.append(f"{pname}_sum{_prom_labels(labels)} {_fmt(v['sum'])}")
+                lines.append(f"{pname}_count{_prom_labels(labels)} {_fmt(v['count'])}")
+            else:
+                lines.append(f"{pname}{_prom_labels(labels)} {_fmt(v)}")
+    return "\n".join(lines) + "\n"

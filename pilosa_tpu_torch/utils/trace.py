@@ -1,0 +1,654 @@
+"""Span-based query tracing — the timing tree behind ``profile=true``,
+``GET /debug/traces``, and the slow-query log.
+
+Design constraints (ISSUE 1 acceptance):
+
+* **Zero hot-path cost when off.** A query that isn't traced carries no
+  span: the root is the shared ``NOP_SPAN`` singleton, the contextvar
+  stays ``None``, and every instrumentation site is a single
+  ``current() is None`` branch — no allocation per shard, per call, or
+  per dispatch. A unit test guards this via ``span_count()``.
+* **Cross-thread propagation is explicit.** contextvars don't follow
+  work into thread pools (the executor's read pool, the cluster's
+  map-reduce pool), so pool submitters capture ``current()`` once and
+  re-enter it in the worker via ``activate(span)``.
+* **Bounded memory.** Completed root traces land in a ring buffer
+  (``deque(maxlen=...)``) as plain dicts; an abandoned span tree is
+  garbage like any other object.
+
+Sampling: ``TRACER.sample_rate`` traces that fraction of queries into
+the ring buffer; ``force=True`` (the ``profile=true`` query option)
+always traces; a non-zero ``slow_threshold`` traces every query so the
+span tree exists for whichever ones turn out slow, and fires
+``on_slow`` with the tree dict for those.
+
+Distributed context (ISSUE 10): every traced query owns a W3C
+traceparent-style context — a 128-bit ``trace_id``, a per-span 64-bit
+``span_id``, and a sampled flag — carried across process boundaries as
+a ``traceparent`` header (``00-<32hex>-<16hex>-<2hex>``). A process
+receiving a sampled context adopts the trace id (``Tracer.trace(ctx=)``)
+so every leg of a federated query lands in some ring under ONE id; the
+root process stitches the remote legs back in two ways:
+
+* **synchronous** — a remote federation leg returns its serialized
+  child spans in the response envelope and the caller ``graft()``s them
+  into the live tree;
+* **asynchronous** — gang followers (one-way collective plane, no
+  response path) push their replay span dicts to the leader's
+  ``graft_remote`` buffer over HTTP, and ``recent()`` merges them into
+  the matching ring entry at read time.
+
+Span links (``Span.link``) record causal edges that aren't
+parent/child: a coalesced pipeline follower links the leader's trace, a
+wave-deduped dispatch item links the executed item.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import os
+import random
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Optional
+
+_current: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
+    "pilosa_tpu_span", default=None
+)
+
+# distributed context of the current request even when it is NOT locally
+# sampled (flags 00): the tuple still has to reach dispatch items and
+# outbound RPC headers without allocating any Span
+_ctx_var: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "pilosa_tpu_trace_ctx", default=None
+)
+
+# monotonic count of real Span objects ever created — the overhead
+# guard's probe: tracing disabled must leave this untouched
+_spans_created = 0
+
+
+def span_count() -> int:
+    return _spans_created
+
+
+def current() -> Optional["Span"]:
+    """The active span of this thread/context, or None when untraced."""
+    return _current.get()
+
+
+# -- W3C traceparent-style context -------------------------------------------
+
+
+def new_trace_id() -> str:
+    return os.urandom(16).hex()
+
+
+def new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+def format_traceparent(ctx: tuple) -> str:
+    """``(trace_id, span_id, sampled)`` → ``00-<32hex>-<16hex>-<2hex>``."""
+    trace_id, span_id, sampled = ctx
+    return f"00-{trace_id}-{span_id}-{'01' if sampled else '00'}"
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[tuple]:
+    """Parse a traceparent header into ``(trace_id, span_id, sampled)``;
+    malformed input returns None (the request simply starts a fresh
+    trace — propagation must never fail a query)."""
+    if not header:
+        return None
+    parts = header.strip().lower().split("-")
+    if len(parts) != 4:
+        return None
+    version, trace_id, span_id, flags = parts
+    if len(version) != 2 or len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    if len(flags) != 2:
+        return None
+    try:
+        int(version, 16)
+        int(trace_id, 16)
+        int(span_id, 16)
+        fl = int(flags, 16)
+    except ValueError:
+        return None
+    if version == "ff" or trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return (trace_id, span_id, bool(fl & 1))
+
+
+def current_ctx() -> Optional[tuple]:
+    """The distributed context of this request: the active span's ids
+    when traced, else the adopted-but-unsampled ingress context, else
+    None. What outbound RPC legs and dispatch items carry."""
+    sp = _current.get()
+    if sp is not None and sp.trace_id:
+        return (sp.trace_id, sp.span_id, True)
+    return _ctx_var.get()
+
+
+class _CtxActivation:
+    """Carry an unsampled distributed context through a request without
+    allocating spans (flags 00: propagate the id, trace nothing)."""
+
+    __slots__ = ("_ctx", "_token")
+
+    def __init__(self, ctx: Optional[tuple]) -> None:
+        self._ctx = ctx
+        self._token = None
+
+    def __enter__(self) -> Optional[tuple]:
+        if self._ctx is not None:
+            self._token = _ctx_var.set(self._ctx)
+        return self._ctx
+
+    def __exit__(self, *exc) -> bool:
+        if self._token is not None:
+            _ctx_var.reset(self._token)
+        return False
+
+
+def push_ctx(ctx: Optional[tuple]) -> _CtxActivation:
+    return _CtxActivation(ctx)
+
+
+class _NopSpan:
+    """Shared do-nothing span: every method is a no-op and ``child``
+    returns itself, so untraced code paths can use the same call shapes
+    without allocating."""
+
+    __slots__ = ()
+
+    trace_id = ""
+    span_id = ""
+
+    def __enter__(self) -> "_NopSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def child(self, name: str, **meta) -> "_NopSpan":
+        return self
+
+    def event(self, name: str, **meta) -> None:
+        pass
+
+    def record(self, name: str, t0: float, duration: float, **meta) -> "_NopSpan":
+        return self
+
+    def annotate(self, **meta) -> None:
+        pass
+
+    def link(self, trace_id: str, span_id: str = "", **attrs) -> None:
+        pass
+
+    def graft(self, subtree: dict) -> None:
+        pass
+
+    def to_dict(self, base: Optional[float] = None) -> dict:
+        return {}
+
+
+NOP_SPAN = _NopSpan()
+
+
+class Span:
+    """One timed stage. Context-manager enter/exit measures duration and
+    publishes this span as the contextvar current, so nested
+    instrumentation attaches implicitly; ``child()``/``event()`` attach
+    explicitly (usable from any thread — list.append is atomic)."""
+
+    __slots__ = (
+        "name",
+        "meta",
+        "t0",
+        "duration",
+        "children",
+        "_token",
+        "_tracer",
+        "trace_id",
+        "span_id",
+        "parent_id",
+        "links",
+        "_grafts",
+    )
+
+    def __init__(self, name: str, _tracer: Optional["Tracer"] = None, **meta) -> None:
+        global _spans_created
+        _spans_created += 1
+        self.name = name
+        self.meta = meta
+        self.t0 = 0.0
+        self.duration: Optional[float] = None
+        self.children: list[Span] = []
+        self._token = None
+        self._tracer = _tracer
+        self.trace_id = ""
+        self.span_id = new_span_id()
+        self.parent_id = ""
+        self.links: Optional[list[dict]] = None
+        self._grafts: Optional[list[dict]] = None
+
+    def child(self, name: str, **meta) -> "Span":
+        sp = Span(name, **meta)
+        sp.trace_id = self.trace_id
+        sp.parent_id = self.span_id
+        self.children.append(sp)
+        return sp
+
+    def event(self, name: str, **meta) -> None:
+        """Zero-duration child (a point annotation, e.g. one routing
+        decision)."""
+        sp = Span(name, **meta)
+        sp.trace_id = self.trace_id
+        sp.t0 = time.monotonic()
+        sp.duration = 0.0
+        self.children.append(sp)
+
+    def record(self, name: str, t0: float, duration: float, **meta) -> "Span":
+        """Backfill a completed child span from externally-measured
+        times — for stages whose wait was spent elsewhere (a batcher
+        slot from enqueue to result, a kernel invocation wrapped by the
+        timing cache, the pipeline's admission-queue wait), where
+        enter/exit timing can't be used."""
+        sp = Span(name, **meta)
+        sp.trace_id = self.trace_id
+        sp.t0 = t0
+        sp.duration = duration
+        self.children.append(sp)
+        return sp
+
+    def annotate(self, **meta) -> None:
+        self.meta.update(meta)
+
+    def link(self, trace_id: str, span_id: str = "", **attrs) -> None:
+        """A causal edge to a span that is NOT this span's parent —
+        singleflight coalescing, wave dedup (Canopy-style links)."""
+        d = {"trace_id": trace_id}
+        if span_id:
+            d["span_id"] = span_id
+        if attrs:
+            d.update(attrs)
+        if self.links is None:
+            self.links = []
+        self.links.append(d)
+
+    def graft(self, subtree: dict) -> None:
+        """Attach a pre-serialized span dict from ANOTHER process (a
+        remote federation leg's response envelope) as a child of this
+        span. The subtree keeps its own clock: its ``start_ms`` values
+        are relative to the remote process's root."""
+        if subtree:
+            if self._grafts is None:
+                self._grafts = []
+            self._grafts.append(subtree)
+
+    def __enter__(self) -> "Span":
+        self.t0 = time.monotonic()
+        self._token = _current.set(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.duration = time.monotonic() - self.t0
+        if self._token is not None:
+            _current.reset(self._token)
+            self._token = None
+        if self._tracer is not None:
+            self._tracer._record(self)
+        return False
+
+    def to_dict(self, base: Optional[float] = None) -> dict:
+        root = base is None
+        if base is None:
+            base = self.t0
+        out = {
+            "name": self.name,
+            "start_ms": round((self.t0 - base) * 1000.0, 3),
+            "duration_ms": round((self.duration or 0.0) * 1000.0, 3),
+        }
+        if self.trace_id:
+            out["span_id"] = self.span_id
+            if root:
+                out["trace_id"] = self.trace_id
+                if self.parent_id:
+                    out["parent_id"] = self.parent_id
+        if self.meta:
+            out["meta"] = self.meta
+        if self.links:
+            out["links"] = list(self.links)
+        if self.children or self._grafts:
+            kids = [c.to_dict(base) for c in self.children]
+            if self._grafts:
+                kids.extend(self._grafts)
+            out["children"] = kids
+        return out
+
+
+class _Activation:
+    """Re-enter an existing span in another thread/context without
+    re-timing it (pool workers adopt the submitter's span)."""
+
+    __slots__ = ("_span", "_token")
+
+    def __init__(self, span: Optional[Span]) -> None:
+        self._span = span
+        self._token = None
+
+    def __enter__(self) -> Optional[Span]:
+        if self._span is not None:
+            self._token = _current.set(self._span)
+        return self._span
+
+    def __exit__(self, *exc) -> bool:
+        if self._token is not None:
+            _current.reset(self._token)
+        return False
+
+
+def activate(span: Optional[Span]) -> _Activation:
+    return _Activation(span)
+
+
+def child(name: str, **meta):
+    """Child span of the current span, or NOP_SPAN when untraced — the
+    one-liner instrumentation entry point: ``with trace.child(...)``."""
+    sp = _current.get()
+    if sp is None:
+        return NOP_SPAN
+    return sp.child(name, **meta)
+
+
+class Tracer:
+    """Trace admission + the ring buffer of recent completed traces."""
+
+    # bounds on the remote-span stitch buffer: trace ids retained, and
+    # span dicts retained per trace (a runaway pusher can't grow it)
+    STITCH_TRACES = 64
+    STITCH_SPANS = 64
+
+    def __init__(self, sample_rate: float = 0.0, ring_size: int = 128) -> None:
+        self.sample_rate = sample_rate
+        self.slow_threshold = 0.0  # seconds; >0 traces everything
+        self.on_slow = None  # callable(dict) for traces over threshold
+        # export tap (telemetry_export): every completed root-span dict;
+        # None = disabled — the untraced hot path never reaches here
+        self.on_export = None
+        self._ring: deque[dict] = deque(maxlen=ring_size)
+        self._mu = threading.Lock()
+        self.traces_recorded = 0
+        # fleet identity stamped into every sampled root span's meta
+        # (gang, rank, ...) so ring entries filter by gang and stitched
+        # trees are self-identifying; empty on a standalone node
+        self.tags: dict = {}
+        # trace_id -> pushed remote span dicts (gang-follower replay
+        # legs arriving over the one-way plane's HTTP side channel)
+        self._stitch: "OrderedDict[str, list[dict]]" = OrderedDict()
+
+    def trace(self, name: str, force: bool = False, ctx: Optional[tuple] = None, **meta):
+        """A root span (context manager), or NOP_SPAN when this query is
+        not sampled. ``ctx`` is a parsed traceparent tuple from an
+        upstream process: a sampled ctx forces tracing and the span
+        adopts its trace id (the upstream made the sampling decision);
+        an unsampled ctx only propagates the id via ``push_ctx``."""
+        sampled_upstream = ctx is not None and ctx[2]
+        if not force and not sampled_upstream and self.slow_threshold <= 0.0:
+            r = self.sample_rate
+            if r <= 0.0 or random.random() >= r:
+                return NOP_SPAN
+        if self.tags:
+            meta = {**self.tags, **meta}
+        sp = Span(name, _tracer=self, **meta)
+        if ctx is not None:
+            sp.trace_id = ctx[0]
+            sp.parent_id = ctx[1]
+        else:
+            sp.trace_id = new_trace_id()
+        return sp
+
+    def _record(self, span: Span) -> None:
+        d = span.to_dict()
+        with self._mu:
+            self._ring.append(d)
+            self.traces_recorded += 1
+        cb = self.on_export
+        if cb is not None:
+            try:
+                cb(d)
+            except Exception:
+                pass  # an export hook must never fail the query
+        if (
+            self.slow_threshold > 0.0
+            and span.duration is not None
+            and span.duration >= self.slow_threshold
+            and self.on_slow is not None
+        ):
+            try:
+                self.on_slow(d)
+            except Exception:
+                pass  # a logging hook must never fail the query
+
+    # -- remote stitching ----------------------------------------------------
+
+    def graft_remote(self, trace_id: str, spans: list[dict]) -> None:
+        """Buffer span dicts pushed by another process for ``trace_id``;
+        ``recent()``/``stitched()`` merge them into the matching ring
+        entry at read time. Bounded both ways."""
+        if not trace_id or not spans:
+            return
+        with self._mu:
+            bucket = self._stitch.get(trace_id)
+            if bucket is None:
+                while len(self._stitch) >= self.STITCH_TRACES:
+                    self._stitch.popitem(last=False)
+                bucket = self._stitch[trace_id] = []
+            room = self.STITCH_SPANS - len(bucket)
+            if room > 0:
+                bucket.extend(spans[:room])
+
+    def stitched(self, entry: dict) -> dict:
+        """A copy of one ring entry with any buffered remote spans for
+        its trace id appended as children (marked by their own meta:
+        rank/pid). The ring entry itself is never mutated."""
+        tid = entry.get("trace_id")
+        if not tid:
+            return entry
+        with self._mu:
+            extra = list(self._stitch.get(tid) or ())
+        # a leader-rank replay span lands in this ring AND the stitch
+        # buffer: never stitch an entry onto itself
+        sid = entry.get("span_id")
+        if sid:
+            extra = [e for e in extra if e.get("span_id") != sid]
+        if not extra:
+            return entry
+        out = dict(entry)
+        out["children"] = list(entry.get("children") or ()) + extra
+        return out
+
+    def recent(
+        self,
+        trace_id: Optional[str] = None,
+        min_ms: Optional[float] = None,
+        gang: Optional[str] = None,
+    ) -> list[dict]:
+        with self._mu:
+            entries = list(self._ring)
+        if trace_id:
+            entries = [d for d in entries if d.get("trace_id") == trace_id]
+        if min_ms is not None:
+            entries = [d for d in entries if d.get("duration_ms", 0.0) >= min_ms]
+        if gang:
+            entries = [d for d in entries if (d.get("meta") or {}).get("gang") == gang]
+        return [self.stitched(d) for d in entries]
+
+    def clear(self) -> None:
+        with self._mu:
+            self._ring.clear()
+            self._stitch.clear()
+
+
+def record_link(name: str, ctx: tuple, target: tuple, tracer: Optional[Tracer] = None, **meta) -> None:
+    """Record a standalone point entry under ``ctx``'s trace id whose
+    only content is a link to ``target`` — how a request that never
+    executes (a coalesced pipeline follower, a wave-deduped dispatch
+    item) still appears in the trace of the work that served it."""
+    t = tracer if tracer is not None else TRACER
+    sp = t.trace(name, ctx=(ctx[0], ctx[1], True), **meta)
+    sp.link(target[0], target[1])
+    with sp:
+        pass
+
+
+# process-global default tracer; the server applies its config knobs
+# (trace-sample-rate, slow-query-time) here at startup
+TRACER = Tracer()
+
+
+# -- latency waterfall taxonomy (ISSUE 12) ------------------------------------
+#
+# Spans answer "which code ran"; the waterfall answers "where did the
+# milliseconds go" — a fixed, small set of buckets every served query's
+# latency decomposes into, stable across refactors so dashboards and the
+# SLO layer don't chase span renames. Each bucket is a *leg* of the
+# request, not a function: host-side work that doesn't fit a named leg
+# lands in the synthetic ``other`` bucket (total − sum of measured legs),
+# computed at aggregation time rather than instrumented.
+
+WF_ADMISSION = "admission"
+WF_PIPELINE_QUEUE = "pipeline.queue"
+WF_PLAN_CANON = "plan.canon"
+WF_STAGER = "stager"
+WF_DISPATCH_QUEUE = "dispatch.queue"
+WF_DEVICE_COMPUTE = "device.compute"
+WF_TRANSFER_DECODE = "transfer.decode"
+WF_REDUCE = "reduce"
+WF_OTHER = "other"
+
+# display / aggregation order of the waterfall
+WATERFALL_STAGES: tuple = (
+    WF_ADMISSION,
+    WF_PIPELINE_QUEUE,
+    WF_PLAN_CANON,
+    WF_STAGER,
+    WF_DISPATCH_QUEUE,
+    WF_DEVICE_COMPUTE,
+    WF_TRANSFER_DECODE,
+    WF_REDUCE,
+    WF_OTHER,
+)
+
+WATERFALL: dict = {
+    WF_ADMISSION: "HTTP parse, auth, validation before the pipeline",
+    WF_PIPELINE_QUEUE: "admission-pipeline queue wait (+ coalescing)",
+    WF_PLAN_CANON: "query parse, canonicalization, CSE planning",
+    WF_STAGER: "HBM stage miss: building + uploading shard planes",
+    WF_DISPATCH_QUEUE: "dispatch-engine queue wait before a wave",
+    WF_DEVICE_COMPUTE: "fenced device execution (jit dispatch → ready)",
+    WF_TRANSFER_DECODE: "device→host transfer and result decode",
+    WF_REDUCE: "host-side shard-result reduction",
+    WF_OTHER: "unattributed host time (total − measured legs)",
+}
+
+# span-stage → waterfall-bucket mapping. Every key of metrics.STAGES
+# must appear here (tests/test_profiling.py enforces completeness both
+# ways), so a new span stage can't silently fall outside the taxonomy.
+WATERFALL_OF: dict = {
+    "query": WF_OTHER,
+    "pipeline.wait": WF_PIPELINE_QUEUE,
+    "pipeline.coalesce": WF_PIPELINE_QUEUE,
+    "plan.canon": WF_PLAN_CANON,
+    "executor": WF_OTHER,
+    "executor.call": WF_OTHER,
+    "executor.map_shard": WF_OTHER,
+    "executor.route": WF_OTHER,
+    "executor.device_batch": WF_DEVICE_COMPUTE,
+    "spmd.kernel": WF_DEVICE_COMPUTE,
+    "batcher.score": WF_DEVICE_COMPUTE,
+    "stager.stage": WF_STAGER,
+    "stager.delta_apply": WF_STAGER,
+    "dispatch.dedup": WF_DISPATCH_QUEUE,
+    "cluster.map_remote": WF_OTHER,
+    "cluster.map_local": WF_OTHER,
+    "multihost.gang": WF_DEVICE_COMPUTE,
+    "multihost.replay": WF_OTHER,
+}
+
+
+# Per-request attribution accumulator: a plain ``{bucket: seconds}``
+# dict in a contextvar. Always-on for served queries (api.query installs
+# one), absent for bare executor calls — every instrumentation site is
+# one contextvar get + None check, and dict float adds under the GIL at
+# worst lose an increment, which telemetry tolerates. Like spans, pool
+# submitters capture the dict once and re-enter it in the worker.
+_attrib: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
+    "pilosa_tpu_attrib", default=None
+)
+
+
+def attrib_current() -> Optional[dict]:
+    """The active attribution dict, or None when attribution is off."""
+    return _attrib.get()
+
+
+def attrib_add(stage: str, seconds: float) -> None:
+    """Credit ``seconds`` to a waterfall bucket of the active request;
+    no-op (one contextvar get) when attribution is off."""
+    d = _attrib.get()
+    if d is not None:
+        d[stage] = d.get(stage, 0.0) + seconds
+
+
+class _AttribActivation:
+    """Install (or re-enter) an attribution dict for a scope — the
+    request root passes a fresh dict, pool/wave workers pass the
+    submitter's captured dict, and ``None`` explicitly disables
+    attribution inside the scope."""
+
+    __slots__ = ("_d", "_token")
+
+    def __init__(self, d: Optional[dict]) -> None:
+        self._d = d
+        self._token = None
+
+    def __enter__(self) -> Optional[dict]:
+        self._token = _attrib.set(self._d)
+        return self._d
+
+    def __exit__(self, *exc) -> bool:
+        if self._token is not None:
+            _attrib.reset(self._token)
+            self._token = None
+        return False
+
+
+def attrib_activate(d: Optional[dict]) -> _AttribActivation:
+    return _AttribActivation(d)
+
+
+# -- dispatch wave id ---------------------------------------------------------
+#
+# The wave number of the dispatch-engine wave currently executing on
+# this thread; the logger's correlation suffix appends it (``wave=N``)
+# so log lines join against waterfall/trace output.
+
+_wave_var: contextvars.ContextVar[int] = contextvars.ContextVar(
+    "pilosa_tpu_wave", default=0
+)
+
+
+def current_wave() -> int:
+    return _wave_var.get()
+
+
+def set_wave(wave_no: int):
+    """Set the active dispatch wave id; returns the reset token."""
+    return _wave_var.set(wave_no)
+
+
+def reset_wave(token) -> None:
+    _wave_var.reset(token)

@@ -1,0 +1,120 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card. Integer outputs: the bar is ==.
+
+These tests need an NVIDIA card and nvcc; without CUDA they skip (the
+plain versions are held against the JAX package in test_torch_ops.py).
+Run on a GPU machine with: python -m pytest tests/test_torch_kernels.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pilosa_tpu_torch import ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ops.build_kernels()
+    return torch.device("cuda")
+
+
+def _words(rng, shape, dev, ones_rows=1):
+    a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    # all-ones words catch sign bugs in the int32 view
+    a.reshape(-1, shape[-1])[:ones_rows] = 0xFFFFFFFF
+    return ops.words_from_numpy(a, dev)
+
+
+@pytest.mark.parametrize("q,r,w", [(1, 5, 4096), (3, 130, 4096), (8, 64, 32768), (33, 17, 1024)])
+def test_dense_scores_matches_plain(dev, q, r, w):
+    rng = np.random.default_rng(q * 1000 + r)
+    srcs = _words(rng, (q, w), dev)
+    mat = _words(rng, (r, w), dev, ones_rows=2)
+    before = ops.cuda.DENSE_SCORES.launches
+    got = ops.cuda.dense_scores(srcs, mat)
+    torch.cuda.synchronize()
+    assert ops.cuda.DENSE_SCORES.launches == before + 1
+    want = ops.intersection_counts_matrix_plain(srcs, mat)
+    assert torch.equal(got, want)
+    # the public wrapper routes CUDA tensors to the kernel
+    assert torch.equal(ops.intersection_counts_matrix(srcs[0], mat), want[0])
+
+
+@pytest.mark.parametrize("q,s,with_shard", [(1, 1, False), (1, 3, True), (5, 3, True), (40, 2, True)])
+def test_sparse_scores_matches_plain(dev, q, s, with_shard):
+    rng = np.random.default_rng(q * 10 + s)
+    w = 4 * 2048
+    num_rows = 24
+    b = 300
+    srcs = _words(rng, (q, s, w), dev)
+    blocks = _words(rng, (b, 2048), dev)
+    brow = rng.integers(0, num_rows, size=b).astype(np.int32)
+    brow[:40] = 3  # duplicate rows add up
+    brow[-1] = num_rows + 5  # out of range: dropped
+    bslot = rng.integers(0, w // 2048, size=b).astype(np.int32)
+    bshard = rng.integers(0, s, size=b).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    shard = t(bshard) if with_shard else None
+    if not with_shard:
+        srcs = srcs[:, :1].contiguous()
+    got = ops.cuda.sparse_stacked_scores(srcs, blocks, t(brow), t(bslot), shard, num_rows)
+    torch.cuda.synchronize()
+    want = ops.sparse_stacked_scores_plain(srcs, blocks, t(brow), t(bslot), shard, num_rows)
+    assert torch.equal(got, want)
+
+
+TREES = [
+    ("leaf", 0),
+    ("Intersect", (("Union", (("leaf", 0), ("leaf", 1))), ("Union", (("leaf", 2), ("leaf", 3))))),
+    ("Union", (("Intersect", (("leaf", 0), ("leaf", 1))), ("Intersect", (("leaf", 2), ("leaf", 3))), ("leaf", 0))),
+    ("Difference", (("Union", (("leaf", 0), ("leaf", 1), ("leaf", 2))), ("leaf", 3))),
+    ("Xor", (("leaf", 0), ("Difference", (("leaf", 1), ("leaf", 2))), ("leaf", 3))),
+]
+
+
+@pytest.mark.parametrize("tree", TREES, ids=range(len(TREES)))
+@pytest.mark.parametrize("q", [1, 4])
+def test_tree_count_matches_plain(dev, tree, q):
+    rng = np.random.default_rng(len(repr(tree)) + q)
+    prog = ops.TreeProgram(tree)
+    leaves = [[_words(rng, (3, 8192), dev) for _ in range(prog.nleaves)] for _ in range(q)]
+    got = ops.cuda.tree_count(leaves, prog)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.tree_count_plain(leaves, prog))
+
+
+def test_count_bits_on_card(dev):
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 2**32, size=(64, 32768), dtype=np.uint32)
+    got = int(ops.count_bits(ops.words_from_numpy(a, dev)))
+    assert got == int(np.bitwise_count(a).sum())
+
+
+def test_wrapper_rejects_misaligned(dev):
+    mat = torch.zeros((4, 1024), dtype=torch.int32, device=dev)
+    flat = torch.zeros(4100, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ops.cuda.dense_scores(flat[1:1025].view(1, 1024), mat)
+    with pytest.raises(ValueError):
+        ops.cuda.tree_count([[flat[1:4097]]], ops.TreeProgram(("leaf", 0)))
+
+
+def test_tree_count_rejects_too_many_leaf_pointers(dev):
+    prog = ops.TreeProgram(("Union", (("leaf", 0), ("leaf", 1))))
+    leaf = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
+    q = ops.cuda.TREE_MAX_POINTERS // 2
+    assert ops.cuda.tree_count([[leaf, leaf]] * q, prog).shape == (q,)
+    with pytest.raises(ValueError):
+        ops.cuda.tree_count([[leaf, leaf]] * (q + 1), prog)
+    # the public function splits a wider batch into several launches
+    rng = np.random.default_rng(9)
+    leaves = [[_words(rng, (1, 1024), dev), leaf] for _ in range(q + 3)]
+    before = ops.cuda.TREE_COUNT.launches
+    got = ops.tree_count(leaves, prog)
+    assert ops.cuda.TREE_COUNT.launches == before + 2
+    assert torch.equal(got, ops.tree_count_plain(leaves, prog))
