@@ -19,14 +19,30 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          Count(chain) queries run the fused tree count (tree_count), one
          after another and then from 8 concurrent clients. The one cut is
          the tail's rows per shard, printed as ``reduced``.
+  ssb    the Star Schema Benchmark (O'Neil et al., rev. 3) at SF = 10 as
+         Pilosa fields: 60,000,000 lineorder rows as columns (58 shards),
+         nine set fields with SSB's cardinalities and hierarchy, and the
+         int fields lo_revenue, lo_quantity and lo_discount. Q1.1/Q1.2 as
+         filtered Sums, Q2.1-Q3.2 as GroupBy panels with a Sum aggregate
+         (K = 280, 56, 150, 600 groups: the GroupBy kernel
+         groupby_reduce), a count-only GroupBy, Min/Max, Percentile,
+         Distinct, and Count(Range) of every operator alone and inside
+         chains (the range kernel bsi_range), a cold pass then a warm
+         pass. dbgen is not in the repository: the columns are drawn
+         uniformly with numpy from a seed.
 
-Every answer must equal the port's CPU roaring leg (device_policy=
-"never"). The kernels' launch counts are set to 0 just before the main
-path and read just after it; each kernel must have launched there. Then
+Every dense and tall answer must equal the port's CPU roaring leg
+(device_policy="never"); every ssb answer must equal a plain numpy
+computation over the generated columns (int64, exact). Each path (dense
+and tall; ssb) runs with the kernels' launch counts set to 0 just before
+it and read just after; each kernel must have launched on its path. Then
 each kernel runs again at the arguments of its largest main-path launch
 and must equal its plain PyTorch version run on the card on the same
 inputs (integers: the bar is ==). Both are timed with CUDA events, the
 L2 cache flushed before every launch.
+
+The fragments are written by a pool of worker processes, stopped before
+the card is used.
 
 Output: progress on stderr; on stdout the card's name and power limit
 (nvidia-smi), a ``phases`` line (qps and p50 on the card), a
@@ -38,7 +54,9 @@ and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -47,6 +65,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -55,6 +74,10 @@ SW = 1 << 20
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s (at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
+# CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0: results per clock per SM
+POPC_PER_CLOCK_PER_SM = 16
+INT32_PER_CLOCK_PER_SM = 64
 
 # bench.py's kernel workload (bench.py:2334-2345): 4096 rows at ~2^-6
 # density. 16,512 random draws per row leave ~16,380 distinct columns.
@@ -73,6 +96,27 @@ FULL_ROWS_PER_SHARD = 15_625_000
 # The one cut: the singleton tail's rows per shard, the largest that
 # builds the 64 shards in about 60 s on the card's host.
 TAIL_ROWS_PER_SHARD = 4_000_000
+# worker processes writing fragment files
+BUILD_WORKERS = 8
+
+# SSB at SF = 10 (O'Neil et al., Star Schema Benchmark rev. 3): lineorder
+# has 6,000,000 x SF rows; each is a column.
+SSB_ROWS = 60_000_000  # 58 shards
+SSB_SEED = 1993
+SSB_YEARS = tuple(range(1992, 1999))
+# set fields and their row ids: 5 regions, 25 nations (5 per region), 250
+# cities (10 per nation), 25 categories, 1000 brands (40 per category)
+SSB_SET_FIELDS = (
+    "d_year", "c_region", "c_nation", "c_city", "s_region", "s_nation", "s_city",
+    "p_category", "p_brand1",
+)
+SSB_INT_FIELDS = {"lo_revenue": (0, 10_500_000), "lo_quantity": (1, 50), "lo_discount": (0, 10)}
+# query families of the ssb phase, timed apart
+STATS = "minmax_percentile_distinct"
+RANGE = "range_count"
+SSB_FAMILIES = ("sum", "groupby", RANGE, STATS)
+AMERICA, ASIA = 1, 2  # SSB region order: AFRICA, AMERICA, ASIA, EUROPE, MIDDLE EAST
+UNITED_STATES = 9  # the fifth nation of AMERICA
 
 
 def log(msg: str) -> None:
@@ -115,17 +159,119 @@ def _tall_chunks(shard: int, rows_per_shard: int):
         yield rows * np.uint64(SW) + cols
 
 
-def build_data(root: str, dense_rows: int, shards: int, rows_per_shard: int) -> dict:
+def _write_dense(root: str, rows: int) -> None:
     from pilosa_tpu_torch.roaring.writer import build_fragment_file
 
+    build_fragment_file(os.path.join(_fragment_dir(root, "dense"), "0"), _dense_chunks(rows))
+
+
+def _write_tall_shard(root: str, shard: int, rows_per_shard: int) -> None:
+    from pilosa_tpu_torch.roaring.writer import build_fragment_file
+
+    build_fragment_file(
+        os.path.join(_fragment_dir(root, "tall"), str(shard)), _tall_chunks(shard, rows_per_shard)
+    )
+
+
+def _bit_depth(span: int) -> int:
+    """BSIGroup.bit_depth: the smallest i with max - min < 2^i."""
+    return next(i for i in range(64) if span < (1 << i))
+
+
+def ssb_columns(shard: int, rows: int = SSB_ROWS) -> dict:
+    """One shard's lineorder columns, drawn uniformly as dbgen draws them:
+    the customer's and supplier's city (which fix nation and region), the
+    part's brand (which fixes its category), the order year, quantity
+    1-50, discount 0-10, and revenue = quantity x retail price x (100 -
+    discount) / 100 with the retail price in [90,000, 210,000]."""
+    n = min(SW, rows - shard * SW)
+    rng = np.random.default_rng([SSB_SEED, shard])
+    year = (1992 + rng.integers(0, 7, n)).astype(np.int16)
+    c_city = rng.integers(0, 250, n).astype(np.int16)
+    s_city = rng.integers(0, 250, n).astype(np.int16)
+    brand = rng.integers(0, 1000, n).astype(np.int16)
+    qty = rng.integers(1, 51, n).astype(np.int8)
+    disc = rng.integers(0, 11, n).astype(np.int8)
+    price = rng.integers(90_000, 210_001, n)
+    rev = (qty.astype(np.int64) * price * (100 - disc.astype(np.int64)) // 100).astype(np.int32)
+    return {
+        "d_year": year,
+        "c_city": c_city,
+        "c_nation": c_city // 10,
+        "c_region": c_city // 50,
+        "s_city": s_city,
+        "s_nation": s_city // 10,
+        "s_region": s_city // 50,
+        "p_brand1": brand,
+        "p_category": brand // 40,
+        "lo_quantity": qty,
+        "lo_discount": disc,
+        "lo_revenue": rev,
+    }
+
+
+def _write_ssb_shard(root: str, shard: int, rows: int) -> None:
+    """A shard's fragments: one row per column in each set field; bit
+    planes plus the not-null row in each int field's BSI view."""
+    from pilosa_tpu_torch.roaring.writer import build_fragment_file
+
+    cols = ssb_columns(shard, rows)
+    n = cols["d_year"].size
+    local = np.arange(n, dtype=np.uint64)
+    for f in SSB_SET_FIELDS:
+        order = np.argsort(cols[f], kind="stable")
+        pos = cols[f][order].astype(np.uint64) * np.uint64(SW) + local[order]
+        d = os.path.join(root, "ssb", f, "views", "standard", "fragments")
+        os.makedirs(d, exist_ok=True)
+        build_fragment_file(os.path.join(d, str(shard)), [pos])
+    for f, (lo, hi) in SSB_INT_FIELDS.items():
+        depth = _bit_depth(hi - lo)
+        base = cols[f].astype(np.int64) - lo
+        chunks = [np.uint64(i * SW) + local[(base >> i) & 1 == 1] for i in range(depth)]
+        chunks.append(np.uint64(depth * SW) + local)
+        d = os.path.join(root, "ssb", f, "views", "bsig_" + f, "fragments")
+        os.makedirs(d, exist_ok=True)
+        build_fragment_file(os.path.join(d, str(shard)), chunks)
+
+
+def _create_ssb_schema(root: str) -> None:
+    from pilosa_tpu_torch.core import FieldOptions, Holder
+
+    h = Holder(root)
+    h.open()
+    idx = h.create_index("ssb")
+    for f in SSB_SET_FIELDS:
+        idx.create_field(f)
+    for f, (lo, hi) in SSB_INT_FIELDS.items():
+        idx.create_field(f, FieldOptions(type="int", min=lo, max=hi))
+    h.close()
+
+
+def build_data(root: str, dense_rows: int, shards: int, rows_per_shard: int, ssb_rows: int, during=None):
+    """Write the three data sets with BUILD_WORKERS processes, running
+    ``during()`` in this process meanwhile. Returns (the seconds until
+    each set's last fragment was written, what ``during`` returned)."""
+    _create_ssb_schema(root)
     t0 = time.monotonic()
-    build_fragment_file(os.path.join(_fragment_dir(root, "dense"), "0"), _dense_chunks(dense_rows))
-    t1 = time.monotonic()
-    tdir = _fragment_dir(root, "tall")
-    for s in range(shards):
-        build_fragment_file(os.path.join(tdir, str(s)), _tall_chunks(s, rows_per_shard))
-    t2 = time.monotonic()
-    return {"dense_build_s": t1 - t0, "tall_build_s": t2 - t1}
+    done: dict = {}
+
+    def finished(name):
+        def cb(_fut) -> None:
+            done[name] = max(done.get(name, 0.0), time.monotonic() - t0)
+
+        return cb
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=BUILD_WORKERS, mp_context=ctx) as pool:
+        jobs = [("ssb_build_s", pool.submit(_write_ssb_shard, root, s, ssb_rows)) for s in range(-(-ssb_rows // SW))]
+        jobs += [("tall_build_s", pool.submit(_write_tall_shard, root, s, rows_per_shard)) for s in range(shards)]
+        jobs.append(("dense_build_s", pool.submit(_write_dense, root, dense_rows)))
+        for name, fut in jobs:
+            fut.add_done_callback(finished(name))
+        extra = during() if during is not None else None
+        for _, fut in jobs:
+            fut.result()
+    return {**done, "build_workers": BUILD_WORKERS}, extra
 
 
 def dense_queries(rows: int) -> list[str]:
@@ -146,6 +292,168 @@ def tall_queries() -> tuple[list[str], list[str]]:
             f"Count(Difference(Union(Row(f={a}), Row(f={b}), Row(f={c})), Row(f={d})))",
         ]
     return topn, chains
+
+
+# -- SSB queries and their numpy oracle ----------------------------------------------
+
+
+def _ids(xs) -> str:
+    return "[" + ", ".join(str(int(x)) for x in xs) + "]"
+
+
+class SsbOracle:
+    """Every ssb answer from the generated columns alone, with numpy:
+    int64 sums, exact counts. Independent of the port: it reads no
+    fragment and runs no kernel. Results are in the executor's shapes
+    (ValCount, GroupBy wire lists, sorted value lists, ints)."""
+
+    def __init__(self, valcount, rows: int = SSB_ROWS) -> None:
+        self.rows = rows
+        self.shards = -(-rows // SW)
+        parts = [ssb_columns(s, rows) for s in range(self.shards)]
+        # shard s holds columns [s * SW, (s + 1) * SW)
+        self.c = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        self.ValCount = valcount
+        self.queries: list[tuple[str, str]] = []  # (family, pql)
+        self.answers: dict = {}
+
+    def add(self, family: str, pql: str, answer) -> None:
+        self.queries.append((family, pql))
+        self.answers[pql] = [answer]
+
+    # masks
+    def row(self, f: str, r: int):
+        return self.c[f] == r
+
+    def rng(self, f: str, op: str, a: int, b: int = 0):
+        v = self.c[f].astype(np.int64)
+        return {
+            "==": v == a, "!=": v != a, "<": v < a, "<=": v <= a, ">": v > a, ">=": v >= a,
+            "><": (v >= a) & (v <= b),
+        }[op]
+
+    # answers
+    def sum(self, field: str, m):
+        v = self.c[field][m].astype(np.int64)
+        return self.ValCount(int(v.sum()), int(v.size)) if v.size else self.ValCount()
+
+    def minmax(self, field: str, m, is_min: bool):
+        """Per shard (value, columns holding it), folded in shard order as
+        the executor's reduce does: ties keep the earlier shard."""
+        acc = self.ValCount()
+        v = self.c[field].astype(np.int64)
+        for s in range(self.shards):
+            sl = slice(s * SW, (s + 1) * SW)
+            sv = v[sl][m[sl]]
+            if sv.size:
+                x = int(sv.min() if is_min else sv.max())
+                vc = self.ValCount(x, int((sv == x).sum()))
+                acc = acc.smaller(vc) if is_min else acc.larger(vc)
+        return acc
+
+    def percentile(self, field: str, m, nth_bp: int):
+        v = self.c[field][m].astype(np.int64)
+        n = int(v.size)
+        if n == 0:
+            return self.ValCount()
+        q, r = divmod(n, 10000)
+        k = min(max(nth_bp * q + (nth_bp * r + 9999) // 10000, 1), n)
+        return self.ValCount(int(np.partition(v, k - 1)[k - 1]), n)
+
+    def distinct(self, field: str, m):
+        return [int(x) for x in np.unique(self.c[field][m])]
+
+    def groupby(self, dims, m, agg=None):
+        """dims: [(field, ids or None for discovered)]; product order,
+        zero-count groups dropped, as analytics.finalize_groups emits."""
+        resolved = [(f, list(ids) if ids is not None else [int(x) for x in np.unique(self.c[f])]) for f, ids in dims]
+        sel = m.copy()
+        pos = []
+        for f, ids in resolved:
+            col = self.c[f].astype(np.int64)
+            lut = np.full(max(int(col.max()), max(ids)) + 1, -1, dtype=np.int64)
+            lut[ids] = np.arange(len(ids))
+            p = lut[col]
+            sel &= p >= 0
+            pos.append(p)
+        idx = np.zeros(int(sel.sum()), dtype=np.int64)
+        for p, (_, ids) in zip(pos, resolved):
+            idx = idx * len(ids) + p[sel]
+        k = 1
+        for _, ids in resolved:
+            k *= len(ids)
+        counts = np.bincount(idx, minlength=k)
+        sums = np.zeros(k, dtype=np.int64)
+        if agg is not None:
+            np.add.at(sums, idx, self.c[agg][sel].astype(np.int64))
+        out = []
+        for gi, key in enumerate(itertools.product(*[ids for _, ids in resolved])):
+            if counts[gi] == 0:
+                continue
+            e = {"group": [{"field": f, "rowID": int(r)} for (f, _), r in zip(resolved, key)], "count": int(counts[gi])}
+            if agg is not None:
+                e["sum"] = int(sums[gi])
+            out.append(e)
+        return out
+
+
+def ssb_workload(oracle: SsbOracle) -> None:
+    """The ssb queries, each added with its oracle answer."""
+    o, R, G = oracle, oracle.row, oracle.rng
+    years = list(SSB_YEARS)
+    # Q1.1 / Q1.2: SSB's extendedprice x discount is not a PQL field, so
+    # the aggregate is Sum(lo_revenue) under the same filters
+    o.add("sum", "Sum(Intersect(Row(d_year=1993), Range(lo_discount >< [1, 3]), Range(lo_quantity < 25)), field=lo_revenue)",
+          o.sum("lo_revenue", R("d_year", 1993) & G("lo_discount", "><", 1, 3) & G("lo_quantity", "<", 25)))
+    o.add("sum", "Sum(Intersect(Row(d_year=1994), Range(lo_discount >< [4, 6]), Range(lo_quantity >< [26, 35])), field=lo_revenue)",
+          o.sum("lo_revenue", R("d_year", 1994) & G("lo_discount", "><", 4, 6) & G("lo_quantity", "><", 26, 35)))
+    everything = np.ones(o.rows, dtype=bool)
+    o.add("sum", "Sum(field=lo_revenue)", o.sum("lo_revenue", everything))
+    # Q2.1: category MFGR#12's 40 brands x 7 years, suppliers in AMERICA
+    b12 = list(range(12 * 40, 13 * 40))
+    o.add("groupby", f"GroupBy(Rows(d_year), Rows(p_brand1, ids={_ids(b12)}), Intersect(Row(p_category=12), Row(s_region={AMERICA})), Sum(field=lo_revenue))",
+          o.groupby([("d_year", None), ("p_brand1", b12)], R("p_category", 12) & R("s_region", AMERICA), "lo_revenue"))
+    # Q2.2: brands MFGR#2221-2228 x 7 years, suppliers in ASIA
+    b22 = list(range(22 * 40 + 20, 22 * 40 + 28))
+    o.add("groupby", f"GroupBy(Rows(d_year), Rows(p_brand1, ids={_ids(b22)}), Row(s_region={ASIA}), Sum(field=lo_revenue))",
+          o.groupby([("d_year", None), ("p_brand1", b22)], R("s_region", ASIA), "lo_revenue"))
+    # Q3.1: ASIA customer nation x supplier nation x 1992-1997
+    asia = list(range(ASIA * 5, ASIA * 5 + 5))
+    o.add("groupby", f"GroupBy(Rows(c_nation, ids={_ids(asia)}), Rows(s_nation, ids={_ids(asia)}), Rows(d_year, ids={_ids(years[:6])}), Intersect(Row(c_region={ASIA}), Row(s_region={ASIA})), Sum(field=lo_revenue))",
+          o.groupby([("c_nation", asia), ("s_nation", asia), ("d_year", years[:6])], R("c_region", ASIA) & R("s_region", ASIA), "lo_revenue"))
+    # Q3.2: UNITED STATES customer city x supplier city x 1992-1997
+    us = list(range(UNITED_STATES * 10, UNITED_STATES * 10 + 10))
+    o.add("groupby", f"GroupBy(Rows(c_city, ids={_ids(us)}), Rows(s_city, ids={_ids(us)}), Rows(d_year, ids={_ids(years[:6])}), Intersect(Row(c_nation={UNITED_STATES}), Row(s_nation={UNITED_STATES})), Sum(field=lo_revenue))",
+          o.groupby([("c_city", us), ("s_city", us), ("d_year", years[:6])], R("c_nation", UNITED_STATES) & R("s_nation", UNITED_STATES), "lo_revenue"))
+    o.add("groupby", "GroupBy(Rows(c_region), Rows(s_region))",
+          o.groupby([("c_region", None), ("s_region", None)], everything))
+    # Min / Max / Percentile / Distinct
+    for is_min in (True, False):
+        name = "Min" if is_min else "Max"
+        o.add(STATS, f"{name}(field=lo_revenue)", o.minmax("lo_revenue", everything, is_min))
+        o.add(STATS, f"{name}(Intersect(Row(p_category=3), Range(lo_discount == 0)), field=lo_revenue)",
+              o.minmax("lo_revenue", R("p_category", 3) & G("lo_discount", "==", 0), is_min))
+    for nth in (50, 95):
+        o.add(STATS, f"Percentile(field=lo_revenue, nth={nth})", o.percentile("lo_revenue", everything, nth * 100))
+        o.add(STATS, f"Percentile(Row(d_year=1997), field=lo_revenue, nth={nth})",
+              o.percentile("lo_revenue", R("d_year", 1997), nth * 100))
+    o.add(STATS, "Percentile(Row(c_region=3), field=lo_quantity, nth=95)",
+          o.percentile("lo_quantity", R("c_region", 3), 9500))
+    o.add(STATS, "Distinct(field=lo_quantity)", o.distinct("lo_quantity", everything))
+    o.add(STATS, "Distinct(field=lo_discount)", o.distinct("lo_discount", everything))
+    o.add(STATS, "Distinct(Row(p_brand1=7), field=lo_discount)", o.distinct("lo_discount", R("p_brand1", 7)))
+    # Count(Range) of every operator, and Range leaves inside chains
+    x = int(o.c["lo_revenue"][123_457])
+    for op, a, b in [("==", x, 0), ("!=", x, 0), ("<", 2_500_000, 0), ("<=", 2_500_000, 0),
+                     (">", 7_000_000, 0), (">=", 7_000_000, 0), ("><", 1_000_000, 2_000_000)]:
+        rhs = f"[{a}, {b}]" if op == "><" else str(a)
+        o.add(RANGE, f"Count(Range(lo_revenue {op} {rhs}))", int(G("lo_revenue", op, a, b).sum()))
+    o.add(RANGE, "Count(Range(lo_quantity < 25))", int(G("lo_quantity", "<", 25).sum()))
+    o.add(RANGE, "Count(Range(lo_revenue != null))", o.rows)
+    o.add(RANGE, "Count(Intersect(Row(d_year=1996), Range(lo_revenue >< [1000000, 2000000])))",
+          int((R("d_year", 1996) & G("lo_revenue", "><", 1_000_000, 2_000_000)).sum()))
+    o.add(RANGE, f"Count(Union(Intersect(Row(c_region={AMERICA}), Range(lo_discount > 8)), Intersect(Row(s_region=4), Range(lo_quantity <= 3))))",
+          int(((R("c_region", AMERICA) & G("lo_discount", ">", 8)) | (R("s_region", 4) & G("lo_quantity", "<=", 3))).sum()))
 
 
 # -- driving the executor -----------------------------------------------------------
@@ -266,18 +574,22 @@ def main_path(dev, dense_qs, tall_topn, tall_chains, oracle) -> dict:
 
 class Recorder:
     """Wraps the kernel wrappers of ``ops.cuda`` to keep, per kernel, the
-    arguments of its largest launch (by input bytes). The wrappers' own
-    launch counts are untouched."""
+    arguments of its largest launch (by input bytes, or popcounts for the
+    GroupBy kernel). The wrappers' own launch counts are untouched."""
 
     def __init__(self, cuda_mod) -> None:
         self.args: dict[str, tuple] = {}
         self.kernel_fn: dict = {}
         self._size: dict[str, int] = {}
         self._mu = threading.Lock()
+        # GroupBy launches with K > 1 groups and P > 0 planes
+        self.groupby_multi_with_planes = 0
         for name, size in (
             ("dense_scores", self._dense_bytes),
             ("sparse_stacked_scores", self._sparse_bytes),
             ("tree_count", self._tree_bytes),
+            ("groupby_reduce", self._groupby_work),
+            ("bsi_range", self._range_bytes),
         ):
             self.kernel_fn[name] = getattr(cuda_mod, name)
             setattr(cuda_mod, name, self._wrap(name, self.kernel_fn[name], size))
@@ -305,19 +617,50 @@ class Recorder:
     def _tree_bytes(leaves_by_query, program):
         return sum(t.numel() * 4 for leaves in leaves_by_query for t in leaves)
 
+    def _groupby_work(self, dims, filt, planes):
+        k = 1
+        for d in dims:
+            k *= d.shape[0]
+        if k > 1 and planes.shape[1] > 0:
+            with self._mu:
+                self.groupby_multi_with_planes += 1
+        return k * planes.shape[0] * planes.shape[2] * (planes.shape[1] + 1)
 
-def bound_bytes(name: str, args) -> int:
-    """Bytes the function must move on these inputs: each input read once,
-    each output written once. For the sparse scorer, the blocks in range
-    and the source containers they name (not all of srcs); for the tree
-    count, each distinct leaf."""
+    @staticmethod
+    def _range_bytes(planes, code, out_sel):
+        return planes.shape[0] * planes.shape[2] * 4 * (1 + sum(1 for c in code if c))
+
+
+class Card:
+    """What the bounds need from the card: SMs and the SM clock."""
+
+    def __init__(self) -> None:
+        import torch
+
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True,
+        )
+        self.sm_clock_hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(name: str, args, card: Card) -> dict:
+    """The least time the card could take for the function on these
+    inputs: the larger of its bytes (each input read once, each output
+    written once) over HBM's rate and its operations over the card's rate
+    for them (popcounts for the GroupBy kernel, 32-bit integer ops for the
+    range kernel). For the sparse scorer, the blocks in range and the
+    source containers they name; for the tree count, each distinct leaf;
+    for the range kernel, the planes its program reads."""
     import torch
 
+    ops_s = 0.0
     if name == "dense_scores":
         srcs, mat = args
         q, w = srcs.shape
-        return (mat.numel() + q * w + q * mat.shape[0]) * 4
-    if name == "sparse_stacked_scores":
+        nbytes = (mat.numel() + q * w + q * mat.shape[0]) * 4
+    elif name == "sparse_stacked_scores":
         srcs, blocks, brow, bslot, bshard, num_rows = args
         q, s, w = srcs.shape
         valid = (brow >= 0) & (brow < num_rows) & (bslot >= 0) & (bslot < w // 2048)
@@ -326,16 +669,42 @@ def bound_bytes(name: str, args) -> int:
         used = torch.unique(shard[valid].long() * (w // 2048) + bslot[valid].long()).numel()
         nb = int(valid.sum())  # a block out of range is never read
         idx = 3 if bshard is not None else 2
-        return nb * 2048 * 4 + nb * idx * 4 + q * used * 2048 * 4 + q * num_rows * 4
-    if name == "tree_count":
+        nbytes = nb * 2048 * 4 + nb * idx * 4 + q * used * 2048 * 4 + q * num_rows * 4
+    elif name == "tree_count":
         leaves_by_query, program = args
         # coalesced chains often share a leaf (the same staged row):
         # the function needs each distinct leaf once
         leaf_bytes = sum(
             {t.data_ptr(): t.numel() * 4 for leaves in leaves_by_query for t in leaves}.values()
         )
-        return leaf_bytes + len(program.code) * 4 + len(leaves_by_query) * 4
-    raise KeyError(name)
+        nbytes = leaf_bytes + len(program.code) * 4 + len(leaves_by_query) * 4
+    elif name == "groupby_reduce":
+        dims, filt, planes = args
+        s, p, w = planes.shape
+        wf = s * w
+        k = 1
+        for d in dims:
+            k *= d.shape[0]
+        rows = sum(d.shape[0] for d in dims) + (1 if filt is not None else 0) + p
+        nbytes = rows * wf * 4 + k * (p + 1) * 4
+        popcounts = k * wf * (p + 1)  # one per 32-bit word
+        ops_s = popcounts / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
+    elif name == "bsi_range":
+        planes, code, out_sel = args
+        s, _, w = planes.shape
+        read = 1 + sum(1 for c in code if c)
+        nbytes = (read + 1) * s * w * 4
+        # about three 32-bit ops per opcode nibble per word
+        nibbles = sum((c & 15 != 0) + (c >> 4 != 0) for c in code)
+        ops_s = 3 * nibbles * s * w / (card.sms * INT32_PER_CLOCK_PER_SM * card.sm_clock_hz)
+    else:
+        raise KeyError(name)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return {
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "operations" if ops_s > bytes_s else "bytes",
+        "bytes": nbytes,
+    }
 
 
 def time_ms(fn, iters: int, flush) -> float:
@@ -356,33 +725,45 @@ def time_ms(fn, iters: int, flush) -> float:
     return statistics.median(times)
 
 
-def check_kernels(rec: Recorder, launches: dict, batched: dict, device) -> list[dict]:
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Card) -> list[dict]:
+    """Each kernel at its largest main-path arguments against its plain
+    version on the card (== on every output), then both timed.
+    ``launches`` and ``batched`` hold each kernel's counts on its path."""
     import torch
 
-    from pilosa_tpu_torch.ops import cuda, packed
+    from pilosa_tpu_torch.ops import bsi, cuda, packed
 
     kernels = {k.name: k for k in cuda.KERNELS}
     plain = {
         "dense_scores": packed.intersection_counts_matrix_plain,
         "sparse_stacked_scores": packed.sparse_stacked_scores_plain,
         "tree_count": packed.tree_count_plain,
+        "groupby_reduce": packed.groupby_reduce_plain,
+        "bsi_range": bsi.bsi_range_plain,
     }
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
     rows = []
     for name, plain_fn in plain.items():
         kernel_fn = rec.kernel_fn[name]
         args = rec.args[name]
-        got = kernel_fn(*args)
-        want = plain_fn(*args)
+        got = _as_tuple(kernel_fn(*args))
+        want = _as_tuple(plain_fn(*args))
         torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        err = 0
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}")
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version by {err}")
         ms = time_ms(lambda: kernel_fn(*args), 20, flush)
         plain_ms = time_ms(lambda: plain_fn(*args), 3, flush)
-        nbytes = bound_bytes(name, args)
+        b = bound(name, args, card)
         k = kernels[name]
         rows.append(
             {
@@ -395,14 +776,14 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device) -> list[
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes",
+                "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"],
                 "library_ms": None,
-                "bytes": nbytes,
+                "bytes": b["bytes"],
                 "shape": _shape(name, args),
             }
         )
-        log(f"{name}: == plain; {ms:.3f} ms (bound {rows[-1]['bound_ms']:.3f}, plain {plain_ms:.3f})")
+        log(f"{name}: == plain; {ms:.3f} ms (bound {b['bound_ms']:.3f} by {b['bound_by']}, plain {plain_ms:.3f})")
     return rows
 
 
@@ -412,6 +793,13 @@ def _shape(name: str, args) -> dict:
     if name == "sparse_stacked_scores":
         q, s, w = args[0].shape
         return {"Q": q, "S": s, "W": w, "B": args[1].shape[0], "num_rows": args[5]}
+    if name == "groupby_reduce":
+        dims, filt, planes = args
+        s, p, w = planes.shape
+        return {"dims": [d.shape[0] for d in dims], "filter": filt is not None, "S": s, "P": p, "W": w}
+    if name == "bsi_range":
+        planes, code, out_sel = args
+        return {"S": planes.shape[0], "depth": len(code), "planes_read": 1 + sum(1 for c in code if c)}
     leaves_by_query, program = args
     return {
         "Q": len(leaves_by_query),
@@ -434,6 +822,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def run_ssb(dev, oracle: SsbOracle) -> dict:
+    """Every ssb query once cold (staging included), then each family
+    warm, every answer held against the numpy oracle."""
+    qs = [q for _, q in oracle.queries]
+    cold, _ = run_sequential(dev, "ssb", qs, oracle.answers)
+    out = {"first_pass_s": sum(cold), "queries": len(qs)}
+    for family in SSB_FAMILIES:
+        fq = [q for f, q in oracle.queries if f == family]
+        out[family] = _rate(*run_sequential(dev, "ssb", fq, oracle.answers))
+    return out
+
+
+PATH_OF = {
+    "dense_scores": "dense_tall",
+    "sparse_stacked_scores": "dense_tall",
+    "tree_count": "dense_tall",
+    "groupby_reduce": "ssb",
+    "bsi_range": "ssb",
+}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pilosa_tpu_torch")):
         print("chip_smoke.py: pilosa_tpu_torch/ not found beside this script; "
@@ -447,6 +856,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import pilosa_tpu_torch
+    from pilosa_tpu_torch.executor.executor import ValCount
     from pilosa_tpu_torch.ops import cuda
 
     t_start = time.monotonic()
@@ -462,15 +872,25 @@ def main() -> int:
         log(f"built {name} in {ent['seconds']:.1f} s: " + " | ".join(report))
     card = card_line()
     print(card, flush=True)
-    log(f"kernels built in {build_s:.1f} s on {kind}")
+    card_info = Card()
+    log(f"kernels built in {build_s:.1f} s on {kind}, {card_info.sms} SMs, SM clock {card_info.sm_clock_hz / 1e6:.0f} MHz")
 
     root = tempfile.mkdtemp(prefix="pilosa_tpu_torch_smoke_")
     holder = dev = cpu = None
     try:
-        # 2. data
+        # 2. data, and the ssb oracle while the workers write
         t0 = time.monotonic()
-        built = build_data(root, DENSE_ROWS, TALL_SHARDS, TAIL_ROWS_PER_SHARD)
-        log(f"data written: {built}")
+
+        def make_oracle():
+            t1 = time.monotonic()
+            o = SsbOracle(ValCount)
+            ssb_workload(o)
+            return o, time.monotonic() - t1
+
+        built, (ssb, ssb_oracle_s) = build_data(
+            root, DENSE_ROWS, TALL_SHARDS, TAIL_ROWS_PER_SHARD, SSB_ROWS, during=make_oracle
+        )
+        log(f"data written: {built}; ssb oracle: {len(ssb.queries)} answers in {ssb_oracle_s:.1f} s")
         holder = pilosa_tpu_torch.holder_from_dir(root)
         for index in ("dense", "tall"):
             for frag in holder.view(index, "f", "standard").fragments.values():
@@ -482,7 +902,7 @@ def main() -> int:
         dev = pilosa_tpu_torch.Executor(holder, device_policy="always")
         cpu = pilosa_tpu_torch.Executor(holder, device_policy="never")
 
-        # 3. the CPU leg's answers
+        # 3. the CPU leg's answers (dense and tall)
         t0 = time.monotonic()
         oracle = oracle_answers(cpu, "dense", dense_qs)
         oracle.update(oracle_answers(cpu, "tall", tall_topn + tall_chains))
@@ -494,27 +914,48 @@ def main() -> int:
             raise AssertionError("a chain counted 0 bits: the data is not config 4's")
         log(f"CPU leg answered {len(oracle)} queries in {oracle_s:.1f} s")
 
-        # 4. the main path, counts set to 0 just before and read just after
+        # 4. each path, counts set to 0 just before it and read just after
         rec = Recorder(cuda)
+        launches: dict = {}
+        batched: dict = {}
         cuda.reset_launches()
         t0 = time.monotonic()
         phases = main_path(dev, dense_qs, tall_topn, tall_chains, oracle)
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in cuda.KERNELS}
-        batched = {k.name: k.batched_launches for k in cuda.KERNELS}
+        launches["dense_tall"] = {k.name: k.launches for k in cuda.KERNELS}
+        batched["dense_tall"] = {k.name: k.batched_launches for k in cuda.KERNELS}
         main_s = time.monotonic() - t0
-        log(f"main path in {main_s:.1f} s; launches {launches}, with Q > 1 {batched}")
-        for k in cuda.KERNELS:
-            if launches[k.name] <= 0:
-                raise AssertionError(f"kernel {k.name} never launched on the main path")
-        if batched["dense_scores"] <= 0:
+        log(f"dense+tall in {main_s:.1f} s; launches {launches['dense_tall']}")
+
+        cuda.reset_launches()
+        t0 = time.monotonic()
+        phases["ssb"] = run_ssb(dev, ssb)
+        phases["ssb"]["data_build_s"] = built["ssb_build_s"]
+        torch.cuda.synchronize()
+        launches["ssb"] = {k.name: k.launches for k in cuda.KERNELS}
+        batched["ssb"] = {k.name: k.batched_launches for k in cuda.KERNELS}
+        ssb_s = time.monotonic() - t0
+        log(f"ssb in {ssb_s:.1f} s; launches {launches['ssb']}")
+
+        for name, path in PATH_OF.items():
+            if launches[path][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the {path} path")
+        if batched["dense_tall"]["dense_scores"] <= 0:
             raise AssertionError("dense_scores never launched with Q > 1 under concurrency")
+        if rec.groupby_multi_with_planes <= 0:
+            raise AssertionError("groupby_reduce never launched with K > 1 and P > 0")
 
         # 5. each kernel against its plain version, at its main-path arguments
-        kernels = check_kernels(rec, launches, batched, device)
+        own = {name: launches[path][name] for name, path in PATH_OF.items()}
+        own_batched = {name: batched[path][name] for name, path in PATH_OF.items()}
+        kernels = check_kernels(rec, own, own_batched, device, card_info)
+        for row in kernels:
+            row["path"] = PATH_OF[row["name"]]
+            row["launches_by_path"] = {path: launches[path][row["name"]] for path in launches}
 
         n_dense = len(dense_qs) * (2 + CLIENTS * CONCURRENT_PASSES)
         n_tall = 2 * len(tall_topn) + (2 + CLIENTS) * len(tall_chains)
+        n_ssb = 2 * len(ssb.queries)
         phases.update(
             {
                 "card": card,
@@ -526,18 +967,25 @@ def main() -> int:
                     }
                 },
                 "launches_per_query": {
-                    "dense_scores": launches["dense_scores"] / n_dense,
-                    "sparse_stacked_scores": launches["sparse_stacked_scores"]
+                    "dense_scores": launches["dense_tall"]["dense_scores"] / n_dense,
+                    "sparse_stacked_scores": launches["dense_tall"]["sparse_stacked_scores"]
                     / (2 * len(tall_topn)),
-                    "tree_count": launches["tree_count"] / ((2 + CLIENTS) * len(tall_chains)),
+                    "tree_count": launches["dense_tall"]["tree_count"] / ((2 + CLIENTS) * len(tall_chains)),
+                    "groupby_reduce": launches["ssb"]["groupby_reduce"] / n_ssb,
+                    "bsi_range": launches["ssb"]["bsi_range"] / n_ssb,
                 },
+                "launches_by_path": launches,
+                "groupby_launches_k_gt_1_p_gt_0": rec.groupby_multi_with_planes,
                 "dense_queries_run": n_dense,
                 "tall_queries_run": n_tall,
+                "ssb_queries_run": n_ssb,
                 "seconds": {
                     "build": build_s,
                     "data": data_s,
+                    "ssb_oracle": ssb_oracle_s,
                     "cpu_leg": oracle_s,
                     "main_path": main_s,
+                    "ssb_path": ssb_s,
                     **built,
                 },
             }

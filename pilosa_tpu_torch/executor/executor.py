@@ -1,6 +1,6 @@
 """Query executor (L4) — lowers PQL call trees onto shard kernels.
 
-The port of ``pilosa_tpu/executor/executor.py``, main-path legs only.
+The port of ``pilosa_tpu/executor/executor.py``: its single-node legs.
 Mirrors the reference's executor (reference executor.go): top-level
 dispatch by call name, per-shard leaf functions, cross-shard map/reduce.
 Two execution paths per shard:
@@ -10,7 +10,9 @@ Two execution paths per shard:
              over staged fragment state: bitmap subtrees fold
              elementwise, Count(chain) runs the fused tree count, TopN
              scores every candidate chunk in one launch (dense or
-             block-sparse) and replays the reference's ranked walk.
+             block-sparse) and replays the reference's ranked walk, BSI
+             Range runs the range kernel, and Sum and GroupBy run the
+             GroupBy segmented reduction.
 
 Both paths are bit-identical; ``device_policy`` picks ("never" | "auto"
 | "always"). The device path runs on ``device`` — ``cuda`` unless the
@@ -18,11 +20,10 @@ caller asks for ``"cpu"``, where the same legs run the kernels' plain
 versions (the tests do). Without CUDA and without an explicit device
 the constructor raises; it never quietly runs on the CPU.
 
-Calls this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP item that ports them: BSI (Sum/Min/Max/Range/SetValue, A9),
-analytics (GroupBy/Distinct/Percentile, A12) and attributes (A16). The
-cluster, mesh, fusion, plan cache and dispatch engine of the JAX
-executor are not here (A10, A11, A14).
+Attributes (``SetRowAttrs``/``SetColumnAttrs``, TopN attribute filters)
+raise ``NotImplementedError`` naming ROADMAP A16. The cluster, mesh,
+fusion, plan cache and dispatch engine of the JAX executor are not here
+(A10, A11, A14).
 """
 
 from __future__ import annotations
@@ -37,14 +38,15 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import SHARD_WIDTH, ops
-from pilosa_tpu_torch.core import Row, TopOptions, VIEW_STANDARD
+from pilosa_tpu_torch.core import Row, TopOptions, VIEW_BSI_GROUP_PREFIX, VIEW_STANDARD
 from pilosa_tpu_torch.core.cache import pairs_arrays as cache_pairs_arrays
 from pilosa_tpu_torch.core.cache import sort_pairs
-from pilosa_tpu_torch.core.fragment import DEFAULT_MIN_THRESHOLD
-from pilosa_tpu_torch.core.timequantum import TIME_FORMAT
+from pilosa_tpu_torch.core.fragment import DEFAULT_MIN_THRESHOLD, FragmentQuarantinedError
+from pilosa_tpu_torch.core.timequantum import TIME_FORMAT, views_by_time_range
+from pilosa_tpu_torch.executor import analytics
 from pilosa_tpu_torch.executor.batcher import BatchedScorer
 from pilosa_tpu_torch.executor.stager import DeviceStager
-from pilosa_tpu_torch.pql import Call, parse
+from pilosa_tpu_torch.pql import BETWEEN, NEQ, Call, Condition, parse
 from pilosa_tpu_torch.roaring import Bitmap
 from pilosa_tpu_torch.utils import heat, metrics, trace
 from pilosa_tpu_torch.utils.errors import NotFoundError
@@ -57,17 +59,8 @@ AUTO_DEVICE_MIN_CONTAINERS = 64
 # Widest coalesced launch of the stacked TopN and chain-count scorers.
 MAX_BATCH = 32
 
-# Calls outside this slice -> the ROADMAP item that ports them.
+# Calls not ported yet -> the ROADMAP item that ports them.
 _UNPORTED = {
-    "Sum": "A9 (BSI)",
-    "Min": "A9 (BSI)",
-    "Max": "A9 (BSI)",
-    "Range": "A9 (BSI and time-quantum Range)",
-    "SetValue": "A9 (BSI)",
-    "GroupBy": "A12 (analytics)",
-    "Distinct": "A12 (analytics)",
-    "Percentile": "A12 (analytics)",
-    "Rows": "A12 (analytics)",
     "SetRowAttrs": "A16 (attributes and keys)",
     "SetColumnAttrs": "A16 (attributes and keys)",
 }
@@ -94,6 +87,27 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions of the kernels on the CPU"
         )
     return torch.device("cuda")
+
+
+@dataclass
+class ValCount:
+    """reference executor.go:1762."""
+
+    val: int = 0
+    count: int = 0
+
+    def add(self, other: "ValCount") -> "ValCount":
+        return ValCount(self.val + other.val, self.count + other.count)
+
+    def smaller(self, other: "ValCount") -> "ValCount":
+        if self.count == 0 or (other.val < self.val and other.count > 0):
+            return other
+        return ValCount(self.val, self.count)
+
+    def larger(self, other: "ValCount") -> "ValCount":
+        if self.count == 0 or (other.val > self.val and other.count > 0):
+            return other
+        return ValCount(self.val, self.count)
 
 
 def pairs_add(a: list[tuple[int, int]], b: list[tuple[int, int]]) -> list[tuple[int, int]]:
@@ -223,6 +237,31 @@ def _timed_kernel(kind: str, fn):
 
 
 _timed_tree_count = _timed_kernel("tree_count", ops.tree_count)
+_timed_groupby = _timed_kernel("groupby_reduce", ops.groupby_reduce)
+_timed_plane_counts = _timed_kernel("groupby_reduce", ops.bsi_plane_counts)
+_timed_plane_counts_batched = _timed_kernel("groupby_reduce", ops.bsi_plane_counts_batched)
+# the recurrences are many small launches; each is timed as a whole
+_timed_bsi_min = _timed_kernel("bsi_min", ops.bsi_min)
+_timed_bsi_max = _timed_kernel("bsi_max", ops.bsi_max)
+_timed_percentile = _timed_kernel("bsi_percentile", ops.bsi_percentile_batched)
+_timed_distinct = _timed_kernel("bsi_distinct", ops.bsi_distinct_presence)
+
+
+def _fetch_bits(bits: torch.Tensor, count: torch.Tensor) -> tuple[int, int]:
+    """(value, count) from a recurrence's device (bits bool[D], count)
+    in one transfer: bit i of the value is bits[i]."""
+    got = _fetch(torch.cat([count.reshape(1).to(torch.int64), bits.to(torch.int64)]))
+    return sum(1 << i for i, b in enumerate(got[1:].tolist()) if b), int(got[0])
+
+
+def _sum_from_counts(counts: np.ndarray, depth: int, base: int) -> "ValCount":
+    """Σ counts[i] << i in Python ints (counts[depth] is the not-null
+    count), offset by the field's minimum per value."""
+    vsum = sum(int(counts[i]) << i for i in range(depth))
+    vcount = int(counts[depth])
+    if vcount == 0:
+        return ValCount()
+    return ValCount(vsum + vcount * base, vcount)
 
 
 def _fetch(arr) -> np.ndarray:
@@ -258,6 +297,8 @@ class Executor:
             raise ValueError(f"unknown device_policy: {device_policy!r}")
         self.device_policy = device_policy
         self.max_writes_per_request = max_writes_per_request
+        # GroupBy cross products past this many groups fail before staging
+        self.analytics_max_groups = analytics.DEFAULT_MAX_GROUPS
         # coalesces concurrent TopN scoring against the same staged
         # matrix into one batched kernel launch (see batcher.py)
         self.scorer = BatchedScorer()
@@ -343,7 +384,7 @@ class Executor:
     @staticmethod
     def _needs_shards(calls: list[Call]) -> bool:
         for c in calls:
-            if c.name not in ("Clear", "Set"):
+            if c.name not in ("Clear", "Set", "SetRowAttrs", "SetColumnAttrs", "SetValue"):
                 return True
         return False
 
@@ -359,14 +400,31 @@ class Executor:
 
     def _execute_call_inner(self, index, c: Call, shards, opt) -> Any:
         name = c.name
+        if name == "Sum":
+            return self._execute_sum(index, c, shards, opt)
+        if name == "Min":
+            return self._execute_minmax(index, c, shards, opt, is_min=True)
+        if name == "Max":
+            return self._execute_minmax(index, c, shards, opt, is_min=False)
         if name == "Clear":
             return self._execute_clear_bit(index, c)
         if name == "Count":
             return self._execute_count(index, c, shards, opt)
         if name == "Set":
             return self._execute_set_bit(index, c)
+        if name == "SetValue":
+            self._execute_set_value(index, c)
+            return None
         if name == "TopN":
             return self._execute_topn(index, c, shards, opt)
+        if name == "GroupBy":
+            return self._execute_groupby(index, c, shards, opt)
+        if name == "Distinct":
+            return self._execute_distinct(index, c, shards, opt)
+        if name == "Percentile":
+            return self._execute_percentile(index, c, shards, opt)
+        if name == "Rows":
+            raise ValueError("Rows() can only be used inside GroupBy()")
         return self._execute_bitmap_call(index, c, shards, opt)
 
     # -- map/reduce seam -----------------------------------------------------
@@ -422,6 +480,17 @@ class Executor:
         for s in shards:
             rec(index, field, s)
 
+    def _analytics_heat_legs(self, index, fields, shards) -> None:
+        """Analytic launches bypass ``_map_reduce``'s per-shard loop AND
+        touch several fields per launch (dimension rows + aggregate
+        planes), so their legs record here: one read per (field, shard)."""
+        if not heat.LEDGER.enabled or not shards:
+            return
+        rec = heat.LEDGER.record_read
+        for f in fields:
+            for s in shards:
+                rec(index, f, s)
+
     # -- bitmap calls ---------------------------------------------------------
 
     def _execute_bitmap_call(self, index, c: Call, shards, opt) -> Row:
@@ -452,6 +521,8 @@ class Executor:
             return self._nary_shard(index, c, shard, "difference", require=True)
         if name == "Intersect":
             return self._nary_shard(index, c, shard, "intersect", require=True)
+        if name == "Range":
+            return self._range_shard(index, c, shard)
         if name == "Union":
             return self._nary_shard(index, c, shard, "union", require=False)
         if name == "Xor":
@@ -480,6 +551,110 @@ class Executor:
             other = row if i == 0 else getattr(other, op)(row)
         other.invalidate_count()
         return other
+
+    def _time_range_views(self, index, c: Call):
+        """(field, row id, quantum views in [start, end]) of a time-range
+        Range(); no views when the field has no time quantum."""
+        field_name = c.field_arg()
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise ValueError("Range() must specify row")
+        start_str, ok = c.string_arg("_start")
+        if not ok:
+            raise ValueError("Range() start time required")
+        end_str, ok = c.string_arg("_end")
+        if not ok:
+            raise ValueError("Range() end time required")
+        start = datetime.strptime(start_str, TIME_FORMAT)
+        end = datetime.strptime(end_str, TIME_FORMAT)
+        q = f.time_quantum()
+        views = views_by_time_range(VIEW_STANDARD, start, end, q) if q else []
+        return field_name, row_id, views
+
+    def _range_shard(self, index, c: Call, shard: int) -> Row:
+        """reference executeRangeShard / executeBSIGroupRangeShard."""
+        if c.has_condition_arg():
+            return self._bsi_range_shard(index, c, shard)
+        field_name, row_id, views = self._time_range_views(index, c)
+        row = Row()
+        for view in views:
+            frag = self.holder.fragment(index, field_name, view, shard)
+            if frag is not None:
+                row = row.union(frag.row(row_id))
+        return row
+
+    def _bsi_range_args(self, index, c: Call):
+        """(field name, bsi group, condition) of a BSI Range()."""
+        if len(c.args) == 0:
+            raise ValueError("Range(): condition required")
+        if len(c.args) > 1:
+            raise ValueError("Range(): too many arguments")
+        ((field_name, cond),) = c.args.items()
+        if not isinstance(cond, Condition):
+            raise ValueError(f"Range(): expected condition argument, got {cond!r}")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        bsig = f.bsi_group(field_name)
+        if bsig is None:
+            raise NotFoundError(f"bsiGroup not found: {field_name}")
+        return field_name, bsig, cond
+
+    @staticmethod
+    def _bsi_range_plan(bsig, cond):
+        """What a BSI Range() reads, from the predicate alone (reference
+        executeBSIGroupRangeShard): ("empty",), ("not_null",) or
+        ("range", op, base, base_max). Base values are Python ints, so a
+        field deeper than 32 bits keeps every predicate bit."""
+        if cond.op == NEQ and cond.value is None:
+            return ("not_null",)
+        if cond.op == BETWEEN:
+            predicates = cond.int_slice_value()
+            if len(predicates) != 2:
+                raise ValueError(
+                    "Range(): BETWEEN condition requires exactly two integer values"
+                )
+            base_min, base_max, out_of_range = bsig.base_value_between(*predicates)
+            if out_of_range:
+                return ("empty",)
+            if predicates[0] <= bsig.min and predicates[1] >= bsig.max:
+                return ("not_null",)
+            return ("range", "><", base_min, base_max)
+        value = cond.value
+        if not isinstance(value, int) or isinstance(value, bool):
+            raise ValueError("Range(): conditions only support integer values")
+        base_value, out_of_range = bsig.base_value(cond.op, value)
+        if out_of_range and cond.op != NEQ:
+            return ("empty",)
+        # fully-encompassing ranges return all not-null
+        if (
+            (cond.op == "<" and value > bsig.max)
+            or (cond.op == "<=" and value >= bsig.max)
+            or (cond.op == ">" and value < bsig.min)
+            or (cond.op == ">=" and value <= bsig.min)
+            or (out_of_range and cond.op == NEQ)
+        ):
+            return ("not_null",)
+        if cond.op not in ("==", "!=", "<", "<=", ">", ">="):
+            raise ValueError(f"invalid range operation: {cond.op}")
+        return ("range", cond.op, base_value, 0)
+
+    def _bsi_range_shard(self, index, c: Call, shard: int) -> Row:
+        field_name, bsig, cond = self._bsi_range_args(index, c)
+        plan = self._bsi_range_plan(bsig, cond)
+        frag = self.holder.fragment(index, field_name, VIEW_BSI_GROUP_PREFIX + field_name, shard)
+        if plan[0] == "empty" or frag is None:
+            return Row()
+        depth = bsig.bit_depth()
+        if plan[0] == "not_null":
+            return frag.not_null(depth)
+        _, op, base, base_max = plan
+        if op == "><":
+            return frag.range_between(depth, base, base_max)
+        return frag.range_op(op, depth, base)
 
     # -- device path ---------------------------------------------------------
 
@@ -521,9 +696,63 @@ class Executor:
                 if frag is not None:
                     row_id, _ = c.uint_arg(fname)
                     total += frag.sparse_block_count([row_id])
+        elif c.name == "Range" and c.has_condition_arg():
+            for fname in c.args:
+                total += self._bsi_plane_containers(index, fname, shard)
+        elif c.name == "Range":
+            # time-range form: the row is read once per quantum view
+            total += self._time_range_containers(index, c, shard)
+        elif c.name in ("GroupBy", "Distinct", "Percentile", "Rows"):
+            total += self._analytics_containers(index, c, shard)
         for child in c.children:
             total += self._touched_containers(index, child, shard)
         return total
+
+    def _bsi_plane_containers(self, index, fname: str, shard: int) -> int:
+        """Set containers of a BSI field's whole plane stack in one shard."""
+        f = self.holder.field(index, fname)
+        bsig = f.bsi_group(fname) if f is not None else None
+        frag = self.holder.fragment(index, fname, VIEW_BSI_GROUP_PREFIX + fname, shard)
+        if frag is None or bsig is None:
+            return 0
+        return frag.sparse_block_count(list(range(bsig.bit_depth() + 1)))
+
+    def _time_range_containers(self, index, c: Call, shard: int) -> int:
+        """The queried row's containers summed over every quantum view in
+        [start, end]. Malformed args estimate 0 (execution raises the
+        real error)."""
+        try:
+            field_name, row_id, views = self._time_range_views(index, c)
+        except (ValueError, NotFoundError):
+            return 0
+        total = 0
+        for view in views:
+            frag = self.holder.fragment(index, field_name, view, shard)
+            if frag is not None:
+                total += frag.sparse_block_count([row_id])
+        return total
+
+    def _analytics_containers(self, index, c: Call, shard: int) -> int:
+        """A Rows() dimension reads every listed (or discovered) row;
+        Distinct / Percentile / a GroupBy Sum aggregate read the field's
+        whole plane stack. Filter subtrees and nested Rows() are counted
+        by the caller's recursion over children."""
+        if c.name == "Rows":
+            fname, ok = c.string_arg("_field")
+            frag = self.holder.fragment(index, fname, VIEW_STANDARD, shard) if ok and fname else None
+            if frag is None:
+                return 0
+            ids, has_ids = c.uint_slice_arg("ids")
+            return frag.sparse_block_count(list(ids) if has_ids else frag.row_ids())
+        fname = ""
+        if c.name in ("Distinct", "Percentile"):
+            fname, _ = c.string_arg("field")
+        elif c.name == "GroupBy":
+            for child in c.children:
+                if child.name == "Sum" and not child.children:
+                    fname, _ = child.string_arg("field")
+                    break
+        return self._bsi_plane_containers(index, fname, shard) if fname else 0
 
     def _device_bitmap(self, index, c: Call, shard: int):
         """Lower a bitmap call subtree to a device i32[W] word vector."""
@@ -557,7 +786,50 @@ class Executor:
                 else:
                     acc = ops.andnot(acc, w)
             return acc
+        if name == "Range":
+            return self._device_range(index, c, [shard], stacked=False)
         raise _NotDeviceable(name)
+
+    def _device_range(self, index, c: Call, shards, stacked: bool):
+        """A Range() leaf on the device: i32[S, W] across shards, or i32[W]
+        for one shard from the per-fragment stager forms (``stacked``
+        False). The time-quantum form ORs the row's staged views; the BSI
+        form runs the range kernel on the staged planes."""
+        single = not stacked
+        shape = (_W32,) if single else (len(shards), _W32)
+
+        def stage_rows(frags, row_id):
+            return self.stager.row(frags[0], row_id) if single else self.stager.row_stack(frags, row_id)
+
+        def stage_planes(frags, depth):
+            return self.stager.planes(frags[0], depth) if single else self.stager.planes_stack(frags, depth)
+
+        if not c.has_condition_arg():
+            field_name, row_id, views = self._time_range_views(index, c)
+            acc = None
+            for view in views:
+                frags = tuple(self.holder.fragment(index, field_name, view, s) for s in shards)
+                if not any(frags):
+                    continue
+                w = stage_rows(frags, row_id)
+                acc = w if acc is None else ops.or_(acc, w)
+            return acc if acc is not None else self._zeros(*shape)
+
+        field_name, bsig, cond = self._bsi_range_args(index, c)
+        plan = self._bsi_range_plan(bsig, cond)
+        frags = tuple(
+            self.holder.fragment(index, field_name, VIEW_BSI_GROUP_PREFIX + field_name, s)
+            for s in shards
+        )
+        if plan[0] == "empty" or not any(frags):
+            return self._zeros(*shape)
+        depth = bsig.bit_depth()
+        planes = stage_planes(frags, depth)
+        if plan[0] == "not_null":
+            # the staged not-null plane, as a dense leaf
+            return planes.select(-2, depth).contiguous()
+        _, op, base, base_max = plan
+        return ops.bsi_range(planes, op, depth, base, base_max)
 
     # -- shard-batched device path -------------------------------------------
     # The whole shard set runs as ONE kernel launch over i32[S, W] stacks
@@ -653,6 +925,8 @@ class Executor:
                 else:
                     acc = ops.andnot(acc, w)
             return acc
+        if name == "Range":
+            return self._device_range(index, c, shards, stacked=True)
         raise _NotDeviceable(name)
 
     # -- Count ---------------------------------------------------------------
@@ -697,6 +971,316 @@ class Executor:
         key = ("chain", repr(tree), tuple(tuple(a.shape) for a in leaves))
         res = self.chain_scorer.score(key, tree, tuple(leaves))
         return int(_fetch(res).reshape(-1)[0])
+
+    # -- Sum / Min / Max -----------------------------------------------------
+
+    def _bsi_field(self, index, field_name: str):
+        f = self.holder.field(index, field_name)
+        return f.bsi_group(field_name) if f is not None else None
+
+    def _bsi_frags(self, index, field_name: str, shards) -> tuple:
+        view = VIEW_BSI_GROUP_PREFIX + field_name
+        return tuple(self.holder.fragment(index, field_name, view, s) for s in shards)
+
+    def _bsi_shard_parts(self, index, c: Call, shard: int):
+        """(fragment, bsig) for a Sum/Min/Max shard; None if missing."""
+        field_name, _ = c.string_arg("field")
+        bsig = self._bsi_field(index, field_name)
+        if bsig is None:
+            return None
+        frag = self._bsi_frags(index, field_name, [shard])[0]
+        if frag is None:
+            return None
+        return frag, bsig
+
+    def _bsi_filter(self, index, c: Call, shard: int) -> Optional[Row]:
+        if len(c.children) == 1:
+            return self._bitmap_call_shard(index, c.children[0], shard)
+        return None
+
+    def _device_filter(self, index, c: Call, shard: int):
+        """(filter_words, has_filter) on the device path."""
+        if len(c.children) == 1:
+            return self._device_bitmap(index, c.children[0], shard), True
+        return self._zeros(_W32), False
+
+    def _device_filter_stack(self, index, c: Call, shards):
+        """(filter_words i32[S, W], has_filter) for a shard batch."""
+        if len(c.children) == 1:
+            return self._device_bitmap_stack(index, c.children[0], shards), True
+        return self._zeros(len(shards), _W32), False
+
+    def _bsi_device_shard(self, index, c: Call, frag, depth: int) -> bool:
+        """Per-shard BSI legs go to the device when the policy says so or
+        the plane stack alone is past the auto threshold."""
+        return self._use_device(index, c, frag.shard) or (
+            self.device_policy != "never"
+            and frag.sparse_block_count(list(range(depth + 1))) >= AUTO_DEVICE_MIN_CONTAINERS
+        )
+
+    def _execute_sum(self, index, c: Call, shards, opt) -> ValCount:
+        if not c.args.get("field"):
+            raise ValueError("Sum(): field required")
+        if len(c.children) > 1:
+            raise ValueError("Sum() only accepts a single bitmap input")
+
+        # shard-batched: one launch for all shards
+        if shards and self._use_device_batched(index, c, shards):
+            field_name, _ = c.string_arg("field")
+            bsig = self._bsi_field(index, field_name)
+            frags = self._bsi_frags(index, field_name, shards) if bsig is not None else ()
+            if any(frags):
+                try:
+                    with trace.child(metrics.STAGE_DEVICE_BATCH, call="Sum"):
+                        vc = self._sum_device_batched(index, c, shards, bsig, frags)
+                    self._heat_read_legs(index, c, shards)
+                    return vc
+                except _NotDeviceable:
+                    pass
+
+        def map_fn(shard):
+            parts = self._bsi_shard_parts(index, c, shard)
+            if parts is None:
+                return ValCount()
+            frag, bsig = parts
+            depth = bsig.bit_depth()
+            if self._bsi_device_shard(index, c, frag, depth):
+                try:
+                    filt, has_filter = self._device_filter(index, c, shard)
+                    planes = self.stager.planes(frag, depth)
+                    counts = _fetch(
+                        _timed_plane_counts(planes, filt, bit_depth=depth, has_filter=has_filter)
+                    )
+                    return _sum_from_counts(counts, depth, bsig.min)
+                except _NotDeviceable:
+                    pass
+            filt = self._bsi_filter(index, c, shard)
+            vsum, vcount = frag.sum(filt, depth)
+            return ValCount(vsum + vcount * bsig.min, vcount)
+
+        result = self._map_reduce(
+            index, shards, c, opt, map_fn, lambda a, b: a.add(b), zero_factory=ValCount
+        )
+        if result is None or result.count == 0:
+            return ValCount()
+        return result
+
+    def _sum_device_batched(self, index, c: Call, shards, bsig, frags) -> ValCount:
+        """Per-plane counts of the whole batch in one GroupBy-kernel
+        launch (no dimension: the one group is the filter)."""
+        depth = bsig.bit_depth()
+        filt, has_filter = self._device_filter_stack(index, c, shards)
+        planes = self.stager.planes_stack(frags, depth)
+        counts = _fetch(
+            _timed_plane_counts_batched(planes, filt, bit_depth=depth, has_filter=has_filter)
+        )
+        return _sum_from_counts(counts, depth, bsig.min)
+
+    def _execute_minmax(self, index, c: Call, shards, opt, is_min: bool) -> ValCount:
+        name = "Min" if is_min else "Max"
+        if not c.args.get("field"):
+            raise ValueError(f"{name}(): field required")
+        if len(c.children) > 1:
+            raise ValueError(f"{name}() only accepts a single bitmap input")
+        recurrence = _timed_bsi_min if is_min else _timed_bsi_max
+
+        def map_fn(shard):
+            parts = self._bsi_shard_parts(index, c, shard)
+            if parts is None:
+                return ValCount()
+            frag, bsig = parts
+            depth = bsig.bit_depth()
+            if self._bsi_device_shard(index, c, frag, depth):
+                try:
+                    filt, has_filter = self._device_filter(index, c, shard)
+                    planes = self.stager.planes(frag, depth)
+                    val, count = _fetch_bits(
+                        *recurrence(planes, filt, bit_depth=depth, has_filter=has_filter)
+                    )
+                    return ValCount(val + bsig.min, count) if count else ValCount()
+                except _NotDeviceable:
+                    pass
+            filt = self._bsi_filter(index, c, shard)
+            val, count = (frag.min if is_min else frag.max)(filt, depth)
+            return ValCount(val + bsig.min, count)
+
+        reduce_fn = (lambda a, b: a.smaller(b)) if is_min else (lambda a, b: a.larger(b))
+        result = self._map_reduce(index, shards, c, opt, map_fn, reduce_fn, zero_factory=ValCount)
+        if result is None or result.count == 0:
+            return ValCount()
+        return result
+
+    # -- analytics: GroupBy / Distinct / Percentile ----------------------------
+    #
+    # Shard-batched device legs (one GroupBy-kernel launch per panel; the
+    # Distinct and Percentile recurrences on device, one fetch each) with
+    # the per-shard CPU oracle below them. A shape the device path does not
+    # take (_NotDeviceable) or a quarantined fragment met while staging
+    # degrades that query to the per-shard path, counted in
+    # analytics.degraded_legs; a kernel failure raises.
+
+    def _execute_groupby(self, index, c: Call, shards, opt) -> list[dict]:
+        plan = analytics.parse_groupby(c)
+        metrics.count(metrics.ANALYTICS_QUERIES, call="GroupBy")
+        dims = analytics.resolve_dims(self.holder, index, plan, shards, self.analytics_max_groups)
+        merged = None
+        if shards and all(ids for _, ids in dims) and self._use_device_batched(index, c, shards):
+            try:
+                with trace.child(metrics.STAGE_DEVICE_BATCH, call="GroupBy"):
+                    merged = self._groupby_device_batched(index, plan, dims, shards)
+                fields = [f for f, _ in dims] + ([plan.agg_field] if plan.agg_field else [])
+                self._analytics_heat_legs(index, fields, shards)
+            except (_NotDeviceable, FragmentQuarantinedError):
+                metrics.count(metrics.ANALYTICS_DEGRADED_LEGS, call="GroupBy")
+                merged = None
+        if merged is None:
+
+            def map_fn(shard):
+                return analytics.groupby_shard(self, index, plan, dims, shard)
+
+            merged = self._map_reduce(
+                index, shards, c, opt, map_fn, analytics.merge_group_lists, zero_factory=list
+            )
+        return analytics.finalize_groups(plan, merged or [])
+
+    def _groupby_device_batched(self, index, plan, dims, shards) -> list[dict]:
+        """One GroupBy-kernel launch for the whole panel: each dimension's
+        rows staged as one [R, S, W] stack, the filter as [S, W], the Sum
+        field's planes as the staged [S, D+1, W] stack read in place. The
+        kernel ANDs each group in registers; no [K, Wf] matrix exists."""
+        dim_stacks = []
+        for field, ids in dims:
+            frags = tuple(self.holder.fragment(index, field, VIEW_STANDARD, s) for s in shards)
+            dim_stacks.append(self.stager.rows_stack(frags, tuple(ids)))
+        filt = None
+        if plan.filter is not None:
+            filt = self._device_bitmap_stack(index, plan.filter, shards)
+        k = 1
+        for _, ids in dims:
+            k *= len(ids)
+        metrics.count(metrics.FUSION_GROUPBY_LAUNCHES)
+        metrics.observe(metrics.FUSION_GROUPBY_GROUPS, k)
+        depth = 0
+        planes = None
+        if plan.agg_field is not None:
+            bsig = self._bsi_field(index, plan.agg_field)
+            if bsig is None:
+                raise NotFoundError(f"bsiGroup not found: {plan.agg_field}")
+            afrags = self._bsi_frags(index, plan.agg_field, shards)
+            if any(afrags):
+                depth = bsig.bit_depth()
+                planes = self.stager.planes_stack(afrags, depth)
+        if planes is None:
+            planes = torch.empty((len(shards), 0, _W32), dtype=torch.int32, device=self.device)
+        counts, plane_counts = _timed_groupby(dim_stacks, filt, planes)
+        counts = _fetch(counts)
+        if plan.agg_field is None:
+            return analytics.emit_device_groups(dims, counts)
+        if planes.shape[1] == 0:
+            return analytics.emit_device_groups(dims, counts, sums=[0] * int(counts.shape[0]))
+        sums = analytics.assemble_sums(_fetch(plane_counts), depth, bsig.min)
+        return analytics.emit_device_groups(dims, counts, sums=sums)
+
+    def _execute_distinct(self, index, c: Call, shards, opt) -> list[int]:
+        field, ok = c.string_arg("field")
+        if not ok or not field:
+            raise ValueError("Distinct(): field required")
+        if len(c.children) > 1:
+            raise ValueError("Distinct() only accepts a single bitmap input")
+        metrics.count(metrics.ANALYTICS_QUERIES, call="Distinct")
+        bsig = self._bsi_field(index, field)
+        if bsig is None:
+            raise NotFoundError(f"bsiGroup not found: {field}")
+        if (
+            shards
+            and bsig.bit_depth() <= analytics.DISTINCT_DEVICE_MAX_DEPTH
+            and self._use_device_batched(index, c, shards)
+        ):
+            try:
+                with trace.child(metrics.STAGE_DEVICE_BATCH, call="Distinct"):
+                    vals = self._distinct_device_batched(index, c, shards, bsig)
+                self._analytics_heat_legs(index, [field], shards)
+                return vals
+            except (_NotDeviceable, FragmentQuarantinedError):
+                metrics.count(metrics.ANALYTICS_DEGRADED_LEGS, call="Distinct")
+
+        def map_fn(shard):
+            return analytics.distinct_shard(self, index, c, field, shard)
+
+        result = self._map_reduce(
+            index, shards, c, opt, map_fn, analytics.merge_distinct_lists, zero_factory=list
+        )
+        return result or []
+
+    def _distinct_device_batched(self, index, c: Call, shards, bsig) -> list[int]:
+        """OR the per-shard value presence into one 2^depth bitmap on the
+        device; the host decodes its set positions to values."""
+        field, _ = c.string_arg("field")
+        depth = bsig.bit_depth()
+        frags = self._bsi_frags(index, field, shards)
+        if not any(frags):
+            return []
+        filt, has_filter = self._device_filter_stack(index, c, shards)
+        planes = self.stager.planes_stack(frags, depth)
+        words = _fetch(
+            _timed_distinct(planes, filt, bit_depth=depth, has_filter=has_filter)
+        ).view("<u4")
+        return analytics.decode_presence_words(words, bsig.min)
+
+    def _execute_percentile(self, index, c: Call, shards, opt) -> ValCount:
+        field, nth_bp = analytics.parse_percentile(c)
+        metrics.count(metrics.ANALYTICS_QUERIES, call="Percentile")
+        bsig = self._bsi_field(index, field)
+        if bsig is None:
+            raise NotFoundError(f"bsiGroup not found: {field}")
+        if shards and self._use_device_batched(index, c, shards):
+            try:
+                with trace.child(metrics.STAGE_DEVICE_BATCH, call="Percentile"):
+                    vc = self._percentile_device_batched(index, c, shards, bsig, nth_bp)
+                self._analytics_heat_legs(index, [field], shards)
+                return vc
+            except (_NotDeviceable, FragmentQuarantinedError):
+                metrics.count(metrics.ANALYTICS_DEGRADED_LEGS, call="Percentile")
+        return self._percentile_by_counting(index, c, shards, opt, field, bsig, nth_bp)
+
+    def _percentile_device_batched(self, index, c: Call, shards, bsig, nth_bp: int) -> ValCount:
+        """Bit-sliced binary search over the staged planes on the device:
+        one fetch of (depth bits, count)."""
+        field, _ = c.string_arg("field")
+        depth = bsig.bit_depth()
+        frags = self._bsi_frags(index, field, shards)
+        if not any(frags):
+            return ValCount()
+        filt, has_filter = self._device_filter_stack(index, c, shards)
+        planes = self.stager.planes_stack(frags, depth)
+        val, count = _fetch_bits(
+            *_timed_percentile(planes, filt, nth_bp, bit_depth=depth, has_filter=has_filter)
+        )
+        return ValCount(val + bsig.min, count) if count else ValCount()
+
+    def _percentile_by_counting(self, index, c: Call, shards, opt, field, bsig, nth_bp: int) -> ValCount:
+        """Per-shard leg: O(depth) counting binary search over the value
+        domain, each step a synthesized Count(Range(...)) through the
+        ordinary Count path — the oracle the device descent must match."""
+
+        def count_where(cond: Condition) -> int:
+            child: Call = Call("Range", {field: cond})
+            if len(c.children) == 1:
+                child = Call("Intersect", children=[c.children[0].clone(), child])
+            return self._execute_count(index, Call("Count", children=[child]), shards, opt)
+
+        n = count_where(Condition(NEQ, None))
+        if n == 0:
+            return ValCount()
+        k = analytics.nearest_rank(nth_bp, n)
+        lo, hi = bsig.min, bsig.max
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if count_where(Condition("<=", mid)) >= k:
+                hi = mid
+            else:
+                lo = mid + 1
+        return ValCount(lo, n)
 
     # -- TopN (reference executeTopN two-pass, executor.go:521-585) ----------
 
@@ -877,6 +1461,20 @@ class Executor:
             raise ValueError("Clear() col argument required")
         heat.record_write(index, field_name, col_id // SHARD_WIDTH, 1)
         return f.clear_bit(row_id, col_id)
+
+    def _execute_set_value(self, index, c: Call) -> None:
+        col_id, ok = c.uint_arg("col")
+        if not ok:
+            raise ValueError("SetValue() col argument required")
+        for name, value in c.args.items():
+            if name == "col":
+                continue
+            f = self.holder.field(index, name)
+            if f is None:
+                raise NotFoundError(f"field not found: {name}")
+            if isinstance(value, bool) or not isinstance(value, int):
+                raise ValueError("invalid BSI group value type")
+            f.set_value(col_id, value)
 
     def close(self) -> None:
         with self._read_pool_mu:

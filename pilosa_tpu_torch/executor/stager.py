@@ -19,6 +19,9 @@ Staged forms (the main-path ones):
   * row_stack           — i32[S, W] across S fragments (None → zeros)
   * sparse_rows         — block-sparse candidates of one fragment
   * sparse_rows_stacked — block-sparse candidates of all shards
+  * planes              — i32[D+1, W] BSI plane stack of one fragment
+  * planes_stack        — i32[S, D+1, W] BSI planes across S fragments
+  * rows_stack          — i32[R, S, W] GroupBy dimension rows
 
 Uploads go host → pinned memory → device without blocking the host
 (``ops.words_from_numpy``). A cold key is staged ONCE: concurrent misses
@@ -329,6 +332,58 @@ class DeviceStager:
 
         return self._get_or_build(
             self._stack_key(frags, "sparse_stack", (chunk, ids_by_shard)),
+            self._stack_gen(frags),
+            build,
+            frag=frags,
+        )
+
+    def planes(self, frag, bit_depth: int):
+        """i32[bit_depth+1, W] BSI plane stack of one fragment (plane
+        bit_depth is the not-null row)."""
+
+        def build():
+            gen = frag.generation
+            words = frag.bsi_planes(bit_depth)
+            return self._to_device(words), words.nbytes, gen
+
+        return self._get_or_build(
+            self._key(frag, "planes", (bit_depth,)), frag.generation, build, frag=frag
+        )
+
+    def planes_stack(self, frags, bit_depth: int):
+        """i32[S, bit_depth+1, W] across S fragments (None → zeros); the
+        BSI kernels read it in place through its strides."""
+
+        def build():
+            gens = self._stack_gen(frags)
+            words = np.zeros((len(frags), bit_depth + 1, SHARD_WIDTH // 64), dtype=np.uint64)
+            for i, f in enumerate(frags):
+                if f is not None:
+                    words[i] = f.bsi_planes(bit_depth)
+            return self._to_device(words), words.nbytes, gens
+
+        return self._get_or_build(
+            self._stack_key(frags, "planes_stack", (bit_depth,)),
+            self._stack_gen(frags),
+            build,
+            frag=frags,
+        )
+
+    def rows_stack(self, frags, row_ids: tuple[int, ...]):
+        """i32[R, S, W]: R rows across S fragments (None → zeros) — a
+        GroupBy dimension, staged as one tensor so the GroupBy kernel
+        reads every row in place."""
+
+        def build():
+            gens = self._stack_gen(frags)
+            words = np.zeros((len(row_ids), len(frags), SHARD_WIDTH // 64), dtype=np.uint64)
+            for i, f in enumerate(frags):
+                if f is not None and row_ids:
+                    words[:, i] = f.packed_rows(list(row_ids))
+            return self._to_device(words), words.nbytes, gens
+
+        return self._get_or_build(
+            self._stack_key(frags, "rows_stack", (tuple(row_ids),)),
             self._stack_gen(frags),
             build,
             frag=frags,

@@ -30,7 +30,7 @@ KERNEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-SOURCES = ("dense_scores", "sparse_scores", "tree_count")
+SOURCES = ("dense_scores", "sparse_scores", "tree_count", "groupby_reduce", "bsi_range")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-O3",
@@ -60,6 +60,19 @@ _SIGNATURES = {
         # leaf_ptrs (host u64[q * nleaves]), code, code_len, nleaves,
         # n_words, q, out, device, stream
         [_P, _P, _I, _I, _LL, _I, _P, _I, _P],
+    ),
+    "groupby_reduce": (
+        "pilosa_groupby_reduce",
+        # dims (host GbDim[]), ndims, filt, filt_shard_stride, planes,
+        # plane_stride, plane_shard_stride, nplanes, s, wv, k, counts,
+        # plane_counts, device, stream
+        [_P, _I, _P, _LL, _P, _LL, _LL, _I, _LL, _LL, _LL, _P, _P, _I, _P],
+    ),
+    "bsi_range": (
+        "pilosa_bsi_range",
+        # planes, plane_stride, shard_stride, s, wv, out, prog (host
+        # RangeProg*), device, stream
+        [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P],
     ),
 }
 

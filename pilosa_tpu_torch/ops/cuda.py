@@ -59,7 +59,17 @@ TREE_COUNT = Kernel(
     "pilosa_tpu_torch/ops/kernels/tree_count.cu",
     "pilosa_tpu/executor/executor.py:1526",
 )
-KERNELS = (DENSE_SCORES, SPARSE_STACKED_SCORES, TREE_COUNT)
+GROUPBY_REDUCE = Kernel(
+    "groupby_reduce",
+    "pilosa_tpu_torch/ops/kernels/groupby_reduce.cu",
+    "pilosa_tpu/ops/pallas_kernels.py:170",
+)
+BSI_RANGE = Kernel(
+    "bsi_range",
+    "pilosa_tpu_torch/ops/kernels/bsi_range.cu",
+    "pilosa_tpu/ops/bsi.py:85",
+)
+KERNELS = (DENSE_SCORES, SPARSE_STACKED_SCORES, TREE_COUNT, GROUPBY_REDUCE, BSI_RANGE)
 
 
 def reset_launches() -> None:
@@ -212,4 +222,128 @@ def tree_count(leaves_by_query, program) -> torch.Tensor:
     )
     _raise_on(err, "tree_count")
     TREE_COUNT.note_launch(q)
+    return out
+
+
+# Dimensions one groupby_reduce launch takes (GB_MAX_DIMS) and the most
+# planes it accumulates (the widest accumulator template).
+GROUPBY_MAX_DIMS = 8
+GROUPBY_MAX_PLANES = 64
+
+
+class _GbDim(ctypes.Structure):
+    # one GroupBy dimension; strides in 16-byte vectors (GbDim in
+    # groupby_reduce.cu)
+    _fields_ = [
+        ("base", ctypes.c_void_p),
+        ("row_stride", ctypes.c_longlong),
+        ("shard_stride", ctypes.c_longlong),
+        ("rows", ctypes.c_int),
+    ]
+
+
+def _vec_strides(t: torch.Tensor, what: str) -> tuple[int, int]:
+    """(row stride, shard stride) in 16-byte vectors of an int32 [R, S, W]
+    (or [S, R, W] plane) view whose word axis is dense."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what} must be int32, got {t.dtype}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dim() != 3 or (t.shape[2] > 1 and t.stride(2) != 1):
+        raise ValueError(f"{what} must be [., ., W] with a dense word axis")
+    if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
+        raise ValueError(f"{what} must be 16-byte aligned per row and shard")
+    return t.stride(0) // 4, t.stride(1) // 4
+
+
+def groupby_reduce(dims, filt, planes) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: (counts i32[K], plane_counts i32[K, P]) of the GroupBy cross
+    product. dims: list of i32[R_d, S, W] (any strides with a dense word
+    axis); filt: i32[S, W] or None; planes: i32[S, P, W] (P may be 0).
+    W a multiple of 4; one group's count must fit in int32."""
+    s, p, w = planes.shape
+    device = planes.device
+    if len(dims) > GROUPBY_MAX_DIMS:
+        raise ValueError(f"{len(dims)} dimensions > {GROUPBY_MAX_DIMS}")
+    if p > GROUPBY_MAX_PLANES:
+        raise ValueError(f"{p} planes > {GROUPBY_MAX_PLANES}")
+    if w % 4:
+        raise ValueError(f"words per shard must be a multiple of 4, got {w}")
+    if s * w * 32 >= 1 << 31:
+        raise ValueError(f"{s * w} words: a group's count would overflow int32")
+    # planes are [S, P, W]: their shard axis is dim 0, the plane axis dim 1
+    ps_shard, ps_plane = _vec_strides(planes, "planes") if p else (0, 0)
+    arr = (_GbDim * GROUPBY_MAX_DIMS)()
+    for i, d in enumerate(dims):
+        if d.dim() != 3 or d.shape[1] != s or d.shape[2] != w:
+            raise ValueError(f"dimension {i} is {tuple(d.shape)}, planes are {tuple(planes.shape)}")
+        _same_device(device, d)
+        rs, ss = _vec_strides(d, f"dimension {i}")
+        arr[i] = _GbDim(d.data_ptr(), rs, ss, int(d.shape[0]))
+    fptr, fss = None, 0
+    if filt is not None:
+        if tuple(filt.shape) != (s, w):
+            raise ValueError(f"filter is {tuple(filt.shape)}, expected {(s, w)}")
+        _same_device(device, filt)
+        _, fss = _vec_strides(filt.unsqueeze(0), "filter")
+        fptr = filt.data_ptr()
+    k = 1
+    for d in dims:
+        k *= int(d.shape[0])
+    counts = torch.zeros(k, dtype=torch.int32, device=device)
+    plane_counts = torch.zeros((k, p), dtype=torch.int32, device=device)
+    if k == 0 or s * w == 0:
+        return counts, plane_counts
+    lib = _build.library("groupby_reduce")
+    err = lib.pilosa_groupby_reduce(
+        arr, len(dims), fptr, fss,
+        planes.data_ptr() if p else None, ps_plane, ps_shard, p,
+        s, w // 4, k, counts.data_ptr(), plane_counts.data_ptr(),
+        device.index, _stream(device),
+    )
+    _raise_on(err, "groupby_reduce")
+    GROUPBY_REDUCE.note_launch(1)
+    return counts, plane_counts
+
+
+# Bit depth one bsi_range launch takes (the predicate is 64-bit).
+BSI_MAX_DEPTH = 63
+
+
+class _RangeProg(ctypes.Structure):
+    # RangeProg in bsi_range.cu: one opcode byte per plane below the
+    # not-null plane, the depth and the output selector
+    _fields_ = [
+        ("code", ctypes.c_ubyte * 64),
+        ("depth", ctypes.c_int),
+        ("out_sel", ctypes.c_int),
+    ]
+
+
+def bsi_range(planes: torch.Tensor, code, out_sel: int) -> torch.Tensor:
+    """K5: one BSI range row per shard from a [S, D+1, W] plane stack
+    (plane D is not-null) and a per-plane opcode program (ops/bsi.py
+    range_program) -> i32[S, W]."""
+    s, d1, w = planes.shape
+    depth = d1 - 1
+    if not 0 <= depth <= BSI_MAX_DEPTH or len(code) != depth:
+        raise ValueError(f"bit depth {depth} with a program of {len(code)}")
+    if w % 4:
+        raise ValueError(f"words per shard must be a multiple of 4, got {w}")
+    shard_stride, plane_stride = _vec_strides(planes, "planes")
+    out = torch.empty((s, w), dtype=torch.int32, device=planes.device)
+    if s * w == 0:
+        return out
+    prog = _RangeProg()
+    for i, op in enumerate(code):
+        prog.code[i] = op
+    prog.depth = depth
+    prog.out_sel = out_sel
+    lib = _build.library("bsi_range")
+    err = lib.pilosa_bsi_range(
+        planes.data_ptr(), plane_stride, shard_stride, s, w // 4,
+        out.data_ptr(), ctypes.byref(prog), planes.device.index, _stream(planes.device),
+    )
+    _raise_on(err, "bsi_range")
+    BSI_RANGE.note_launch(1)
     return out

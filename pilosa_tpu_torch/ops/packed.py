@@ -359,3 +359,123 @@ def count_bits(words: torch.Tensor) -> torch.Tensor:
     """Total set bits of a word tensor (any shape) -> int32 scalar (the
     one-leaf tree count)."""
     return tree_count([[words]], _ONE_LEAF)[0]
+
+
+def count_bits_rows(mat: torch.Tensor) -> torch.Tensor:
+    """Per-row set bits of i32[R, W] -> i32[R] (plain: GroupBy's
+    per-group counts come from K4, never from a materialised matrix)."""
+    return popcount(mat).sum(dim=-1).to(torch.int32)
+
+
+# -- K4: GroupBy segmented reduction ------------------------------------------------
+#
+# A GroupBy panel is the cross product of its dimensions' row bitmaps:
+# group k = filt & dims[0][i0] & dims[1][i1] & ... in product order (first
+# dimension slowest). K4 popcounts every group, and every group AND each
+# BSI plane, without ever writing the [K, Wf] group matrix.
+#
+# Layouts: a dimension is i32[R_d, Wf] or i32[R_d, S, W] (Wf = S * W, words
+# flattened over the shard batch); the filter i32[Wf] or i32[S, W] or None;
+# planes i32[P, Wf] or the staged i32[S, P, W] stack, read in place. P = 0
+# gives counts only; no dimension gives one group (the filter, or all ones).
+
+# Largest transient (int32 words) the plain version materialises per tile.
+_GROUP_TILE_WORDS = 1 << 22
+
+
+def _as_stack3(t: torch.Tensor) -> torch.Tensor:
+    """A dimension [R, Wf] as [R, 1, Wf]; [R, S, W] as is."""
+    return t.unsqueeze(1) if t.dim() == 2 else t
+
+
+def _planes_stack3(planes: torch.Tensor) -> torch.Tensor:
+    """Planes [P, Wf] as the [1, P, Wf] view; a staged [S, P, W] as is."""
+    return planes.unsqueeze(0) if planes.dim() == 2 else planes
+
+
+def _group_count(dims) -> int:
+    k = 1
+    for d in dims:
+        k *= int(d.shape[0])
+    return k
+
+
+def groupby_reduce_plain(dims, filt, planes):
+    """(counts i32[K], plane_counts i32[K, P]) with counts[k] =
+    popcount(g_k) and plane_counts[k, p] = popcount(g_k & planes[p]),
+    g_k = filt & dims[0][i0] & ... (product order, first dimension
+    slowest). Groups are built a tile at a time, so the [K, Wf] group
+    matrix is never held whole."""
+    dims3 = [_as_stack3(d) for d in dims]
+    p3 = _planes_stack3(planes)
+    s, p, w = p3.shape
+    device = p3.device
+    flat_dims = [d.reshape(d.shape[0], -1) for d in dims3]
+    flat_planes = p3.permute(1, 0, 2).reshape(p, s * w)
+    wf = s * w
+    f = None if filt is None else filt.reshape(1, wf)
+    k = _group_count(dims3)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    plane_counts = torch.zeros((k, p), dtype=torch.int64, device=device)
+    radix = [int(d.shape[0]) for d in flat_dims]
+    tile = max(1, _GROUP_TILE_WORDS // max(wf, 1))
+    for k0 in range(0, k, tile):
+        ks = torch.arange(k0, min(k, k0 + tile), device=device)
+        g = torch.full((ks.numel(), wf), -1, dtype=torch.int32, device=device)
+        if f is not None:
+            g &= f
+        rem = ks
+        for d in range(len(flat_dims) - 1, -1, -1):
+            g &= flat_dims[d][rem % radix[d]]
+            rem = rem // radix[d]
+        counts[k0 : k0 + ks.numel()] = popcount(g).sum(dim=-1)
+        for pi in range(p):
+            plane_counts[k0 : k0 + ks.numel(), pi] = popcount(g & flat_planes[pi]).sum(dim=-1)
+    return counts.to(torch.int32), plane_counts.to(torch.int32)
+
+
+def groupby_reduce(dims, filt, planes):
+    """GroupBy segmented reduction: the kernel for CUDA tensors, the
+    plain version for CPU ones. ``planes`` may have P = 0 rows."""
+    if _on_cuda(planes):
+        return cuda.groupby_reduce(
+            [_as_stack3(d) for d in dims],
+            None if filt is None else filt.reshape(_planes_stack3(planes).shape[0], -1),
+            _planes_stack3(planes),
+        )
+    return groupby_reduce_plain(dims, filt, planes)
+
+
+def _no_planes(like: torch.Tensor) -> torch.Tensor:
+    """A P = 0 plane stack with ``like``'s flattened word count."""
+    d = _as_stack3(like)
+    return torch.empty((d.shape[1], 0, d.shape[2]), dtype=torch.int32, device=like.device)
+
+
+def combine_groups(dims, filt) -> torch.Tensor:
+    """Cross-product AND of the dimension stacks -> i32[K, Wf] in product
+    order. Plain and whole: the serving path never materialises this
+    (see groupby_reduce); kept for parity with the JAX function."""
+    flat = [_as_stack3(d).reshape(d.shape[0], -1) for d in dims]
+    acc = flat[0]
+    if filt is not None:
+        acc = acc & filt.reshape(1, -1)
+    for d in flat[1:]:
+        acc = (acc[:, None, :] & d[None, :, :]).reshape(-1, acc.shape[-1])
+    return acc
+
+
+def groupby_counts(dims, filt) -> torch.Tensor:
+    """Count-aggregate GroupBy: popcount per group -> i32[K]."""
+    return groupby_reduce(dims, filt, _no_planes(dims[0]))[0]
+
+
+def groupby_plane_counts(groups: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """popcount(groups[k] & planes[p]) -> i32[K, P] (one dimension: the
+    groups themselves, no filter)."""
+    return groupby_reduce([groups], None, planes)[1]
+
+
+def groupby_sum_reduce(dims, filt, planes):
+    """Sum-aggregate GroupBy: (counts i32[K], plane_counts i32[K, P])."""
+    return groupby_reduce(dims, filt, planes)

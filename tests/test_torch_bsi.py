@@ -1,0 +1,263 @@
+"""The port's GroupBy reduction (K4) and BSI ops (K5 and the plane
+recurrences) against the JAX package's functions.
+
+Same inputs (numpy, from a seed) go through ``pilosa_tpu.ops`` (XLA on
+the CPU, the Pallas GroupBy kernel in interpret mode) and through
+``pilosa_tpu_torch.ops`` on CPU tensors, where each public function runs
+its plain PyTorch version. Outputs are integers, so the bar is ==. Inputs
+include all-ones words, which catch sign bugs in the port's int32 view
+of the u32 words.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pilosa_tpu import ops as jops
+from pilosa_tpu.ops.pallas_kernels import groupby_plane_counts_pallas, pad_for_pallas
+from pilosa_tpu_torch import ops as tops
+
+CPU = torch.device("cpu")
+W = 256  # words per shard at this small width
+
+
+def _u32(rng, shape, ones=1):
+    a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    flat = a.reshape(-1)
+    flat[rng.choice(flat.size, size=min(ones * 29, flat.size), replace=False)] = 0xFFFFFFFF
+    a.reshape(-1, shape[-1])[:ones] = 0xFFFFFFFF
+    return a
+
+
+def _t(a):
+    return tops.words_from_numpy(a, CPU)
+
+
+def _np(t):
+    return t.numpy().astype(np.int64)
+
+
+# -- K4: GroupBy segmented reduction ---------------------------------------------------
+
+
+def test_plain_k4_matches_pallas_p3_interpret():
+    """One dimension, no filter: plane_counts.T is exactly P3's output."""
+    rng = np.random.default_rng(11)
+    groups = _u32(rng, (37, 2 * W))
+    planes = _u32(rng, (9, 2 * W))
+    _, pc = tops.groupby_reduce_plain([_t(groups)], None, _t(planes))
+    gp, k = pad_for_pallas(groups)
+    pp, _ = pad_for_pallas(planes)
+    want = np.asarray(groupby_plane_counts_pallas(pp[:9], gp, interpret=True))[:, :k]
+    assert np.array_equal(_np(pc).T, want)
+    assert np.array_equal(_np(tops.groupby_plane_counts(_t(groups), _t(planes))), want.T)
+
+
+DIM_SHAPES = [(5,), (3, 4), (2, 3, 4)]
+
+
+@pytest.mark.parametrize("rows", DIM_SHAPES, ids=["1dim", "2dim", "3dim"])
+@pytest.mark.parametrize("with_filter", [False, True], ids=["nofilter", "filter"])
+def test_groupby_reduce_matches_jax(rows, with_filter):
+    rng = np.random.default_rng(sum(rows) * 7 + with_filter)
+    dims = [_u32(rng, (r, 3 * W)) for r in rows]
+    filt = _u32(rng, (3 * W,)) if with_filter else None
+    planes = _u32(rng, (6, 3 * W))
+    jf = filt if with_filter else None
+    want_c, want_pc = jops.groupby_sum_reduce(tuple(dims), jf, planes)
+    tf = _t(filt) if with_filter else None
+    got_c, got_pc = tops.groupby_sum_reduce([_t(d) for d in dims], tf, _t(planes))
+    assert got_c.dtype == got_pc.dtype == torch.int32
+    assert np.array_equal(_np(got_c), np.asarray(want_c))
+    assert np.array_equal(_np(got_pc), np.asarray(want_pc))
+    counts = tops.groupby_counts([_t(d) for d in dims], tf)
+    assert np.array_equal(_np(counts), np.asarray(jops.groupby_counts(tuple(dims), jf)))
+    # the whole-matrix cross product agrees too
+    assert np.array_equal(
+        tops.words_to_numpy(tops.combine_groups([_t(d) for d in dims], tf)),
+        np.asarray(jops.combine_groups(tuple(dims), jf)),
+    )
+
+
+def test_groupby_reduce_stack_layouts_and_edges():
+    """[R, S, W] dimensions and a staged [S, P, W] plane stack read in
+    place give the flattened answer; no dimension is one group; P = 0
+    gives counts only; tiles smaller than K change nothing."""
+    rng = np.random.default_rng(5)
+    s = 3
+    dims = [_u32(rng, (4, s, W)), _u32(rng, (3, s, W))]
+    filt = _u32(rng, (s, W))
+    stack = _u32(rng, (s, 7, W))  # [S, P, W] as staged
+    flat_planes = np.ascontiguousarray(stack.transpose(1, 0, 2)).reshape(7, s * W)
+    want = jops.groupby_sum_reduce(
+        tuple(d.reshape(d.shape[0], -1) for d in dims), filt.reshape(-1), flat_planes
+    )
+    got = tops.groupby_reduce([_t(d) for d in dims], _t(filt), _t(stack))
+    assert np.array_equal(_np(got[0]), np.asarray(want[0]))
+    assert np.array_equal(_np(got[1]), np.asarray(want[1]))
+    # dims=(): K = 1, the filter (or all ones) is the group
+    c, pc = tops.groupby_reduce((), _t(filt), _t(stack))
+    assert _np(c).tolist() == [int(np.bitwise_count(filt).sum())]
+    assert np.array_equal(_np(pc)[0], np.asarray(jops.bsi_plane_counts_batched(stack, filt, bit_depth=6, has_filter=True)))
+    c, pc = tops.groupby_reduce((), None, _t(stack))
+    assert _np(c).tolist() == [s * W * 32]
+    assert np.array_equal(_np(pc)[0], np.bitwise_count(stack).sum(axis=(0, 2)))
+    # P = 0
+    c, pc = tops.groupby_reduce([_t(d) for d in dims], None, _t(stack[:, :0]))
+    assert tuple(pc.shape) == (12, 0)
+    assert np.array_equal(_np(c), np.asarray(jops.groupby_counts(tuple(d.reshape(d.shape[0], -1) for d in dims), None)))
+    # a tile of one group at a time
+    small = tops.packed._GROUP_TILE_WORDS
+    try:
+        tops.packed._GROUP_TILE_WORDS = 1
+        again = tops.groupby_reduce([_t(d) for d in dims], _t(filt), _t(stack))
+    finally:
+        tops.packed._GROUP_TILE_WORDS = small
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_count_bits_rows_matches_jax():
+    m = _u32(np.random.default_rng(8), (6, W))
+    assert np.array_equal(_np(tops.count_bits_rows(_t(m))), np.asarray(jops.count_bits_rows(m)))
+
+
+# -- K5: the range recurrences --------------------------------------------------------
+
+
+def _planes(rng, depth, shards=None, nn_ones=True):
+    shape = (depth + 1, W) if shards is None else (shards, depth + 1, W)
+    p = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    flat = p.reshape(-1, W)
+    flat[rng.choice(flat.shape[0], size=max(1, flat.shape[0] // 3), replace=False), :5] = 0xFFFFFFFF
+    if nn_ones:
+        p[..., depth, :] |= np.uint32(0xFFFF0000)
+    return p
+
+
+def _jax_range(planes, op, depth, a, b=0):
+    if op == "==":
+        return jops.bsi_range_eq(planes, np.uint32(a), bit_depth=depth)
+    if op == "!=":
+        return jops.bsi_range_neq(planes, np.uint32(a), bit_depth=depth)
+    if op in ("<", "<="):
+        return jops.bsi_range_lt(planes, np.uint32(a), bit_depth=depth, allow_equality=op == "<=")
+    if op in (">", ">="):
+        return jops.bsi_range_gt(planes, np.uint32(a), bit_depth=depth, allow_equality=op == ">=")
+    return jops.bsi_range_between(planes, np.uint32(a), np.uint32(b), bit_depth=depth)
+
+
+def _preds(rng, depth):
+    top = (1 << depth) - 1
+    mid = int(rng.integers(0, top + 1))
+    return sorted({0, 1 % (top + 1), top, mid, max(top - 1, 0)})
+
+
+@pytest.mark.parametrize("depth", [1, 6, 24])
+@pytest.mark.parametrize("op", ["==", "!=", "<", "<=", ">", ">="])
+def test_bsi_range_plain_k5_matches_jax(depth, op):
+    rng = np.random.default_rng(depth * 31 + len(op) + ord(op[0]))
+    planes = _planes(rng, depth)
+    for pred in _preds(rng, depth):
+        want = np.asarray(_jax_range(planes, op, depth, pred))
+        got = tops.words_to_numpy(tops.bsi_range(_t(planes), op, depth, pred))
+        assert np.array_equal(got, want), (op, pred)
+    # the JAX-named entry point
+    fn = {"==": "eq", "!=": "neq", "<": "lt", "<=": "lt", ">": "gt", ">=": "gt"}[op]
+    kw = {"allow_equality": op in ("<=", ">=")} if fn in ("lt", "gt") else {}
+    got = getattr(tops, f"bsi_range_{fn}")(_t(planes), pred, bit_depth=depth, **kw)
+    assert np.array_equal(tops.words_to_numpy(got), np.asarray(_jax_range(planes, op, depth, pred)))
+
+
+@pytest.mark.parametrize("depth", [1, 6, 24])
+def test_bsi_range_between_plain_k5_matches_jax(depth):
+    rng = np.random.default_rng(depth)
+    planes = _planes(rng, depth)
+    preds = _preds(rng, depth)
+    for lo in preds:
+        for hi in preds:
+            want = np.asarray(_jax_range(planes, "><", depth, lo, hi))
+            got = tops.words_to_numpy(tops.bsi_range_between(_t(planes), lo, hi, bit_depth=depth))
+            assert np.array_equal(got, want), (lo, hi)
+
+
+def test_bsi_range_stacked_equals_per_shard():
+    """The [S, D+1, W] form (what the kernel takes) is the per-shard form
+    stacked."""
+    rng = np.random.default_rng(3)
+    stack = _planes(rng, 10, shards=4)
+    for op, a, b in [("<", 700, 0), (">=", 3, 0), ("><", 100, 900), ("!=", 512, 0)]:
+        got = tops.bsi_range(_t(stack), op, 10, a, b)
+        for s in range(4):
+            assert torch.equal(got[s], tops.bsi_range(_t(stack[s]), op, 10, a, b))
+
+
+def test_range_program_deep_predicates():
+    """64-bit predicates lower without truncation: bit 40 of the
+    predicate reaches plane 40's opcode."""
+    code, out = tops.range_program("==", 41, 1 << 40)
+    assert code[40] == tops.bsi.B_AND and code[39] == tops.bsi.B_ANDNOT and out == tops.bsi.OUT_B
+    code, _ = tops.range_program("><", 41, (1 << 36) + 12345, 4 * ((1 << 36) + 12345))
+    assert len(code) == 41
+    with pytest.raises(ValueError):
+        tops.range_program("<", 64, 1)
+    with pytest.raises(ValueError):
+        tops.range_program("~", 8, 1)
+
+
+# -- Sum / Min / Max / Percentile / Distinct ------------------------------------------
+
+
+@pytest.mark.parametrize("has_filter", [False, True])
+def test_plane_counts_match_jax(has_filter):
+    rng = np.random.default_rng(21 + has_filter)
+    planes = _planes(rng, 8)
+    filt = _u32(rng, (W,))
+    want = np.asarray(jops.bsi_plane_counts(planes, filt, bit_depth=8, has_filter=has_filter))
+    got = tops.bsi_plane_counts(_t(planes), _t(filt), bit_depth=8, has_filter=has_filter)
+    assert np.array_equal(_np(got), want)
+    stack = _planes(rng, 8, shards=3)
+    filts = _u32(rng, (3, W))
+    want = np.asarray(jops.bsi_plane_counts_batched(stack, filts, bit_depth=8, has_filter=has_filter))
+    got = tops.bsi_plane_counts_batched(_t(stack), _t(filts), bit_depth=8, has_filter=has_filter)
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("fn", ["bsi_min", "bsi_max"])
+@pytest.mark.parametrize("has_filter", [False, True])
+def test_min_max_match_jax(fn, has_filter):
+    rng = np.random.default_rng(len(fn) + has_filter)
+    planes = _planes(rng, 7)
+    filt = _u32(rng, (W,))
+    wb, wc = getattr(jops, fn)(planes, filt, bit_depth=7, has_filter=has_filter)
+    gb, gc = getattr(tops, fn)(_t(planes), _t(filt), bit_depth=7, has_filter=has_filter)
+    assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc)
+    # a sparse filter leaves few candidates: the recurrence branches both ways
+    sparse = np.zeros(W, dtype=np.uint32)
+    sparse[::17] = 0x10101
+    wb, wc = getattr(jops, fn)(planes, sparse, bit_depth=7, has_filter=True)
+    gb, gc = getattr(tops, fn)(_t(planes), _t(sparse), bit_depth=7, has_filter=True)
+    assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc)
+
+
+@pytest.mark.parametrize("nth_bp", [0, 1, 5000, 9500, 9999, 10000])
+def test_percentile_matches_jax(nth_bp):
+    rng = np.random.default_rng(nth_bp)
+    stack = _planes(rng, 9, shards=2)
+    filts = _u32(rng, (2, W))
+    for has_filter in (False, True):
+        wb, wc = jops.bsi_percentile_batched(stack, filts, np.int32(nth_bp), bit_depth=9, has_filter=has_filter)
+        gb, gc = tops.bsi_percentile_batched(_t(stack), _t(filts), nth_bp, bit_depth=9, has_filter=has_filter)
+        assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc)
+
+
+@pytest.mark.parametrize("depth", [1, 6, 10])
+def test_distinct_presence_matches_jax(depth):
+    rng = np.random.default_rng(depth + 40)
+    stack = _planes(rng, depth, shards=2)
+    # thin the not-null plane so only some values occur
+    stack[:, depth, :] &= rng.integers(0, 2**32, size=(2, W), dtype=np.uint32) & np.uint32(0x01010101)
+    filts = _u32(rng, (2, W))
+    for has_filter in (False, True):
+        want = np.asarray(jops.bsi_distinct_presence(stack, filts, bit_depth=depth, has_filter=has_filter))
+        got = tops.bsi_distinct_presence(_t(stack), _t(filts), bit_depth=depth, has_filter=has_filter)
+        assert np.array_equal(tops.words_to_numpy(got), want)

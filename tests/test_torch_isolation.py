@@ -28,8 +28,15 @@ SW = 1 << 20
 pos = np.concatenate([np.arange(0, 5000, 3, dtype=np.uint64) + np.uint64(r * SW) for r in range(4)])
 build_fragment_file(os.path.join(vdir, "0"), [pos])
 h = pilosa_tpu_torch.holder_from_dir(d)
+from pilosa_tpu_torch.core import FieldOptions
+idx = h.create_index("b")
+cols = list(range(0, 2 * SW, 4099))
+idx.create_field("g").import_bits([c % 3 for c in cols], cols)
+idx.create_field("v", FieldOptions(type="int", min=0, max=1000)).import_values(cols, [c % 1001 for c in cols])
 ex = pilosa_tpu_torch.Executor(h, device="cpu", device_policy="always")
 print(ex.execute("i", "Count(Intersect(Row(f=1), Row(f=2)))TopN(f, Row(f=0), n=2)"))
+groups, n, pct = ex.execute("b", "GroupBy(Rows(g), Sum(field=v))Count(Range(v > 10))Percentile(field=v, nth=50)")
+print("ANALYTICS", len(groups), sum(g["count"] for g in groups), n, pct.count)
 ex.close()
 h.close()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -50,8 +57,11 @@ def test_import_and_query_pull_in_no_jax():
     )
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    count, pairs = ast.literal_eval(lines[-2])
+    count, pairs = ast.literal_eval(lines[-3])
     assert count == 1667 and len(pairs) == 2 and pairs[0]["count"] == 1667
+    ncols = len(range(0, 2 * (1 << 20), 4099))
+    assert lines[-2].split()[:3] == ["ANALYTICS", "3", str(ncols)]
+    assert 0 < int(lines[-2].split()[3]) < ncols and int(lines[-2].split()[4]) == ncols
     assert lines[-1] == "FOREIGN []"
 
 

@@ -118,3 +118,85 @@ def test_tree_count_rejects_too_many_leaf_pointers(dev):
     got = ops.tree_count(leaves, prog)
     assert ops.cuda.TREE_COUNT.launches == before + 2
     assert torch.equal(got, ops.tree_count_plain(leaves, prog))
+
+
+# -- K4 groupby_reduce and K5 bsi_range ------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "rows,p,s,with_filter,w",
+    [((), 25, 58, True, 2048), ((), 7, 3, False, 2048), ((7, 40), 25, 4, True, 2048),
+     ((5, 5, 6), 25, 2, True, 2048), ((3,), 0, 2, False, 2048), ((1,), 64, 1, True, 2048),
+     ((2, 3), 9, 1, False, 2048), ((600,), 3, 1, True, 2048), ((9,), 40, 3, False, 2048),
+     ((4, 5), 25, 3, True, 400), ((10, 10, 6), 25, 5, True, 4096 + 36)],
+)
+def test_groupby_reduce_matches_plain(dev, rows, p, s, with_filter, w):
+    """Small K (warps split the words) and K >= 8 (planes staged in shared
+    memory, tiles cut at shard ends and ragged shard widths)."""
+    rng = np.random.default_rng(sum(rows) + p + s)
+    dims = [_words(rng, (r, s, w), dev) for r in rows]
+    filt = _words(rng, (s, w), dev) if with_filter else None
+    planes = _words(rng, (s, p, w), dev) if p else torch.empty((s, 0, w), dtype=torch.int32, device=dev)
+    before = ops.cuda.GROUPBY_REDUCE.launches
+    got = ops.groupby_reduce(dims, filt, planes)
+    torch.cuda.synchronize()
+    assert ops.cuda.GROUPBY_REDUCE.launches == before + 1
+    want = ops.groupby_reduce_plain(dims, filt, planes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_groupby_reduce_flat_and_strided_layouts(dev):
+    """[R, Wf] dimensions with [P, Wf] planes, and a strided [S, P, W]
+    slice of a wider stack, read in place."""
+    rng = np.random.default_rng(77)
+    dims = [_words(rng, (6, 3 * 4096), dev), _words(rng, (5, 3 * 4096), dev)]
+    planes = _words(rng, (11, 3 * 4096), dev)
+    got = ops.groupby_reduce(dims, None, planes)
+    want = ops.groupby_reduce_plain(dims, None, planes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    wide = _words(rng, (4, 30, 1024), dev)
+    sub = wide[:, 3:20]
+    d = [_words(rng, (3, 4, 1024), dev)]
+    got = ops.groupby_reduce(d, None, sub)
+    want = ops.groupby_reduce_plain(d, None, sub.contiguous())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("depth", [1, 6, 24, 41])
+@pytest.mark.parametrize("op", ["==", "!=", "<", "<=", ">", ">=", "><"])
+def test_bsi_range_matches_plain(dev, depth, op):
+    rng = np.random.default_rng(depth * 7 + len(op))
+    planes = _words(rng, (5, depth + 1, 4096), dev, ones_rows=3)
+    top = (1 << depth) - 1
+    for pred in sorted({0, top, int(rng.integers(0, top + 1))}):
+        hi = min(top, pred * 3 + 1)
+        code, out_sel = ops.range_program(op, depth, pred, hi)
+        before = ops.cuda.BSI_RANGE.launches
+        got = ops.bsi_range(planes, op, depth, pred, hi)
+        torch.cuda.synchronize()
+        assert ops.cuda.BSI_RANGE.launches == before + 1
+        assert torch.equal(got, ops.bsi_range_plain(planes, code, out_sel)), (op, pred)
+    # one shard's [D+1, W] and a strided plane view
+    assert torch.equal(ops.bsi_range(planes[2], op, depth, 1, 1), ops.bsi_range(planes, op, depth, 1, 1)[2])
+
+
+def test_bsi_device_recurrences_on_card(dev):
+    """Min/Max/Percentile/Distinct run as torch ops on the card, each plane
+    step's popcount on the tree count, and agree with the CPU run."""
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 2**32, size=(3, 11, 1024), dtype=np.uint32)
+    filt = rng.integers(0, 2**32, size=(3, 1024), dtype=np.uint32)
+    gpu = (ops.words_from_numpy(a, dev), ops.words_from_numpy(filt, dev))
+    cpu = (ops.words_from_numpy(a, "cpu"), ops.words_from_numpy(filt, "cpu"))
+    for fn, args in [
+        (ops.bsi_min, dict(bit_depth=10, has_filter=True)),
+        (ops.bsi_max, dict(bit_depth=10, has_filter=False)),
+    ]:
+        gb, gc = fn(*gpu, **args)
+        cb, cc = fn(*cpu, **args)
+        assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
+    gb, gc = ops.bsi_percentile_batched(*gpu, 9500, bit_depth=10, has_filter=True)
+    cb, cc = ops.bsi_percentile_batched(*cpu, 9500, bit_depth=10, has_filter=True)
+    assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
+    got = ops.bsi_distinct_presence(*gpu, bit_depth=10, has_filter=True)
+    assert torch.equal(got.cpu(), ops.bsi_distinct_presence(*cpu, bit_depth=10, has_filter=True))
