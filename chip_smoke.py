@@ -30,12 +30,39 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          chains (the range kernel bsi_range), a cold pass then a warm
          pass. dbgen is not in the repository: the columns are drawn
          uniformly with numpy from a seed.
+  writes the shape of bench.py's ingest probe (_ingest_sustained_probe)
+         over dense and tall: 10 % of operations are one PQL request of
+         16 Set/Clear calls (80 % sets), the rest reads (the probe's four
+         query shapes over dense, the dense TopN sources, the tall
+         Count(chain) queries). A write bumps its fragment's generation;
+         the next read refreshes each staged entry with one word-delta
+         scatter (kernel word_delta) instead of restaging it. First a
+         seeded sequence, every read held against the CPU leg right after
+         it; then 8 concurrent clients, every read checked again once
+         they are done.
+  tiered the shape of bench.py's tiering probe (_tiering_oversub_probe)
+         at 4,096 rows of one shard, the working set 512 MiB: rows of
+         array, run and bitmap containers. Zipf(1.3) Count(Row) traffic
+         from 4 clients with think time, 16 filtered TopN and 16 TopN
+         over the ids of the first 128 rows per arm, first with the
+         stager budget holding the whole working set, then with a third
+         of it, where rows leave the card and re-enter from the host's
+         container tier (tier 1). Cold rows cross to the card as
+         container payloads, expanded there (kernel expand_blocks); the
+         128-row TopN chunk is its full-width launch. One 16-mutation
+         write lands in the middle of the 3x arm.
 
-Every dense and tall answer must equal the port's CPU roaring leg
-(device_policy="never"); every ssb answer must equal a plain numpy
-computation over the generated columns (int64, exact). Each path (dense
-and tall; ssb) runs with the kernels' launch counts set to 0 just before
-it and read just after; each kernel must have launched on its path. Then
+The device executors stage with the port's defaults, which are the
+server's: 8 GiB budget, delta refresh on at a 0.25 ratio, a 256 MiB
+tier 1 and compressed uploads at a dense/payload ratio of 4.0 (the
+tiered arms change only the budget).
+
+Every dense, tall, writes and tiered answer must equal the port's CPU
+roaring leg (device_policy="never"); every ssb answer must equal a plain
+numpy computation over the generated columns (int64, exact). Each path
+(dense and tall; ssb; writes; tiered) runs with the kernels' launch
+counts set to 0 just before it and read just after; each kernel must
+have launched on its path. Then
 each kernel runs again at the arguments of its largest main-path launch
 and must equal its plain PyTorch version run on the card on the same
 inputs (integers: the bar is ==). Both are timed with CUDA events, the
@@ -117,6 +144,39 @@ RANGE = "range_count"
 SSB_FAMILIES = ("sum", "groupby", RANGE, STATS)
 AMERICA, ASIA = 1, 2  # SSB region order: AFRICA, AMERICA, ASIA, EUROPE, MIDDLE EAST
 UNITED_STATES = 9  # the fifth nation of AMERICA
+
+# The stager's default budget, the server's (pilosa_tpu/server/config.py:61)
+STAGER_BUDGET = 8 << 30
+
+# writes: bench.py's ingest probe (bench.py:683-739)
+WRITE_FRAC = 0.10
+WRITE_BATCH = 16
+SET_FRAC = 0.8
+# read shares: the probe's four shapes, the dense TopN sources, the tall
+# chains. A filtered dense TopN costs the CPU leg seconds, so its share
+# bounds how many reads the run can check.
+READ_SHARES = (0.4, 0.1, 0.5)
+# the sequence checked read by read stays short (a filtered dense TopN
+# costs the CPU leg seconds); the concurrent clients serve ~160 write
+# batches, their reads checked once quiesced
+WRITES_SEQUENTIAL_OPS = 40
+WRITES_CLIENT_OPS = 200
+
+# tiered: bench.py's tiering probe (bench.py:1154-1240) at 4096 rows
+TIER_ROWS = 4096
+TIER_BITS = 1200  # rows = 0-5 (mod 8): array containers
+TIER_RUN = 4001  # rows = 6: one run container (tests/test_tiering.py:279)
+TIER_BITMAP = 5000  # rows = 7: one bitmap container (:281)
+TIER_COUNTS = 2400  # Count(Row) queries per arm
+TIER_TOPN = 16  # filtered TopN per arm
+# TopN over the ids of the first 128 rows per arm: they are all scored in
+# the executor's first chunk (FIRST_CHUNK), staged dense and, at a
+# payload ratio of ~46, expanded on the card: 128 x 32,768 words
+TIER_IDS_TOPN = 16
+FIRST_CHUNK_ROWS = 128
+TIER_CLIENTS = 4
+THINK_S = 0.008
+HOT = 4  # the probe's hot set: rows below it
 
 
 def log(msg: str) -> None:
@@ -569,27 +629,414 @@ def main_path(dev, dense_qs, tall_topn, tall_chains, oracle) -> dict:
     return out
 
 
+# -- writes and tiered staging ---------------------------------------------------------
+
+
+def _counters(metrics, *names) -> dict:
+    """Each counter's labelled series summed, and the labelled ones
+    apart (``name;label:value``)."""
+    out = {}
+    for k, v in metrics.snapshot().items():
+        if isinstance(v, dict):
+            continue
+        name = k.partition(";")[0]
+        if name in names:
+            out[name] = out.get(name, 0) + v
+            if ";" in k:
+                out[k] = v
+    return out
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def _pct(xs: list[float], p: float) -> float:
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(p * len(s)))] * 1e3
+
+
+def writes_reads() -> list[list[tuple[str, str]]]:
+    """The writes phase's read pools, one per READ_SHARES entry: the
+    ingest probe's four shapes over dense (rows from a seed), the dense
+    TopN sources, the tall Count(chain) queries."""
+    rng = np.random.default_rng(59)
+    a, b, c, d, e, g = (int(x) for x in rng.choice(DENSE_ROWS, size=6, replace=False))
+    shapes = [
+        "TopN(f, n=10)",
+        f"TopN(f, Row(f={a}), n=8)",
+        f"Count(Intersect(Row(f={b}), Row(f={c})))",
+        f"Count(Union(Row(f={d}), Row(f={e}), Row(f={g})))",
+    ]
+    _, chains = tall_queries()
+    return [
+        [("dense", q) for q in shapes],
+        [("dense", q) for q in dense_queries(DENSE_ROWS)],
+        [("tall", q) for q in chains],
+    ]
+
+
+def write_batch(rng) -> tuple[str, str]:
+    """One request of WRITE_BATCH Set/Clear calls (bench.py:736-738):
+    dense rows uniform over all its rows, tall rows over the hot rows
+    its chains read and columns over every shard."""
+    if rng.random() < 0.5:
+        index, top, cols = "dense", DENSE_ROWS, SW
+    else:
+        index, top, cols = "tall", HOT_ROWS, TALL_SHARDS * SW
+    rows = rng.integers(0, top, WRITE_BATCH)
+    col = rng.integers(0, cols, WRITE_BATCH)
+    sets = rng.random(WRITE_BATCH) < SET_FRAC
+    return index, "".join(
+        f"{'Set' if s else 'Clear'}({int(c)}, f={int(r)})" for r, c, s in zip(rows, col, sets)
+    )
+
+
+def writes_ops(seed, n: int, pools) -> list[tuple[str, str, str]]:
+    """A seeded sequence of ("w" | "r", index, pql)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if rng.random() < WRITE_FRAC:
+            out.append(("w",) + write_batch(rng))
+        else:
+            pool = pools[rng.choice(len(pools), p=READ_SHARES)]
+            out.append(("r",) + pool[int(rng.integers(0, len(pool)))])
+    return out
+
+
+def run_writes(dev, cpu) -> dict:
+    """The writes phase on ``dev``'s stager: a seeded sequence with every
+    read held against the CPU leg right after it, then CLIENTS concurrent
+    clients, then every read of the pools against the CPU leg."""
+    from pilosa_tpu_torch.utils import metrics
+
+    names = (
+        metrics.STAGER_DELTA_APPLIED,
+        metrics.STAGER_DELTA_FALLBACK,
+        metrics.STAGER_RESTAGED_BYTES,
+        metrics.STAGER_MISSES_COLD,
+        metrics.STAGER_MISSES_INVALIDATION,
+    )
+    st = dev.stager
+    pools = writes_reads()
+    m0, forms0 = _counters(metrics, *names), dict(st.delta_by_form)
+    out = {}
+
+    reads, writes = [], []
+    cpu_s = 0.0
+    for kind, index, q in writes_ops(61, WRITES_SEQUENTIAL_OPS, pools):
+        t0 = time.perf_counter()
+        ans = dev.execute(index, q)
+        dt = time.perf_counter() - t0
+        if kind == "w":
+            writes.append(dt)
+            continue
+        reads.append(dt)
+        t0 = time.perf_counter()
+        want = cpu.execute(index, q)
+        cpu_s += time.perf_counter() - t0
+        if ans != want:
+            raise AssertionError(f"writes: {index}: {q} answered {ans}, CPU leg {want}")
+    out["sequential"] = {
+        "reads": len(reads),
+        "writes": len(writes),
+        "read_qps": len(reads) / sum(reads),
+        "read_p50_ms": statistics.median(reads) * 1e3,
+        "write_p50_ms": statistics.median(writes) * 1e3,
+    }
+
+    lat: list[list] = [[] for _ in range(CLIENTS)]
+    errors: list[BaseException] = []
+    start = threading.Barrier(CLIENTS)
+
+    def client(ci: int) -> None:
+        try:
+            start.wait()
+            for kind, index, q in writes_ops([67, ci], WRITES_CLIENT_OPS, pools):
+                t0 = time.perf_counter()
+                dev.execute(index, q)
+                lat[ci].append((kind, time.perf_counter() - t0))
+        except BaseException as e:  # re-raised below, after every thread joined
+            errors.append(e)
+            start.abort()
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    reads = [dt for per in lat for kind, dt in per if kind == "r"]
+    writes = [dt for per in lat for kind, dt in per if kind == "w"]
+    out[f"concurrent_c{CLIENTS}"] = {
+        "reads": len(reads),
+        "writes": len(writes),
+        "read_qps": len(reads) / wall,
+        "read_p50_ms": statistics.median(reads) * 1e3,
+        "write_p50_ms": statistics.median(writes) * 1e3 if writes else None,
+    }
+    # quiesced: every read once more against the CPU leg
+    checked = 0
+    for pool in pools:
+        for index, q in pool:
+            ans = dev.execute(index, q)
+            t0 = time.perf_counter()
+            want = cpu.execute(index, q)
+            cpu_s += time.perf_counter() - t0
+            if ans != want:
+                raise AssertionError(f"writes (after the clients): {index}: {q} answered {ans}, CPU leg {want}")
+            checked += 1
+    out["reads_checked_after"] = checked
+    out["cpu_leg_s"] = cpu_s
+    out["delta_applied_by_form"] = _diff(st.delta_by_form, forms0)
+    counters = _diff(_counters(metrics, *names), m0)
+    out["delta_applied"] = counters.get(metrics.STAGER_DELTA_APPLIED, 0)
+    out["delta_fallback"] = {
+        k.partition(";")[2]: v for k, v in counters.items() if k.startswith(metrics.STAGER_DELTA_FALLBACK + ";")
+    }
+    out["restaged_bytes"] = counters.get(metrics.STAGER_RESTAGED_BYTES, 0)
+    out["misses_cold"] = counters.get(metrics.STAGER_MISSES_COLD, 0)
+    out["misses_invalidation"] = counters.get(metrics.STAGER_MISSES_INVALIDATION, 0)
+    by_form = out["delta_applied_by_form"]
+    for form in ("row", "rows_p2", "row_stack"):
+        if by_form.get(form, 0) <= 0:
+            raise AssertionError(f"writes: no delta applied on the {form} form: {by_form}")
+    return out
+
+
+def tier_bits(seed: int = 43):
+    """The tier index's bits: rows = 0-5 (mod 8) TIER_BITS random
+    columns, rows = 6 one run of TIER_RUN columns at a seeded offset,
+    rows = 7 TIER_BITMAP columns inside one seeded 2^16-column slot."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(TIER_ROWS):
+        if r % 8 < 6:
+            c = rng.integers(0, SW, TIER_BITS)
+        elif r % 8 == 6:
+            off = int(rng.integers(0, SW - TIER_RUN))
+            c = np.arange(off, off + TIER_RUN)
+        else:
+            c = int(rng.integers(0, SW >> 16)) * 65536 + rng.choice(65536, TIER_BITMAP, replace=False)
+        rows.append(np.full(len(c), r, dtype=np.uint64))
+        cols.append(np.asarray(c, dtype=np.uint64))
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+def build_tier(holder) -> dict:
+    """The tier index through Field.import_bits (the roaring writer
+    writes no run containers); fails unless the fragment holds array,
+    run and bitmap containers."""
+    from pilosa_tpu_torch.roaring.bitmap import CONTAINER_ARRAY, CONTAINER_BITMAP, CONTAINER_RUN
+
+    rows, cols = tier_bits()
+    holder.create_index("tier").create_field("f").import_bits(rows, cols)
+    frag = holder.fragment("tier", "f", "standard", 0)
+    entries, nbytes = frag.container_blocks(list(range(TIER_ROWS)))
+    kinds = {"array": CONTAINER_ARRAY, "run": CONTAINER_RUN, "bitmap": CONTAINER_BITMAP}
+    found = {name: sum(1 for e in entries if e[2] == typ) for name, typ in kinds.items()}
+    if not all(found.values()):
+        raise AssertionError(f"tier: container kinds {found}, expected all three")
+    return {"bits": int(rows.size), "containers": found, "payload_bytes": nbytes,
+            "dense_bytes": TIER_ROWS * SW // 8}
+
+
+def tier_queries() -> list[tuple[str, int]]:
+    """(pql, row) for one arm: TIER_COUNTS Count(Row(f=k)) with k from
+    one fixed Zipf(1.3) draw sequence (seed 31, bench.py:1192), and
+    TIER_TOPN filtered TopN and TIER_IDS_TOPN TopN over the first
+    FIRST_CHUNK_ROWS rows' ids, spread evenly among them (row -1)."""
+    z = (np.random.default_rng(31).zipf(1.3, size=TIER_COUNTS) - 1) % TIER_ROWS
+    qs = [(f"Count(Row(f={int(k)}))", int(k)) for k in z]
+    rng = np.random.default_rng(37)
+    ids = ", ".join(str(r) for r in range(FIRST_CHUNK_ROWS))
+    topn = [f"TopN(f, Row(f={int(k)}), n=10)" for k in rng.choice(TIER_ROWS, size=TIER_TOPN, replace=False)]
+    topn += [
+        f"TopN(f, Row(f={int(k)}), n=10, ids=[{ids}])"
+        for k in rng.choice(TIER_ROWS, size=TIER_IDS_TOPN, replace=False)
+    ]
+    # interleaved: the two kinds alternate
+    topn = [q for pair in zip(topn[:TIER_TOPN], topn[TIER_TOPN:]) for q in pair]
+    step = len(qs) // len(topn)
+    for i, q in enumerate(topn):
+        qs.insert(i * (step + 1), (q, -1))
+    return qs
+
+
+def _tier_clients(ex, qs, oracle) -> tuple[list, float]:
+    """TIER_CLIENTS threads, client c sending qs[c::TIER_CLIENTS] with
+    THINK_S between queries. Returns ((pql, row, seconds), wall)."""
+    lat: list[list] = [[] for _ in range(TIER_CLIENTS)]
+    errors: list[BaseException] = []
+
+    def client(ci: int) -> None:
+        try:
+            for q, k in qs[ci::TIER_CLIENTS]:
+                t0 = time.perf_counter()
+                ans = ex.execute("tier", q)
+                lat[ci].append((q, k, time.perf_counter() - t0))
+                if ans != oracle[q]:
+                    raise AssertionError(f"tier: {q} answered {ans}, CPU leg {oracle[q]}")
+                time.sleep(THINK_S)
+        except BaseException as e:  # re-raised below, after every thread joined
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(TIER_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return [x for per in lat for x in per], wall
+
+
+def tier_arm(holder, device, qs, oracle, budget: int, mid_write=None) -> tuple[dict, int]:
+    """One arm on a fresh default stager of ``budget`` bytes.
+    ``mid_write(ex)`` runs between the two halves of the arm, with the
+    clients stopped. Returns (the arm's numbers, bytes staged at its
+    end)."""
+    import pilosa_tpu_torch
+    from pilosa_tpu_torch.executor import DeviceStager
+    from pilosa_tpu_torch.utils import metrics
+
+    names = (
+        metrics.STAGER_RESTAGED_BYTES,
+        metrics.TIERING_COMPRESSED_UPLOADS,
+        metrics.TIERING_UPLOAD_BYTES_SAVED,
+    )
+    st = DeviceStager(device, budget)
+    ex = pilosa_tpu_torch.Executor(holder, device=device, device_policy="always", stager=st)
+    m0 = _counters(metrics, *names)
+    watch = {"peak_bytes": 0, "over_budget": 0}
+    stop = threading.Event()
+
+    def watcher() -> None:
+        # staged bytes stay within the budget, bar the one entry just
+        # built (the stager evicts down to it)
+        while not stop.is_set():
+            b, n = st.usage()
+            watch["peak_bytes"] = max(watch["peak_bytes"], b)
+            if b > budget and n > 1:
+                watch["over_budget"] += 1
+            time.sleep(0.001)
+
+    w = threading.Thread(target=watcher)
+    w.start()
+    halves = [qs] if mid_write is None else [qs[: len(qs) // 2], qs[len(qs) // 2 :]]
+    lat, wall = [], 0.0
+    try:
+        for i, part in enumerate(halves):
+            if i:
+                mid_write(ex)
+            l, s = _tier_clients(ex, part, oracle)
+            lat += l
+            wall += s
+        staged, entries = st.usage()
+    finally:
+        stop.set()
+        w.join()
+        ex.close()
+    counters = _diff(_counters(metrics, *names), m0)
+    t1 = st.tier1.stats()
+    all_s = [s for _, _, s in lat]
+    hot = [s for _, k, s in lat if 0 <= k < HOT]
+    res = {
+        "budget_bytes": budget,
+        "queries": len(lat),
+        "qps": len(lat) / wall,
+        "p50_ms": _pct(all_s, 0.50),
+        "p95_ms": _pct(all_s, 0.95),
+        "hot_queries": len(hot),
+        "hot_p50_ms": _pct(hot, 0.50),
+        "t0_hit_rate": st.hits / max(st.hits + st.misses, 1),
+        "t1_hit_rate": t1["hits"] / max(t1["hits"] + t1["misses"], 1),
+        "t1": t1,
+        "restaged_bytes": counters.get(metrics.STAGER_RESTAGED_BYTES, 0),
+        "compressed_uploads": counters.get(metrics.TIERING_COMPRESSED_UPLOADS, 0),
+        "upload_bytes_saved": counters.get(metrics.TIERING_UPLOAD_BYTES_SAVED, 0),
+        "delta_applied": st.delta_applies,
+        "staged_bytes_end": staged,
+        "staged_entries_end": entries,
+        "peak_staged_bytes": watch["peak_bytes"],
+    }
+    if watch["over_budget"]:
+        raise AssertionError(f"tier: staged bytes above the {budget}-byte budget: {res}")
+    return res, staged
+
+
+def run_tiered(holder, cpu, device) -> dict:
+    """The two arms, every answer held against the CPU leg."""
+    t0 = time.monotonic()
+    qs = tier_queries()
+    oracle = {q: cpu.execute("tier", q) for q in {q for q, _ in qs}}
+    out = {"cpu_leg_s": time.monotonic() - t0, "distinct_queries": len(oracle)}
+
+    def mid_write(ex) -> None:
+        # one WRITE_BATCH-mutation request to the hot rows; then the CPU
+        # leg's answers of every query it can change
+        rng = np.random.default_rng(71)
+        rows = rng.integers(0, HOT, WRITE_BATCH)
+        cols = rng.integers(0, SW, WRITE_BATCH)
+        sets = rng.random(WRITE_BATCH) < SET_FRAC
+        ex.execute("tier", "".join(
+            f"{'Set' if s else 'Clear'}({int(c)}, f={int(r)})" for r, c, s in zip(rows, cols, sets)
+        ))
+        for q in {q for q, k in qs if k < 0 or k in rows}:
+            oracle[q] = cpu.execute("tier", q)
+
+    out["1x"], working_set = tier_arm(holder, device, qs, oracle, STAGER_BUDGET)
+    out["working_set_bytes"] = working_set
+    out["3x"], _ = tier_arm(holder, device, qs, oracle, working_set // 3, mid_write)
+    three = out["3x"]
+    for key in ("restaged_bytes", "compressed_uploads"):
+        if three[key] <= 0:
+            raise AssertionError(f"tier 3x: no {key}: {three}")
+    if three["t1"]["hits"] <= 0:
+        raise AssertionError(f"tier 3x: no tier-1 hit: {three}")
+    return out
+
+
 # -- kernels against their plain versions ----------------------------------------------
 
 
 class Recorder:
     """Wraps the kernel wrappers of ``ops.cuda`` to keep, per kernel, the
-    arguments of its largest launch (by input bytes, or popcounts for the
-    GroupBy kernel). The wrappers' own launch counts are untouched."""
+    arguments of its largest launch over the run (by input bytes, or
+    popcounts for the GroupBy kernel) and the path it came from
+    (``path`` is the path running now). The wrappers' own launch counts
+    are untouched."""
 
     def __init__(self, cuda_mod) -> None:
         self.args: dict[str, tuple] = {}
+        self.where: dict[str, str] = {}
         self.kernel_fn: dict = {}
+        self.path = None
         self._size: dict[str, int] = {}
         self._mu = threading.Lock()
         # GroupBy launches with K > 1 groups and P > 0 planes
         self.groupby_multi_with_planes = 0
+        # expand_blocks launches on the tiered path with each input kind
+        # non-empty, and the largest such launch per kind
+        self.expand_kinds = {"positions": 0, "runs": 0, "dense": 0}
+        self.expand_kind_args: dict[str, tuple] = {}
+        self._kind_size: dict[str, int] = {}
+        # the most words one expand_blocks launch wrote on that path
+        self.expand_widest = 0
         for name, size in (
             ("dense_scores", self._dense_bytes),
             ("sparse_stacked_scores", self._sparse_bytes),
             ("tree_count", self._tree_bytes),
             ("groupby_reduce", self._groupby_work),
             ("bsi_range", self._range_bytes),
+            ("expand_blocks", self._expand_bytes),
+            ("word_delta", self._delta_bytes),
         ):
             self.kernel_fn[name] = getattr(cuda_mod, name)
             setattr(cuda_mod, name, self._wrap(name, self.kernel_fn[name], size))
@@ -601,9 +1048,28 @@ class Recorder:
                 if n > self._size.get(name, -1):
                     self._size[name] = n
                     self.args[name] = args
+                    self.where[name] = self.path
             return fn(*args)
 
         return wrapped
+
+    def _expand_bytes(self, positions, starts, ends, dense, dword, num_words):
+        n = num_words * 4 + (positions.numel() + 2 * starts.numel() + dense.numel() + dword.numel()) * 4
+        if self.path == "tiered":
+            args = (positions, starts, ends, dense, dword, num_words)
+            with self._mu:
+                self.expand_widest = max(self.expand_widest, num_words)
+                for kind, t in (("positions", positions), ("runs", starts), ("dense", dense)):
+                    if t.numel():
+                        self.expand_kinds[kind] += 1
+                        if n > self._kind_size.get(kind, -1):
+                            self._kind_size[kind] = n
+                            self.expand_kind_args[kind] = args
+        return n
+
+    @staticmethod
+    def _delta_bytes(words, shard_idx, word_idx, or_mask, andnot_mask):
+        return words.numel() * 4 + word_idx.numel() * 16
 
     @staticmethod
     def _dense_bytes(srcs, mat):
@@ -697,6 +1163,12 @@ def bound(name: str, args, card: Card) -> dict:
         # about three 32-bit ops per opcode nibble per word
         nibbles = sum((c & 15 != 0) + (c >> 4 != 0) for c in code)
         ops_s = 3 * nibbles * s * w / (card.sms * INT32_PER_CLOCK_PER_SM * card.sm_clock_hz)
+    elif name == "expand_blocks":
+        positions, starts, ends, dense, dword, num_words = args
+        # every payload read once, every output word written once
+        nbytes = (positions.numel() + 2 * starts.numel() + dense.numel() + dword.numel() + num_words) * 4
+    elif name == "word_delta":
+        nbytes = _delta_bound_bytes(*args)
     else:
         raise KeyError(name)
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -705,6 +1177,17 @@ def bound(name: str, args, card: Card) -> dict:
         "bound_by": "operations" if ops_s > bytes_s else "bytes",
         "bytes": nbytes,
     }
+
+
+def _update_bytes(shard_idx, word_idx, or_mask, andnot_mask) -> int:
+    """One word-delta update's coordinates and masks."""
+    return 4 * (3 + (shard_idx is not None)) * word_idx.numel()
+
+
+def _delta_bound_bytes(words, shard_idx, word_idx, or_mask, andnot_mask) -> int:
+    """The word-delta function returns a new tensor: the block read once
+    and written once, plus the updates."""
+    return 2 * words.numel() * 4 + _update_bytes(shard_idx, word_idx, or_mask, andnot_mask)
 
 
 def time_ms(fn, iters: int, flush) -> float:
@@ -735,7 +1218,7 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
     ``launches`` and ``batched`` hold each kernel's counts on its path."""
     import torch
 
-    from pilosa_tpu_torch.ops import bsi, cuda, packed
+    from pilosa_tpu_torch.ops import bsi, cuda, delta, packed
 
     kernels = {k.name: k for k in cuda.KERNELS}
     plain = {
@@ -744,6 +1227,8 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
         "tree_count": packed.tree_count_plain,
         "groupby_reduce": packed.groupby_reduce_plain,
         "bsi_range": bsi.bsi_range_plain,
+        "expand_blocks": packed.expand_blocks_plain,
+        "word_delta": delta.apply_word_updates_2d_plain,
     }
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
     rows = []
@@ -783,6 +1268,22 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
                 "shape": _shape(name, args),
             }
         )
+        rows[-1]["timed_launch_path"] = rec.where[name]
+        if name == "expand_blocks":
+            # also == at the largest tiered launch with each input kind
+            for kind, kargs in rec.expand_kind_args.items():
+                if not torch.equal(kernel_fn(*kargs), plain_fn(*kargs)):
+                    raise AssertionError(f"expand_blocks differs from its plain version ({kind} launch)")
+            rows[-1]["tiered_launches_checked"] = {
+                kind: _shape(name, kargs) for kind, kargs in rec.expand_kind_args.items()
+            }
+        if name == "word_delta":
+            # the patch alone, into a copy made beforehand
+            words, sh, wi, om, am = args
+            out = words.clone()
+            rows[-1]["patch_ms"] = time_ms(lambda: cuda.word_delta_patch(words, out, sh, wi, om, am), 20, flush)
+            patch_bytes = _update_bytes(sh, wi, om, am) + 8 * wi.numel()
+            rows[-1]["patch_bound_ms"] = patch_bytes / HBM_BYTES_PER_S * 1e3
         log(f"{name}: == plain; {ms:.3f} ms (bound {b['bound_ms']:.3f} by {b['bound_by']}, plain {plain_ms:.3f})")
     return rows
 
@@ -800,6 +1301,12 @@ def _shape(name: str, args) -> dict:
     if name == "bsi_range":
         planes, code, out_sel = args
         return {"S": planes.shape[0], "depth": len(code), "planes_read": 1 + sum(1 for c in code if c)}
+    if name == "expand_blocks":
+        positions, starts, ends, dense, dword, num_words = args
+        return {"positions": positions.numel(), "runs": starts.numel(), "dense": dense.shape[0], "num_words": num_words}
+    if name == "word_delta":
+        words, sh, wi, om, am = args
+        return {"words": list(words.shape), "updates": wi.numel(), "shard_idx": sh is not None}
     leaves_by_query, program = args
     return {
         "Q": len(leaves_by_query),
@@ -840,6 +1347,8 @@ PATH_OF = {
     "tree_count": "dense_tall",
     "groupby_reduce": "ssb",
     "bsi_range": "ssb",
+    "expand_blocks": "tiered",
+    "word_delta": "writes",
 }
 
 
@@ -899,7 +1408,7 @@ def main() -> int:
 
         dense_qs = dense_queries(DENSE_ROWS)
         tall_topn, tall_chains = tall_queries()
-        dev = pilosa_tpu_torch.Executor(holder, device_policy="always")
+        dev = pilosa_tpu_torch.Executor(holder, device=device, device_policy="always")
         cpu = pilosa_tpu_torch.Executor(holder, device_policy="never")
 
         # 3. the CPU leg's answers (dense and tall)
@@ -918,24 +1427,31 @@ def main() -> int:
         rec = Recorder(cuda)
         launches: dict = {}
         batched: dict = {}
-        cuda.reset_launches()
-        t0 = time.monotonic()
-        phases = main_path(dev, dense_qs, tall_topn, tall_chains, oracle)
-        torch.cuda.synchronize()
-        launches["dense_tall"] = {k.name: k.launches for k in cuda.KERNELS}
-        batched["dense_tall"] = {k.name: k.batched_launches for k in cuda.KERNELS}
-        main_s = time.monotonic() - t0
-        log(f"dense+tall in {main_s:.1f} s; launches {launches['dense_tall']}")
+        path_s: dict = {}
 
-        cuda.reset_launches()
-        t0 = time.monotonic()
-        phases["ssb"] = run_ssb(dev, ssb)
+        def run_path(path: str, fn):
+            rec.path = path
+            cuda.reset_launches()
+            t0 = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            launches[path] = {k.name: k.launches for k in cuda.KERNELS}
+            batched[path] = {k.name: k.batched_launches for k in cuda.KERNELS}
+            rec.path = None
+            path_s[path] = time.monotonic() - t0
+            log(f"{path} in {path_s[path]:.1f} s; launches {launches[path]}")
+            return out
+
+        phases = run_path("dense_tall", lambda: main_path(dev, dense_qs, tall_topn, tall_chains, oracle))
+        phases["ssb"] = run_path("ssb", lambda: run_ssb(dev, ssb))
         phases["ssb"]["data_build_s"] = built["ssb_build_s"]
-        torch.cuda.synchronize()
-        launches["ssb"] = {k.name: k.launches for k in cuda.KERNELS}
-        batched["ssb"] = {k.name: k.batched_launches for k in cuda.KERNELS}
-        ssb_s = time.monotonic() - t0
-        log(f"ssb in {ssb_s:.1f} s; launches {launches['ssb']}")
+        phases["writes"] = run_path("writes", lambda: run_writes(dev, cpu))
+        t0 = time.monotonic()
+        tier_data = build_tier(holder)
+        tier_build_s = time.monotonic() - t0
+        log(f"tier index imported in {tier_build_s:.1f} s: {tier_data}")
+        phases["tiered"] = run_path("tiered", lambda: run_tiered(holder, cpu, device))
+        phases["tiered"]["data"] = tier_data
 
         for name, path in PATH_OF.items():
             if launches[path][name] <= 0:
@@ -944,6 +1460,13 @@ def main() -> int:
             raise AssertionError("dense_scores never launched with Q > 1 under concurrency")
         if rec.groupby_multi_with_planes <= 0:
             raise AssertionError("groupby_reduce never launched with K > 1 and P > 0")
+        if not all(rec.expand_kinds.values()):
+            raise AssertionError(f"expand_blocks launches by input kind on its path: {rec.expand_kinds}")
+        if rec.expand_widest != FIRST_CHUNK_ROWS * SW // 32:
+            raise AssertionError(
+                f"expand_blocks' widest tiered launch wrote {rec.expand_widest} words, "
+                f"not the {FIRST_CHUNK_ROWS}-row chunk's"
+            )
 
         # 5. each kernel against its plain version, at its main-path arguments
         own = {name: launches[path][name] for name, path in PATH_OF.items()}
@@ -956,6 +1479,10 @@ def main() -> int:
         n_dense = len(dense_qs) * (2 + CLIENTS * CONCURRENT_PASSES)
         n_tall = 2 * len(tall_topn) + (2 + CLIENTS) * len(tall_chains)
         n_ssb = 2 * len(ssb.queries)
+        w = phases["writes"]
+        n_writes = sum(w[k]["reads"] + w[k]["writes"] for k in ("sequential", f"concurrent_c{CLIENTS}"))
+        n_writes += w["reads_checked_after"]
+        n_tiered = phases["tiered"]["1x"]["queries"] + phases["tiered"]["3x"]["queries"]
         phases.update(
             {
                 "card": card,
@@ -973,19 +1500,28 @@ def main() -> int:
                     "tree_count": launches["dense_tall"]["tree_count"] / ((2 + CLIENTS) * len(tall_chains)),
                     "groupby_reduce": launches["ssb"]["groupby_reduce"] / n_ssb,
                     "bsi_range": launches["ssb"]["bsi_range"] / n_ssb,
+                    "expand_blocks": launches["tiered"]["expand_blocks"] / n_tiered,
+                    "word_delta": launches["writes"]["word_delta"] / n_writes,
                 },
                 "launches_by_path": launches,
                 "groupby_launches_k_gt_1_p_gt_0": rec.groupby_multi_with_planes,
+                "expand_launches_by_input_kind": rec.expand_kinds,
+                "expand_widest_tiered_words": rec.expand_widest,
                 "dense_queries_run": n_dense,
                 "tall_queries_run": n_tall,
                 "ssb_queries_run": n_ssb,
+                "writes_operations_run": n_writes,
+                "tiered_queries_run": n_tiered,
                 "seconds": {
                     "build": build_s,
                     "data": data_s,
                     "ssb_oracle": ssb_oracle_s,
                     "cpu_leg": oracle_s,
-                    "main_path": main_s,
-                    "ssb_path": ssb_s,
+                    "main_path": path_s["dense_tall"],
+                    "ssb_path": path_s["ssb"],
+                    "writes_path": path_s["writes"],
+                    "tier_build": tier_build_s,
+                    "tiered_path": path_s["tiered"],
                     **built,
                 },
             }

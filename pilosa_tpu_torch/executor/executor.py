@@ -14,6 +14,14 @@ Two execution paths per shard:
              Range runs the range kernel, and Sum and GroupBy run the
              GroupBy segmented reduction.
 
+Every device leg asks the stager for its tensors on each call and never
+holds one across calls. A write (``Set``, ``Clear``, ``SetValue``) bumps
+its fragment's generation; the next read of a staged entry replays the
+fragment's delta log onto it as one word-delta scatter (a new tensor)
+instead of restaging it, and a stager with tiered staging on builds
+cold rows from container payloads, expanded on the device when they are
+compact enough (executor/stager.py).
+
 Both paths are bit-identical; ``device_policy`` picks ("never" | "auto"
 | "always"). The device path runs on ``device`` — ``cuda`` unless the
 caller asks for ``"cpu"``, where the same legs run the kernels' plain

@@ -30,7 +30,15 @@ KERNEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-SOURCES = ("dense_scores", "sparse_scores", "tree_count", "groupby_reduce", "bsi_range")
+SOURCES = (
+    "dense_scores",
+    "sparse_scores",
+    "tree_count",
+    "groupby_reduce",
+    "bsi_range",
+    "expand_blocks",
+    "word_delta",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-O3",
@@ -73,6 +81,18 @@ _SIGNATURES = {
         # planes, plane_stride, shard_stride, s, wv, out, prog (host
         # RangeProg*), device, stream
         [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P],
+    ),
+    "expand_blocks": (
+        "pilosa_expand_blocks",
+        # positions, np, starts, ends, nr, dense, dense_word, nd, out,
+        # num_words, device, stream
+        [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _LL, _I, _P],
+    ),
+    "word_delta": (
+        "pilosa_word_delta",
+        # src, out, shard_idx, word_idx, or_mask, andnot_mask, k, s, m,
+        # device, stream
+        [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
     ),
 }
 

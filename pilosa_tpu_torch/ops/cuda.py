@@ -69,7 +69,25 @@ BSI_RANGE = Kernel(
     "pilosa_tpu_torch/ops/kernels/bsi_range.cu",
     "pilosa_tpu/ops/bsi.py:85",
 )
-KERNELS = (DENSE_SCORES, SPARSE_STACKED_SCORES, TREE_COUNT, GROUPBY_REDUCE, BSI_RANGE)
+EXPAND_BLOCKS = Kernel(
+    "expand_blocks",
+    "pilosa_tpu_torch/ops/kernels/expand_blocks.cu",
+    "pilosa_tpu/ops/pallas_kernels.py:225",
+)
+WORD_DELTA = Kernel(
+    "word_delta",
+    "pilosa_tpu_torch/ops/kernels/word_delta.cu",
+    "pilosa_tpu/ops/delta.py:117",
+)
+KERNELS = (
+    DENSE_SCORES,
+    SPARSE_STACKED_SCORES,
+    TREE_COUNT,
+    GROUPBY_REDUCE,
+    BSI_RANGE,
+    EXPAND_BLOCKS,
+    WORD_DELTA,
+)
 
 
 def reset_launches() -> None:
@@ -92,6 +110,17 @@ def _check_words(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{what} must be 16-byte aligned for vector loads")
+
+
+def _check_i32(t: torch.Tensor, what: str, dim: int = 1) -> None:
+    """An int32 CUDA tensor of ``dim`` dimensions, contiguous (scalar
+    loads: no alignment beyond the element)."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what} must be int32, got {t.dtype}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dim}-d tensor, got {tuple(t.shape)}")
 
 
 def _same_device(device, *ts) -> None:
@@ -346,4 +375,87 @@ def bsi_range(planes: torch.Tensor, code, out_sel: int) -> torch.Tensor:
     )
     _raise_on(err, "bsi_range")
     BSI_RANGE.note_launch(1)
+    return out
+
+
+# Words one expand_blocks launch writes: a 0xFFFFFFFF position pad must
+# land past the last word after >> 5.
+EXPAND_MAX_WORDS = (1 << 27) - 1
+
+
+def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words: int):
+    """K6: roaring payloads -> i32[num_words] packed words. positions
+    i32[P] (global bit offsets, 0xFFFFFFFF = padding), run_starts /
+    run_ends i32[N] (inclusive global endpoints, start > end unsigned =
+    padding), dense i32[D, 2048] bitmap words at word offsets dense_word
+    i32[D] (a word past num_words is dropped). Everything is ORed into
+    zeros. One launch: a memset and the scatter."""
+    for t, what in (
+        (positions, "positions"),
+        (run_starts, "run_starts"),
+        (run_ends, "run_ends"),
+        (dense_word, "dense_word"),
+    ):
+        _check_i32(t, what)
+    _check_i32(dense, "dense", dim=2)
+    device = dense.device
+    _same_device(device, positions, run_starts, run_ends, dense_word)
+    if run_starts.shape != run_ends.shape:
+        raise ValueError(f"run_starts {tuple(run_starts.shape)} vs run_ends {tuple(run_ends.shape)}")
+    if dense.shape[1] != 2048 or dense_word.shape[0] != dense.shape[0]:
+        raise ValueError(f"dense must be i32[D, 2048] with i32[D] offsets: {tuple(dense.shape)}")
+    if not 0 <= num_words <= EXPAND_MAX_WORDS:
+        raise ValueError(f"num_words {num_words} outside [0, {EXPAND_MAX_WORDS}]")
+    out = torch.empty(num_words, dtype=torch.int32, device=device)
+    if num_words == 0:
+        return out
+    lib = _build.library("expand_blocks")
+    err = lib.pilosa_expand_blocks(
+        positions.data_ptr(), positions.shape[0],
+        run_starts.data_ptr(), run_ends.data_ptr(), run_starts.shape[0],
+        dense.data_ptr(), dense_word.data_ptr(), dense.shape[0],
+        out.data_ptr(), num_words, device.index, _stream(device),
+    )
+    _raise_on(err, "expand_blocks")
+    EXPAND_BLOCKS.note_launch(1)
+    return out
+
+
+def word_delta_patch(src, out, shard_idx, word_idx, or_mask, andnot_mask) -> None:
+    """K7's patch alone: out[s, m] = (src[s, m] | or) & ~andnot at each
+    valid update, out of range dropped; ``out`` may be ``src``. Counts
+    nothing: ``word_delta`` is the function."""
+    _check_i32(src, "words", dim=2)
+    _check_i32(out, "out", dim=2)
+    if out.shape != src.shape:
+        raise ValueError(f"out {tuple(out.shape)} vs words {tuple(src.shape)}")
+    idx = [word_idx, or_mask, andnot_mask] + ([shard_idx] if shard_idx is not None else [])
+    for t, what in zip(idx, ("word_idx", "or_mask", "andnot_mask", "shard_idx")):
+        _check_i32(t, what)
+        if t.shape[0] != word_idx.shape[0]:
+            raise ValueError(f"{what} has {t.shape[0]} updates, word_idx {word_idx.shape[0]}")
+    _same_device(src.device, out, *idx)
+    s, m = src.shape
+    lib = _build.library("word_delta")
+    err = lib.pilosa_word_delta(
+        src.data_ptr(), out.data_ptr(),
+        shard_idx.data_ptr() if shard_idx is not None else None,
+        word_idx.data_ptr(), or_mask.data_ptr(), andnot_mask.data_ptr(),
+        word_idx.shape[0], s, m, src.device.index, _stream(src.device),
+    )
+    _raise_on(err, "word_delta")
+
+
+def word_delta(words, shard_idx, word_idx, or_mask, andnot_mask) -> torch.Tensor:
+    """K7: a NEW i32[S, M] equal to ``words`` with the per-word masks
+    applied at (shard_idx, word_idx) (shard_idx None = shard 0); an
+    update outside [0, S) x [0, M) is dropped. The wrapper copies the
+    block device to device, then the kernel patches the K words."""
+    _check_i32(words, "words", dim=2)
+    out = torch.empty_like(words)
+    out.copy_(words)
+    if word_idx.shape[0] == 0:
+        return out
+    word_delta_patch(words, out, shard_idx, word_idx, or_mask, andnot_mask)
+    WORD_DELTA.note_launch(1)
     return out

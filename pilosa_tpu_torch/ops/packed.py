@@ -479,3 +479,99 @@ def groupby_plane_counts(groups: torch.Tensor, planes: torch.Tensor) -> torch.Te
 def groupby_sum_reduce(dims, filt, planes):
     """Sum-aggregate GroupBy: (counts i32[K], plane_counts i32[K, P])."""
     return groupby_reduce(dims, filt, planes)
+
+
+# -- K6: compressed-upload expansion ------------------------------------------------
+#
+# Roaring container payloads -> packed words, for the tiered stager's
+# compressed uploads (ops/kernels/expand_blocks.cu). Coordinates are the
+# int32 views of u32 global bit offsets of one flat bit space (row_index *
+# SHARD_WIDTH + slot * 2^16 + local); the stager keeps them below 2^31.
+
+
+def _as_u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns as their unsigned values, in int64."""
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def _to_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 views of the same bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _scatter_or(out: torch.Tensor, idx: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """out[idx[i]] |= masks[i] over int64 words (masks in [0, 2^32)); torch
+    has no OR reduction, so each of the 32 bits is a max-scatter."""
+    if idx.numel() == 0:
+        return out
+    for b in range(32):
+        bit = (masks >> b) & 1
+        hit = torch.zeros_like(out).scatter_reduce_(0, idx, bit, "amax")
+        out |= hit << b
+    return out
+
+
+def expand_blocks_plain(positions, run_starts, run_ends, dense, dense_word, num_words: int):
+    """The function of ``pilosa_tpu/ops/packed.py`` expand_blocks (and,
+    with no positions and no dense blocks, of the Pallas
+    expand_runs_pallas) -> i32[num_words]: array positions (0xFFFFFFFF =
+    padding), inclusive RLE runs (start > end = padding) and dense
+    [D, 2048] blocks at word offsets dense_word, ORed into zeros; words
+    past num_words drop."""
+    device = dense.device
+    out = torch.zeros(num_words, dtype=torch.int64, device=device)
+    idx_parts, mask_parts = [], []
+    # array containers: one bit each
+    p = _as_u32(positions)
+    keep = (p >> 5) < num_words
+    idx_parts.append((p >> 5)[keep])
+    mask_parts.append(torch.ones_like(p[keep]) << (p[keep] & 31))
+    # runs: head and tail masks, interior words by a +1/-1 cover count
+    s, e = _as_u32(run_starts), _as_u32(run_ends)
+    valid = s <= e
+    s, e = s[valid], e[valid]
+    ws, we = s >> 5, e >> 5
+    full = torch.full_like(s, 0xFFFFFFFF)
+    head = (full << (s & 31)) & 0xFFFFFFFF
+    tail = full >> (31 - (e & 31))
+    same = ws == we
+    head = torch.where(same, head & tail, head)
+    for w, m in ((ws, head), (we[~same], tail[~same])):
+        k = w < num_words
+        idx_parts.append(w[k])
+        mask_parts.append(m[k])
+    interior = we > ws + 1
+    diff = torch.zeros(num_words + 2, dtype=torch.int64, device=device)
+    ones = torch.ones(int(interior.sum()), dtype=torch.int64, device=device)
+    diff.index_add_(0, torch.clamp(ws[interior] + 1, max=num_words + 1), ones)
+    diff.index_add_(0, torch.clamp(we[interior], max=num_words + 1), -ones)
+    cover = torch.cumsum(diff, 0)[:num_words] > 0
+    # dense bitmap containers: raw words at their offsets
+    didx = dense_word.to(torch.int64)[:, None] + torch.arange(
+        dense.shape[1], dtype=torch.int64, device=device
+    )
+    dk = (didx >= 0) & (didx < num_words)
+    idx_parts.append(didx[dk])
+    mask_parts.append(_as_u32(dense)[dk])
+    _scatter_or(out, torch.cat(idx_parts), torch.cat(mask_parts))
+    out[cover] = 0xFFFFFFFF
+    return _to_i32(out)
+
+
+def expand_runs_plain(run_starts, run_ends, num_words: int):
+    """The Pallas expand_runs_pallas' function: inclusive RLE runs ->
+    i32[num_words] (start > end = padding)."""
+    device = run_starts.device
+    none = torch.empty(0, dtype=torch.int32, device=device)
+    return expand_blocks_plain(
+        none, run_starts, run_ends, torch.empty((0, CONTAINER_WORDS), dtype=torch.int32, device=device),
+        none, num_words,
+    )
+
+
+def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words: int):
+    """Expand compressed roaring payloads to packed words: the kernel for
+    CUDA tensors, the plain version for CPU ones."""
+    if _on_cuda(dense):
+        return cuda.expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words)
+    return expand_blocks_plain(positions, run_starts, run_ends, dense, dense_word, num_words)

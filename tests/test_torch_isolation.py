@@ -38,6 +38,15 @@ print(ex.execute("i", "Count(Intersect(Row(f=1), Row(f=2)))TopN(f, Row(f=0), n=2
 groups, n, pct = ex.execute("b", "GroupBy(Rows(g), Sum(field=v))Count(Range(v > 10))Percentile(field=v, nth=50)")
 print("ANALYTICS", len(groups), sum(g["count"] for g in groups), n, pct.count)
 ex.close()
+# a write, then a read, through a tiered, delta-enabled stager
+from pilosa_tpu_torch.executor import DeviceStager
+st = DeviceStager("cpu", tier1_max_bytes=1 << 20, compressed_min_ratio=4.0)
+ex = pilosa_tpu_torch.Executor(h, device="cpu", device_policy="always", stager=st)
+a = ex.execute("i", "Count(Row(f=1))")[0]
+ex.execute("i", "Set(4, f=1)")
+b = ex.execute("i", "Count(Row(f=1))")[0]
+print("TIERED", a, b, st.delta_applies, st.tier1.stats()["admitted"])
+ex.close()
 h.close()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "pilosa_tpu" or m.startswith("pilosa_tpu."))
@@ -57,11 +66,13 @@ def test_import_and_query_pull_in_no_jax():
     )
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    count, pairs = ast.literal_eval(lines[-3])
+    count, pairs = ast.literal_eval(lines[-4])
     assert count == 1667 and len(pairs) == 2 and pairs[0]["count"] == 1667
     ncols = len(range(0, 2 * (1 << 20), 4099))
-    assert lines[-2].split()[:3] == ["ANALYTICS", "3", str(ncols)]
-    assert 0 < int(lines[-2].split()[3]) < ncols and int(lines[-2].split()[4]) == ncols
+    assert lines[-3].split()[:3] == ["ANALYTICS", "3", str(ncols)]
+    assert 0 < int(lines[-3].split()[3]) < ncols and int(lines[-3].split()[4]) == ncols
+    # the write reached the staged row as one delta; tier 1 held its payloads
+    assert lines[-2] == "TIERED 1667 1668 1 1"
     assert lines[-1] == "FOREIGN []"
 
 
@@ -76,6 +87,7 @@ def _sources():
                 yield os.path.join(root, fn)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chain_batch_probe.py")
+    yield os.path.join(REPO, "ab_probe.py")
 
 
 def test_sources_name_no_jax_and_no_jax_package():

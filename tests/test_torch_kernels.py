@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from pilosa_tpu_torch import ops
+from pilosa_tpu_torch.ops import delta
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +201,116 @@ def test_bsi_device_recurrences_on_card(dev):
     assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
     got = ops.bsi_distinct_presence(*gpu, bit_depth=10, has_filter=True)
     assert torch.equal(got.cpu(), ops.bsi_distinct_presence(*cpu, bit_depth=10, has_filter=True))
+
+
+# -- K6 expand_blocks and K7 word_delta -----------------------------------------------
+
+SW = 1 << 20
+W32 = SW // 32
+
+
+def _roaring_payloads(rng, rows, padded):
+    """Roaring-valid payloads over ``rows`` rows (containers and runs
+    disjoint): per row, array containers in slots 0-5, runs in slots 6-9
+    (same-word, word-crossing, a full 2^16-bit container, width 1), a
+    bitmap container in slot 11; the contract's padding when
+    ``padded``."""
+    pos, starts, ends, dense, dword = [], [], [], [], []
+    for r in range(rows):
+        base = r * SW
+        for slot in range(6):
+            pos.append(base + (slot << 16) + rng.choice(65536, int(rng.integers(1, 600)), replace=False))
+        s6 = base + (6 << 16)
+        for s, e in [(3, 9), (40, 40), (100, 5000), (6000, 65535)]:
+            starts.append(s6 + s)
+            ends.append(s6 + e)
+        starts += [base + (7 << 16), base + (9 << 16) + 31]
+        ends += [base + (8 << 16) + 65535, base + (9 << 16) + 32]
+        w = rng.integers(0, 2**32, size=2048, dtype=np.uint32)
+        w[:3] = 0xFFFFFFFF
+        dense.append(w)
+        dword.append(r * W32 + (11 << 11))
+    pos = np.concatenate(pos).astype(np.uint32)
+    starts, ends = np.array(starts, np.uint32), np.array(ends, np.uint32)
+    dense, dword = np.stack(dense), np.array(dword, np.int32)
+    num_words = rows * W32
+    if padded:
+        pos = np.concatenate([pos, np.full(5, 0xFFFFFFFF, np.uint32)])
+        starts = np.concatenate([starts, [1, 7]]).astype(np.uint32)
+        ends = np.concatenate([ends, [0, 3]]).astype(np.uint32)
+        dense = np.concatenate([dense, np.zeros((2, 2048), np.uint32)])
+        dword = np.concatenate([dword, [num_words, num_words]]).astype(np.int32)
+    return pos, starts, ends, dense, dword, num_words
+
+
+def _on(dev, a):
+    return torch.from_numpy(np.ascontiguousarray(a).view("<i4").copy()).to(dev)
+
+
+@pytest.mark.parametrize("rows,padded", [(1, False), (3, True), (128, True)])
+def test_expand_blocks_matches_plain(dev, rows, padded):
+    rng = np.random.default_rng(rows)
+    *arrays, num_words = _roaring_payloads(rng, rows, padded)
+    args = [_on(dev, a) for a in arrays]
+    before = ops.cuda.EXPAND_BLOCKS.launches
+    got = ops.expand_blocks(*args, num_words)
+    torch.cuda.synchronize()
+    assert ops.cuda.EXPAND_BLOCKS.launches == before + 1
+    assert torch.equal(got, ops.expand_blocks_plain(*args, num_words))
+
+
+def test_expand_blocks_single_kinds_and_empty(dev):
+    rng = np.random.default_rng(12)
+    pos, starts, ends, dense, dword, num_words = _roaring_payloads(rng, 2, True)
+    none = np.zeros(0, np.uint32)
+    for case in (
+        (pos, none, none, np.zeros((0, 2048), np.uint32), np.zeros(0, np.int32)),
+        (none, starts, ends, np.zeros((0, 2048), np.uint32), np.zeros(0, np.int32)),
+        (none, none, none, dense, dword),
+        (none, none, none, np.zeros((0, 2048), np.uint32), np.zeros(0, np.int32)),
+    ):
+        args = [_on(dev, a) for a in case]
+        assert torch.equal(ops.cuda.expand_blocks(*args, num_words), ops.expand_blocks_plain(*args, num_words))
+    # runs alone are the Pallas kernel's function
+    st, en = _on(dev, starts), _on(dev, ends)
+    none_t = _on(dev, none)
+    got = ops.cuda.expand_blocks(none_t, st, en, _on(dev, np.zeros((0, 2048), np.uint32)), none_t, num_words)
+    assert torch.equal(got, ops.expand_runs_plain(st, en, num_words))
+
+
+@pytest.mark.parametrize("shape,n", [((W32,), 1), ((3, 32768), 300), ((64, W32), 5000), ((2, 5, 2048), 77)])
+@pytest.mark.parametrize("padded", [False, True])
+def test_word_delta_matches_plain(dev, shape, n, padded):
+    rng = np.random.default_rng(n + padded)
+    words = _words(rng, shape, dev)
+    total = words.numel()
+    wi = rng.integers(0, total, size=n)
+    wi[: n // 4] = wi[0]
+    idx, om, am = ops.coalesce_bit_updates(wi, rng.integers(0, 32, size=n), rng.random(n) < 0.7)
+    om[0] = 0xFFFFFFFF
+    if padded:
+        idx, om, am = delta.pad_updates(idx, om, am, total)
+    keep = words.clone()
+    before = ops.cuda.WORD_DELTA.launches
+    got = ops.apply_word_updates(words, idx, om, am)
+    torch.cuda.synchronize()
+    assert ops.cuda.WORD_DELTA.launches == before + 1
+    want = ops.apply_word_updates_plain(words, _on(dev, idx), _on(dev, om), _on(dev, am))
+    assert torch.equal(got, want)
+    # a new tensor; the staged input is untouched
+    assert got.data_ptr() != words.data_ptr() and torch.equal(words, keep)
+
+
+@pytest.mark.parametrize("s,m", [(1, 4096), (4, 2048), (64, W32)])
+def test_word_delta_2d_matches_plain(dev, s, m):
+    rng = np.random.default_rng(s)
+    words = _words(rng, (s, m), dev)
+    k = 513
+    flat = rng.choice(s * m, size=k, replace=False)
+    shard, word = (flat // m).astype(np.int32), (flat % m).astype(np.int32)
+    om = rng.integers(0, 2**32, size=k, dtype=np.uint32)
+    am = rng.integers(0, 2**32, size=k, dtype=np.uint32) & ~om
+    shard[-4:] = s  # the contract's padding: dropped
+    got = ops.apply_word_updates_2d(words, shard, word, om, am)
+    want = ops.apply_word_updates_2d_plain(words, *[_on(dev, a) for a in (shard, word, om, am)])
+    assert torch.equal(got, want)
