@@ -25,10 +25,11 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          int fields lo_revenue, lo_quantity and lo_discount. Q1.1/Q1.2 as
          filtered Sums, Q2.1-Q3.2 as GroupBy panels with a Sum aggregate
          (K = 280, 56, 150, 600 groups: the GroupBy kernel
-         groupby_reduce), a count-only GroupBy, Min/Max, Percentile,
-         Distinct, and Count(Range) of every operator alone and inside
-         chains (the range kernel bsi_range), a cold pass then a warm
-         pass. dbgen is not in the repository: the columns are drawn
+         groupby_reduce), a count-only GroupBy, Min/Max (every shard's
+         recurrence in one launch of bsi_minmax), Percentile (a tree
+         count per plane step), Distinct, and Count(Range) of every
+         operator alone and inside chains (the range kernel bsi_range), a
+         cold pass then a warm pass. dbgen is not in the repository: the columns are drawn
          uniformly with numpy from a seed.
   writes the shape of bench.py's ingest probe (_ingest_sustained_probe)
          over dense and tall: 10 % of operations are one PQL request of
@@ -62,11 +63,13 @@ roaring leg (device_policy="never"); every ssb answer must equal a plain
 numpy computation over the generated columns (int64, exact). Each path
 (dense and tall; ssb; writes; tiered) runs with the kernels' launch
 counts set to 0 just before it and read just after; each kernel must
-have launched on its path. Then
-each kernel runs again at the arguments of its largest main-path launch
-and must equal its plain PyTorch version run on the card on the same
-inputs (integers: the bar is ==). Both are timed with CUDA events, the
-L2 cache flushed before every launch.
+have launched on its path. Then each kernel runs again at the arguments
+of its largest main-path launch and must equal its plain PyTorch version
+run on the card on the same inputs (integers: the bar is ==). Both are
+timed with CUDA events, the L2 cache flushed (by a read, leaving clean
+lines) before every launch and the host's enqueue kept out of the
+window. The tree count is also checked and timed at
+its most launched shape, a one-leaf count of one shard row.
 
 The fragments are written by a pool of worker processes, stopped before
 the card is used.
@@ -140,6 +143,9 @@ SSB_SET_FIELDS = (
 SSB_INT_FIELDS = {"lo_revenue": (0, 10_500_000), "lo_quantity": (1, 50), "lo_discount": (0, 10)}
 # query families of the ssb phase, timed apart
 STATS = "minmax_percentile_distinct"
+# Percentile's per-plane-step counts and the Count(Range) queries: the
+# tree count's launches on the ssb path (Min/Max run on bsi_minmax)
+SSB_TREE_COUNT_MAX = 300
 RANGE = "range_count"
 SSB_FAMILIES = ("sum", "groupby", RANGE, STATS)
 AMERICA, ASIA = 1, 2  # SSB region order: AFRICA, AMERICA, ASIA, EUROPE, MIDDLE EAST
@@ -1029,6 +1035,9 @@ class Recorder:
         self._kind_size: dict[str, int] = {}
         # the most words one expand_blocks launch wrote on that path
         self.expand_widest = 0
+        # a one-leaf tree count of one shard row (32,768 words), the
+        # tree count's most launched shape
+        self.tree_one_leaf = None
         for name, size in (
             ("dense_scores", self._dense_bytes),
             ("sparse_stacked_scores", self._sparse_bytes),
@@ -1037,6 +1046,7 @@ class Recorder:
             ("bsi_range", self._range_bytes),
             ("expand_blocks", self._expand_bytes),
             ("word_delta", self._delta_bytes),
+            ("bsi_minmax", self._minmax_bytes),
         ):
             self.kernel_fn[name] = getattr(cuda_mod, name)
             setattr(cuda_mod, name, self._wrap(name, self.kernel_fn[name], size))
@@ -1079,9 +1089,16 @@ class Recorder:
     def _sparse_bytes(srcs, blocks, *rest):
         return blocks.numel() * 4 * srcs.shape[0]
 
+    def _tree_bytes(self, leaves_by_query, program):
+        if self.tree_one_leaf is None and program.nleaves == 1 and len(leaves_by_query) == 1:
+            if leaves_by_query[0][0].numel() == SW // 32:
+                self.tree_one_leaf = (leaves_by_query, program)
+        # each distinct leaf once, as the kernel reads them
+        return sum({t.data_ptr(): t.numel() * 4 for leaves in leaves_by_query for t in leaves}.values())
+
     @staticmethod
-    def _tree_bytes(leaves_by_query, program):
-        return sum(t.numel() * 4 for leaves in leaves_by_query for t in leaves)
+    def _minmax_bytes(planes, filt, is_min):
+        return (planes.numel() + (filt.numel() if filt is not None else 0)) * 4
 
     def _groupby_work(self, dims, filt, planes):
         k = 1
@@ -1169,6 +1186,13 @@ def bound(name: str, args, card: Card) -> dict:
         nbytes = (positions.numel() + 2 * starts.numel() + dense.numel() + dword.numel() + num_words) * 4
     elif name == "word_delta":
         nbytes = _delta_bound_bytes(*args)
+    elif name == "bsi_minmax":
+        planes, filt, is_min = args
+        s, d1, w = planes.shape
+        # every plane, the not-null plane and the filter once; bits and counts out
+        nbytes = (d1 + (filt is not None)) * s * w * 4 + s * (d1 - 1) + s * 4
+        # one popcount per word per plane step, and one for the final count
+        ops_s = d1 * s * w / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
     else:
         raise KeyError(name)
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -1190,14 +1214,28 @@ def _delta_bound_bytes(words, shard_idx, word_idx, or_mask, andnot_mask) -> int:
     return 2 * words.numel() * 4 + _update_bytes(shard_idx, word_idx, or_mask, andnot_mask)
 
 
-def time_ms(fn, iters: int, flush) -> float:
-    """Median device time of ``fn`` over ``iters`` launches (CUDA events),
-    with the L2 cache flushed before each."""
+# a device spin before each timed launch, longer than any wrapper's host
+# work, so the launch is queued before the start event fires
+HIDE_ENQUEUE_CYCLES = 2_000_000
+
+
+def time_ms(fn, iters: int, flush, as_before: bool = False) -> float:
+    """Median device time of ``fn`` over ``iters`` launches (CUDA events).
+    Before each, the L2 cache is flushed by reading a buffer larger than
+    L2 (the lines left behind are clean) and the device spins while the
+    host enqueues ``fn``, so the window holds device work only.
+    ``as_before`` times the earlier way: flushed by a write (the kernel
+    also pays for writing back the dirty lines its reads evict) and the
+    host's enqueue inside the window."""
     import torch
 
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if as_before:
+            flush.zero_()
+        else:
+            flush.sum()
+            torch.cuda._sleep(HIDE_ENQUEUE_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1229,8 +1267,9 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
         "bsi_range": bsi.bsi_range_plain,
         "expand_blocks": packed.expand_blocks_plain,
         "word_delta": delta.apply_word_updates_2d_plain,
+        "bsi_minmax": bsi.bsi_minmax_plain,
     }
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
     rows = []
     for name, plain_fn in plain.items():
         kernel_fn = rec.kernel_fn[name]
@@ -1284,8 +1323,59 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             rows[-1]["patch_ms"] = time_ms(lambda: cuda.word_delta_patch(words, out, sh, wi, om, am), 20, flush)
             patch_bytes = _update_bytes(sh, wi, om, am) + 8 * wi.numel()
             rows[-1]["patch_bound_ms"] = patch_bytes / HBM_BYTES_PER_S * 1e3
+        if name == "tree_count":
+            rows[-1]["share_of_bound"] = b["bound_ms"] / ms
+            rows[-1]["ms_as_before"] = time_ms(lambda: kernel_fn(*args), 20, flush, as_before=True)
+            rows[-1]["one_leaf_32768"] = _tree_one_leaf(rec, kernel_fn, plain_fn, flush, card)
         log(f"{name}: == plain; {ms:.3f} ms (bound {b['bound_ms']:.3f} by {b['bound_by']}, plain {plain_ms:.3f})")
     return rows
+
+
+def _kernels_per_call(fn, calls: int):
+    """Device kernels (memsets included) per call of ``fn`` from a
+    torch.profiler trace, or None if the trace holds none or fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for ev in prof.events() if "CUDA" in str(getattr(ev, "device_type", "")))
+    except Exception as e:  # the trace is a report, not a check of the port
+        log(f"profiler trace failed: {e!r}")
+        return None
+    return n / calls if n else None
+
+
+def _tree_one_leaf(rec, kernel_fn, plain_fn, flush, card) -> dict:
+    """The tree count at a one-leaf count of one shard row, its most
+    launched shape: == plain, time, bound, share, and device kernels per
+    count (one launch, no memset) from a profiler trace."""
+    import torch
+
+    if rec.tree_one_leaf is None:
+        raise AssertionError("no one-leaf 32768-word tree count on the main paths")
+    args = rec.tree_one_leaf
+    got, want = kernel_fn(*args), plain_fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"tree_count one-leaf: {got.tolist()} vs plain {want.tolist()}")
+    ms = time_ms(lambda: kernel_fn(*args), 20, flush)
+    b = bound("tree_count", args, card)
+    per_count = _kernels_per_call(lambda: kernel_fn(*args), 10)
+    if per_count is not None and per_count != 1:
+        raise AssertionError(f"a one-leaf count ran {per_count} device kernels, not 1")
+    return {
+        "ms": ms,
+        "plain_ms": time_ms(lambda: plain_fn(*args), 3, flush),
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "share_of_bound": b["bound_ms"] / ms,
+        "device_kernels_per_count": per_count,
+    }
 
 
 def _shape(name: str, args) -> dict:
@@ -1307,10 +1397,17 @@ def _shape(name: str, args) -> dict:
     if name == "word_delta":
         words, sh, wi, om, am = args
         return {"words": list(words.shape), "updates": wi.numel(), "shard_idx": sh is not None}
+    if name == "bsi_minmax":
+        planes, filt, is_min = args
+        s, d1, w = planes.shape
+        return {"S": s, "depth": d1 - 1, "W": w, "filter": filt is not None, "min": bool(is_min)}
+    from pilosa_tpu_torch.ops import packed
+
     leaves_by_query, program = args
     return {
         "Q": len(leaves_by_query),
         "nleaves": program.nleaves,
+        "distinct_leaves": len(packed.tree_tables(leaves_by_query)[0]),
         "leaf": list(leaves_by_query[0][0].shape),
     }
 
@@ -1329,15 +1426,46 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the stats family's parts, by the call that starts the query
+STATS_PARTS = {"minmax": ("Min(", "Max("), "percentile": ("Percentile(",), "distinct": ("Distinct(",)}
+
+
+def _stats_part(q: str) -> str:
+    return next(part for part, heads in STATS_PARTS.items() if q.startswith(heads))
+
+
 def run_ssb(dev, oracle: SsbOracle) -> dict:
     """Every ssb query once cold (staging included), then each family
-    warm, every answer held against the numpy oracle."""
+    warm, every answer held against the numpy oracle. The stats family's
+    warm pass is also split by part (Min/Max, Percentile, Distinct), each
+    with its p50 and its tree-count and bsi_minmax launches."""
+    from pilosa_tpu_torch.ops import cuda
+
     qs = [q for _, q in oracle.queries]
     cold, _ = run_sequential(dev, "ssb", qs, oracle.answers)
     out = {"first_pass_s": sum(cold), "queries": len(qs)}
     for family in SSB_FAMILIES:
         fq = [q for f, q in oracle.queries if f == family]
-        out[family] = _rate(*run_sequential(dev, "ssb", fq, oracle.answers))
+        if family != STATS:
+            out[family] = _rate(*run_sequential(dev, "ssb", fq, oracle.answers))
+            continue
+        parts = {part: ([], {}, {"tree_count": 0, "bsi_minmax": 0}) for part in STATS_PARTS}
+        for q in fq:
+            lat, legs, launched = parts[_stats_part(q)]
+            before = (cuda.TREE_COUNT.launches, cuda.BSI_MINMAX.launches)
+            lat.append(_execute(dev, "ssb", q, oracle.answers, legs))
+            launched["tree_count"] += cuda.TREE_COUNT.launches - before[0]
+            launched["bsi_minmax"] += cuda.BSI_MINMAX.launches - before[1]
+        merged: dict = {}
+        for _, legs, _ in parts.values():
+            for k, v in legs.items():
+                merged[k] = merged.get(k, 0.0) + v
+        out[family] = _rate([x for lat, _, _ in parts.values() for x in lat], merged)
+        out[family + "_parts"] = {
+            part: {**_rate(lat, legs), "launches": launched} for part, (lat, legs, launched) in parts.items()
+        }
+    # cold and warm
+    out["minmax_queries_run"] = 2 * sum(1 for q in qs if q.startswith(STATS_PARTS["minmax"]))
     return out
 
 
@@ -1349,6 +1477,7 @@ PATH_OF = {
     "bsi_range": "ssb",
     "expand_blocks": "tiered",
     "word_delta": "writes",
+    "bsi_minmax": "ssb",
 }
 
 
@@ -1462,6 +1591,15 @@ def main() -> int:
             raise AssertionError("groupby_reduce never launched with K > 1 and P > 0")
         if not all(rec.expand_kinds.values()):
             raise AssertionError(f"expand_blocks launches by input kind on its path: {rec.expand_kinds}")
+        mm_run = phases["ssb"]["minmax_queries_run"]
+        if launches["ssb"]["bsi_minmax"] != mm_run:
+            raise AssertionError(
+                f"bsi_minmax launched {launches['ssb']['bsi_minmax']} times on ssb for {mm_run} Min/Max queries"
+            )
+        if launches["ssb"]["tree_count"] > SSB_TREE_COUNT_MAX:
+            raise AssertionError(
+                f"tree_count launched {launches['ssb']['tree_count']} times on ssb (> {SSB_TREE_COUNT_MAX})"
+            )
         if rec.expand_widest != FIRST_CHUNK_ROWS * SW // 32:
             raise AssertionError(
                 f"expand_blocks' widest tiered launch wrote {rec.expand_widest} words, "
@@ -1502,6 +1640,7 @@ def main() -> int:
                     "bsi_range": launches["ssb"]["bsi_range"] / n_ssb,
                     "expand_blocks": launches["tiered"]["expand_blocks"] / n_tiered,
                     "word_delta": launches["writes"]["word_delta"] / n_writes,
+                    "bsi_minmax": launches["ssb"]["bsi_minmax"] / phases["ssb"]["minmax_queries_run"],
                 },
                 "launches_by_path": launches,
                 "groupby_launches_k_gt_1_p_gt_0": rec.groupby_multi_with_planes,
@@ -1526,6 +1665,11 @@ def main() -> int:
                 },
             }
         )
+        stats = phases["ssb"][STATS + "_parts"]
+        print(json.dumps({"ssb_stats": {
+            part: {"p50_ms": r["p50_ms"], "qps": r["qps"], "launches": r["launches"]}
+            for part, r in stats.items()
+        }}), flush=True)
         print(json.dumps({"phases": phases}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:

@@ -248,9 +248,10 @@ _timed_tree_count = _timed_kernel("tree_count", ops.tree_count)
 _timed_groupby = _timed_kernel("groupby_reduce", ops.groupby_reduce)
 _timed_plane_counts = _timed_kernel("groupby_reduce", ops.bsi_plane_counts)
 _timed_plane_counts_batched = _timed_kernel("groupby_reduce", ops.bsi_plane_counts_batched)
-# the recurrences are many small launches; each is timed as a whole
 _timed_bsi_min = _timed_kernel("bsi_min", ops.bsi_min)
 _timed_bsi_max = _timed_kernel("bsi_max", ops.bsi_max)
+_timed_minmax_batched = _timed_kernel("bsi_minmax", ops.bsi_minmax_batched)
+# the recurrences are many small launches; each is timed as a whole
 _timed_percentile = _timed_kernel("bsi_percentile", ops.bsi_percentile_batched)
 _timed_distinct = _timed_kernel("bsi_distinct", ops.bsi_distinct_presence)
 
@@ -1091,6 +1092,21 @@ class Executor:
         if len(c.children) > 1:
             raise ValueError(f"{name}() only accepts a single bitmap input")
         recurrence = _timed_bsi_min if is_min else _timed_bsi_max
+        reduce_fn = (lambda a, b: a.smaller(b)) if is_min else (lambda a, b: a.larger(b))
+
+        # shard-batched: every shard's recurrence in one launch
+        if shards and self._use_device_batched(index, c, shards):
+            field_name, _ = c.string_arg("field")
+            bsig = self._bsi_field(index, field_name)
+            frags = self._bsi_frags(index, field_name, shards) if bsig is not None else ()
+            if any(frags):
+                try:
+                    with trace.child(metrics.STAGE_DEVICE_BATCH, call=name):
+                        vc = self._minmax_device_batched(index, c, shards, bsig, frags, is_min, reduce_fn)
+                    self._heat_read_legs(index, c, shards)
+                    return vc
+                except _NotDeviceable:
+                    pass
 
         def map_fn(shard):
             parts = self._bsi_shard_parts(index, c, shard)
@@ -1112,9 +1128,28 @@ class Executor:
             val, count = (frag.min if is_min else frag.max)(filt, depth)
             return ValCount(val + bsig.min, count)
 
-        reduce_fn = (lambda a, b: a.smaller(b)) if is_min else (lambda a, b: a.larger(b))
         result = self._map_reduce(index, shards, c, opt, map_fn, reduce_fn, zero_factory=ValCount)
         if result is None or result.count == 0:
+            return ValCount()
+        return result
+
+    def _minmax_device_batched(self, index, c: Call, shards, bsig, frags, is_min: bool, reduce_fn) -> ValCount:
+        """Every shard's Min/Max recurrence in one K8 launch and one fetch;
+        the per-shard values fold on the host in shard order, as the
+        per-shard leg's reduce does (a tie keeps the earlier shard)."""
+        depth = bsig.bit_depth()
+        filt, has_filter = self._device_filter_stack(index, c, shards)
+        planes = self.stager.planes_stack(frags, depth)
+        bits, counts = _timed_minmax_batched(
+            planes, filt, is_min=is_min, bit_depth=depth, has_filter=has_filter
+        )
+        got = _fetch(torch.cat([counts.to(torch.int64).unsqueeze(1), bits.to(torch.int64)], dim=1))
+        result = ValCount()
+        for row in got.tolist():
+            count = row[0]
+            val = sum(1 << i for i, b in enumerate(row[1:]) if b)
+            result = reduce_fn(result, ValCount(val + bsig.min, count) if count else ValCount())
+        if result.count == 0:
             return ValCount()
         return result
 

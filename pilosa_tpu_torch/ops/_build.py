@@ -38,8 +38,9 @@ SOURCES = (
     "bsi_range",
     "expand_blocks",
     "word_delta",
+    "bsi_minmax",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tma.cuh")
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
@@ -65,9 +66,10 @@ _SIGNATURES = {
     ),
     "tree_count": (
         "pilosa_tree_count",
-        # leaf_ptrs (host u64[q * nleaves]), code, code_len, nleaves,
-        # n_words, q, out, device, stream
-        [_P, _P, _I, _I, _LL, _I, _P, _I, _P],
+        # leaf_ptrs (host u64[ndistinct]), refs (host u8[q * nleaves]),
+        # ndistinct, code, code_len, max_spill, nleaves, n_words, q,
+        # scratch, out, device, stream
+        [_P, _P, _I, _P, _I, _I, _I, _LL, _I, _P, _P, _I, _P],
     ),
     "groupby_reduce": (
         "pilosa_groupby_reduce",
@@ -93,6 +95,12 @@ _SIGNATURES = {
         # src, out, shard_idx, word_idx, or_mask, andnot_mask, k, s, m,
         # device, stream
         [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
+    ),
+    "bsi_minmax": (
+        "pilosa_bsi_minmax",
+        # planes, plane_stride, shard_stride, filt, filt_stride, s, depth,
+        # sv, is_min, bits, count, device, stream
+        [_P, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P],
     ),
 }
 

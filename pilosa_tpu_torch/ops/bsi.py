@@ -13,10 +13,13 @@ batch; filters are [W] / [S, W] words.
     their scalar state depends only on the predicate, so the host lowers
     it to one opcode byte per plane (``range_program``) and the kernel
     reads each plane once. Predicates are Python ints: any depth up to 63;
-  * Min, Max, Percentile and Distinct stay PyTorch ops on the device.
-    Each plane step's popcount goes through ``packed.count_bits`` (K3's
-    one-leaf program) and ``torch.where`` takes the place of the host
-    branch, so nothing leaves the card before the caller's one fetch.
+  * Min and Max run on K8 (``ops/kernels/bsi_minmax.cu``): one launch
+    runs every shard's recurrence, a thread-block cluster per shard;
+  * Percentile and Distinct stay PyTorch ops on the device. Each
+    Percentile plane step's popcount goes through ``packed.count_bits``
+    (K3's one-leaf program) and ``torch.where`` takes the place of the
+    host branch, so nothing leaves the card before the caller's one
+    fetch.
 
 CPU tensors run the plain versions (the tests); CUDA tensors launch the
 kernels or raise.
@@ -27,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch.ops import cuda
-from pilosa_tpu_torch.ops.packed import _on_cuda, count_bits, groupby_reduce
+from pilosa_tpu_torch.ops.packed import _on_cuda, count_bits, groupby_reduce, popcount
 
 # K5 opcodes (one nibble each; the low nibble runs first) and output
 # selectors — the table in ops/kernels/bsi_range.cu.
@@ -199,7 +202,7 @@ def bsi_plane_counts(planes, filter_row, *, bit_depth: int, has_filter: bool):
     )
 
 
-# -- Min / Max / Percentile / Distinct: PyTorch ops on the device ---------------------
+# -- Min / Max: K8 ----------------------------------------------------------------
 
 
 def _consider(planes, filter_rows, has_filter: bool):
@@ -214,30 +217,91 @@ def _count(words):
 
 
 def _minmax(planes, filter_row, bit_depth: int, has_filter: bool, is_min: bool):
+    """One shard's recurrence over its [D+1, W] planes in plain PyTorch
+    -> (bits bool[D], count i32)."""
     consider = _consider(planes, filter_row, has_filter)
     bits = []
     for i in reversed(range(bit_depth)):
         row = planes.select(-2, i)
         x = consider & ~row if is_min else consider & row
-        pred = _count(x) > 0
+        pred = popcount(x).sum() > 0
         consider = torch.where(pred, x, consider)
         # min: bit i is set iff no considered column has it clear
         bits.append(~pred if is_min else pred)
-    count = _count(consider)
+    count = popcount(consider).sum().to(torch.int32)
     stacked = torch.stack(bits[::-1]) if bits else torch.zeros(0, dtype=torch.bool, device=planes.device)
     return stacked, count
+
+
+def bsi_minmax_plain(planes, filt, is_min: bool):
+    """K8's function in plain PyTorch: each shard's recurrence over
+    [S, D+1, W] planes and an optional [S, W] filter -> (bits bool[S, D],
+    count i32[S])."""
+    s, d1, _ = planes.shape
+    bits = torch.zeros((s, d1 - 1), dtype=torch.bool, device=planes.device)
+    count = torch.zeros(s, dtype=torch.int32, device=planes.device)
+    for i in range(s):
+        f = None if filt is None else filt[i]
+        bits[i], count[i] = _minmax(planes[i], f, d1 - 1, filt is not None, is_min)
+    return bits, count
+
+
+def bsi_minmax_batched(planes, filter_rows, *, is_min: bool, bit_depth: int, has_filter: bool):
+    """Min (or Max) of every shard of a [S, D+1, W] batch under an
+    optional [S, W] filter -> (bits bool[S, D], count i32[S]), one
+    recurrence per shard: bits[s, i] is bit i of shard s's extreme value,
+    count[s] the columns holding it (0: no value). One K8 launch on CUDA
+    tensors."""
+    if planes.shape[-2] != bit_depth + 1:
+        raise ValueError(f"{planes.shape[-2]} planes for bit depth {bit_depth}")
+    filt = filter_rows if has_filter else None
+    if _on_cuda(planes):
+        return cuda.bsi_minmax(planes, filt, is_min)
+    return bsi_minmax_plain(planes, filt, is_min)
+
+
+def _fold_minmax(bits, count, is_min: bool):
+    """Per-shard (bits [S, D], count [S]) -> the global (bits [D], count)
+    on the device: the extreme value over shards with a count, and the
+    columns of every shard holding it; with none, what the recurrence
+    gives an empty set (all ones for Min, zeros for Max; count 0)."""
+    depth = bits.shape[1]
+    shifts = torch.arange(depth, dtype=torch.int64, device=bits.device)
+    vals = (bits.to(torch.int64) << shifts).sum(dim=1)
+    valid = count > 0
+    fill = torch.full_like(vals, torch.iinfo(torch.int64).max if is_min else -1)
+    keyed = torch.where(valid, vals, fill)
+    best = keyed.min() if is_min else keyed.max()
+    hit = valid & (vals == best)
+    total = torch.where(hit, count.to(torch.int64), torch.zeros_like(vals)).sum()
+    empty = torch.full((depth,), is_min, dtype=torch.bool, device=bits.device)
+    return torch.where(valid.any(), ((best >> shifts) & 1).bool(), empty), total.to(torch.int32)
+
+
+def _minmax_op(planes, filter_row, bit_depth: int, has_filter: bool, is_min: bool):
+    batch = planes.unsqueeze(0) if planes.dim() == 2 else planes
+    f = filter_row.reshape(batch.shape[0], -1) if has_filter else None
+    bits, count = bsi_minmax_batched(batch, f, is_min=is_min, bit_depth=bit_depth, has_filter=has_filter)
+    if planes.dim() == 2:
+        return bits[0], count[0]
+    return _fold_minmax(bits, count, is_min)
 
 
 def bsi_min(planes, filter_row, *, bit_depth: int, has_filter: bool):
     """Min recurrence (reference fragment.min:599-630) -> (bits bool[D],
     count i32): bits[i] is bit i of the minimum; count the columns that
-    hold it. Works on one shard's [D+1, W] or a [S, D+1, W] batch."""
-    return _minmax(planes, filter_row, bit_depth, has_filter, True)
+    hold it. One shard's [D+1, W] is one K8 recurrence; a [S, D+1, W]
+    batch is taken as one set of columns (the per-shard results folded
+    on the device)."""
+    return _minmax_op(planes, filter_row, bit_depth, has_filter, True)
 
 
 def bsi_max(planes, filter_row, *, bit_depth: int, has_filter: bool):
     """Max recurrence (reference fragment.max:632-661)."""
-    return _minmax(planes, filter_row, bit_depth, has_filter, False)
+    return _minmax_op(planes, filter_row, bit_depth, has_filter, False)
+
+
+# -- Percentile / Distinct: PyTorch ops on the device ----------------------------------
 
 
 def bsi_percentile_batched(planes, filter_rows, nth_bp: int, *, bit_depth: int, has_filter: bool):

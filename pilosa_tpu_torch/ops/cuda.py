@@ -16,6 +16,7 @@ import threading
 
 import torch
 
+from pilosa_tpu_torch.analysis.locks import OrderedLock
 from pilosa_tpu_torch.ops import _build
 
 
@@ -79,6 +80,11 @@ WORD_DELTA = Kernel(
     "pilosa_tpu_torch/ops/kernels/word_delta.cu",
     "pilosa_tpu/ops/delta.py:117",
 )
+BSI_MINMAX = Kernel(
+    "bsi_minmax",
+    "pilosa_tpu_torch/ops/kernels/bsi_minmax.cu",
+    "pilosa_tpu/ops/bsi.py:47",
+)
 KERNELS = (
     DENSE_SCORES,
     SPARSE_STACKED_SCORES,
@@ -87,6 +93,7 @@ KERNELS = (
     BSI_RANGE,
     EXPAND_BLOCKS,
     WORD_DELTA,
+    BSI_MINMAX,
 )
 
 
@@ -211,19 +218,47 @@ def sparse_stacked_scores(
     return out
 
 
-# Leaf pointers one tree_count launch carries (TC_MAX_PTRS in tree_count.cu).
-TREE_MAX_POINTERS = 448
+# What one tree_count launch takes (TC_MAX_* in tree_count.cu): distinct
+# leaf pointers and queries x leaves (one byte each naming a distinct
+# leaf), both in the parameter block, and queries x kernel program words
+# (resolved per query in shared memory).
+TREE_MAX_DISTINCT = 256
+TREE_MAX_REFS = 1536
+TREE_MAX_RESOLVED = 3072
+
+_tree_scratch: dict = {}
+_tree_scratch_mu = OrderedLock("ops.tree_scratch")
+
+
+def _tree_accumulator(device, stream: int) -> torch.Tensor:
+    """The per-stream u32[3 + TREE_MAX_REFS] tickets and sums of the tree
+    count: zeroed once when made, and every launch leaves it zero (its
+    last block moves the sums out), so launches on one stream, which run
+    in order, share it and no count needs a memset."""
+    key = (device.index, stream)
+    t = _tree_scratch.get(key)
+    if t is None:
+        with _tree_scratch_mu:
+            t = _tree_scratch.get(key)
+            if t is None:
+                t = _tree_scratch[key] = torch.zeros(
+                    3 + TREE_MAX_REFS, dtype=torch.int32, device=device
+                )
+    return t
 
 
 def tree_count(leaves_by_query, program) -> torch.Tensor:
     """K3: popcount of a boolean tree over each query's leaves -> i32[Q].
     Every leaf is a same-shape int32 tensor; ``program`` is an
-    ops.TreeProgram. Queries x leaves is at most TREE_MAX_POINTERS."""
+    ops.TreeProgram. A leaf shared by several queries (the same storage)
+    is read once. Queries x leaves is at most TREE_MAX_REFS and the
+    distinct leaves at most TREE_MAX_DISTINCT. One launch, no memset."""
+    from pilosa_tpu_torch.ops.packed import tree_tables
+
     q = len(leaves_by_query)
     first = leaves_by_query[0][0]
     device = first.device
     n_words = first.numel()
-    ptrs = []
     for leaves in leaves_by_query:
         if len(leaves) != program.nleaves:
             raise ValueError(f"query has {len(leaves)} leaves, program needs {program.nleaves}")
@@ -232,22 +267,33 @@ def tree_count(leaves_by_query, program) -> torch.Tensor:
             _same_device(device, t)
             if t.numel() != n_words:
                 raise ValueError(f"leaf sizes differ: {t.numel()} vs {n_words}")
-            ptrs.append(t.data_ptr())
     if n_words % 4:
         raise ValueError(f"leaf words must be a multiple of 4, got {n_words}")
-    if len(ptrs) > TREE_MAX_POINTERS:
+    if q * program.nleaves > TREE_MAX_REFS:
         raise ValueError(
-            f"{q} queries x {program.nleaves} leaves > {TREE_MAX_POINTERS} leaf pointers per launch"
+            f"{q} queries x {program.nleaves} leaves > {TREE_MAX_REFS} leaf references per launch"
         )
-    out = torch.zeros(q, dtype=torch.int32, device=device)
+    if q * len(program.kernel_code) > TREE_MAX_RESOLVED:
+        raise ValueError(
+            f"{q} queries x {len(program.kernel_code)} program words > {TREE_MAX_RESOLVED} per launch"
+        )
+    distinct, refs = tree_tables(leaves_by_query)
+    if len(distinct) > TREE_MAX_DISTINCT:
+        raise ValueError(f"{len(distinct)} distinct leaves > {TREE_MAX_DISTINCT} per launch")
     if n_words == 0:
-        return out
+        return torch.zeros(q, dtype=torch.int32, device=device)
+    out = torch.empty(q, dtype=torch.int32, device=device)
     code = program.device_code(device)
+    stream = _stream(device)
+    flat = [i for r in refs for i in r]
     lib = _build.library("tree_count")
-    # the pointers travel by value in the kernel's parameter block
+    # both tables travel by value in the kernel's parameter block
     err = lib.pilosa_tree_count(
-        (ctypes.c_uint64 * len(ptrs))(*ptrs), code.data_ptr(), len(program.code),
-        program.nleaves, n_words, q, out.data_ptr(), device.index, _stream(device),
+        (ctypes.c_uint64 * len(distinct))(*[t.data_ptr() for t in distinct]),
+        (ctypes.c_ubyte * len(flat))(*flat),
+        len(distinct), code.data_ptr(), len(program.kernel_code), program.spill,
+        program.nleaves, n_words, q, _tree_accumulator(device, stream).data_ptr(),
+        out.data_ptr(), device.index, stream,
     )
     _raise_on(err, "tree_count")
     TREE_COUNT.note_launch(q)
@@ -459,3 +505,45 @@ def word_delta(words, shard_idx, word_idx, or_mask, andnot_mask) -> torch.Tensor
     word_delta_patch(words, out, shard_idx, word_idx, or_mask, andnot_mask)
     WORD_DELTA.note_launch(1)
     return out
+
+
+# Widest shard one bsi_minmax launch takes: a CTA keeps three slices of
+# W / 8 words (``consider`` and two plane stages), 48 bytes per 32 words
+# of the shard, within 200 KiB of shared memory.
+BSI_MINMAX_MAX_WORDS = 32 * (200 * 1024 // 48)
+
+
+def bsi_minmax(planes: torch.Tensor, filt, is_min: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8: the Min (or Max) recurrence of every shard of a [S, D+1, W]
+    plane stack (plane D is not-null; any strides with a dense word axis)
+    under an optional [S, W] filter -> (bits bool[S, D], count i32[S]).
+    One launch: a cluster of 8 CTAs per shard. W a multiple of 32."""
+    s, d1, w = planes.shape
+    depth = d1 - 1
+    device = planes.device
+    if not 0 <= depth <= BSI_MAX_DEPTH:
+        raise ValueError(f"bit depth {depth} outside [0, {BSI_MAX_DEPTH}]")
+    if w == 0 or w % 32:
+        raise ValueError(f"words per shard must be a positive multiple of 8 x 4, got {w}")
+    if w > BSI_MINMAX_MAX_WORDS:
+        raise ValueError(f"{w} words per shard > {BSI_MINMAX_MAX_WORDS}")
+    shard_stride, plane_stride = _vec_strides(planes, "planes")
+    fptr, fss = None, 0
+    if filt is not None:
+        if tuple(filt.shape) != (s, w):
+            raise ValueError(f"filter is {tuple(filt.shape)}, expected {(s, w)}")
+        _same_device(device, filt)
+        _, fss = _vec_strides(filt.unsqueeze(0), "filter")
+        fptr = filt.data_ptr()
+    bits = torch.empty((s, depth), dtype=torch.bool, device=device)
+    count = torch.empty(s, dtype=torch.int32, device=device)
+    if s == 0:
+        return bits, count
+    lib = _build.library("bsi_minmax")
+    err = lib.pilosa_bsi_minmax(
+        planes.data_ptr(), plane_stride, shard_stride, fptr, fss, s, depth, w // 32,
+        int(is_min), bits.data_ptr(), count.data_ptr(), device.index, _stream(device),
+    )
+    _raise_on(err, "bsi_minmax")
+    BSI_MINMAX.note_launch(1)
+    return bits, count

@@ -263,20 +263,53 @@ def sparse_intersection_counts_stacked_batch_list(
 # -- K3: fused tree count --------------------------------------------------------
 
 # Interpreter limits shared with ops/kernels/tree_count.cu (TC_MAX_*);
-# TREE_MAX_LEAVES stays within cuda.TREE_MAX_POINTERS.
+# launch limits (distinct leaves, queries x leaves) are cuda.TREE_MAX_*.
 TREE_MAX_STACK = 16
 TREE_MAX_LEAVES = 256
 TREE_MAX_CODE = 512
 _OPCODES = {"Intersect": -1, "Union": -2, "Xor": -3, "Difference": -4}
+# the kernel's instruction words: op << 16 | operand, the operand a
+# query-local leaf index or KERNEL_STACK (the entry below the top)
+K_PUSH, K_AND, K_OR, K_XOR, K_ANDNOT = range(5)
+KERNEL_STACK = 0xFFFF
+_KERNEL_OPS = {-1: K_AND, -2: K_OR, -3: K_XOR, -4: K_ANDNOT}
+
+
+def _kernel_program(code) -> tuple[tuple[int, ...], int]:
+    """A postfix program as the tree-count kernel runs it: "push leaf;
+    op" folds into one instruction on the top of the stack, which lives
+    in a register; a push onto a live top spills it to a stack slot, and
+    an op whose operand is KERNEL_STACK pops one. Returns (instruction
+    words, stack slots needed)."""
+    out: list[int] = []
+    spill = top = peak = 0
+    i = 0
+    while i < len(code):
+        ins = code[i]
+        if ins >= 0 and i + 1 < len(code) and code[i + 1] < 0 and top:
+            out.append(_KERNEL_OPS[code[i + 1]] << 16 | ins)
+            i += 2
+            continue
+        if ins >= 0:
+            spill += top
+            peak = max(peak, spill)
+            top = 1
+            out.append(K_PUSH << 16 | ins)
+        else:
+            spill -= 1
+            out.append(_KERNEL_OPS[ins] << 16 | KERNEL_STACK)
+        i += 1
+    return tuple(out), peak
 
 
 class TreeProgram:
     """A lowered boolean call tree encoded for the tree-count kernel: a
     postfix program of int32 instructions, ``i >= 0`` pushing leaf i
     and ``-1..-4`` (Intersect, Union, Xor, Difference) combining the top
-    two stack entries. One kernel interprets any tree shape, so query
-    shapes never multiply builds. Trees past the interpreter's limits
-    raise here, before any launch."""
+    two stack entries, and its ``kernel_code`` (``_kernel_program``). One
+    kernel interprets any tree shape, so query shapes never multiply
+    builds. Trees past the interpreter's limits raise here, before any
+    launch."""
 
     def __init__(self, tree) -> None:
         self.tree = tree
@@ -292,6 +325,7 @@ class TreeProgram:
             raise ValueError(f"tree has {self.nleaves} leaves > {TREE_MAX_LEAVES}")
         if len(self.code) > TREE_MAX_CODE:
             raise ValueError(f"tree program of {len(self.code)} > {TREE_MAX_CODE}")
+        self.kernel_code, self.spill = _kernel_program(self.code)
         self._dev: dict = {}
         self._mu = threading.Lock()
 
@@ -311,44 +345,81 @@ class TreeProgram:
         return depth
 
     def device_code(self, device) -> torch.Tensor:
-        """The program as an int32 tensor on ``device`` (uploaded once)."""
+        """The kernel program as an int32 tensor on ``device`` (uploaded
+        once)."""
         key = str(device)
         with self._mu:
             t = self._dev.get(key)
             if t is None:
                 t = self._dev[key] = torch.tensor(
-                    self.code, dtype=torch.int32
+                    self.kernel_code, dtype=torch.int32
                 ).to(device)
         return t
 
 
+def tree_tables(leaves_by_query):
+    """The tree count's host lowering: (distinct leaves, refs), where
+    ``distinct`` lists each leaf storage once (a leaf staged for several
+    queries is the same tensor) in first-seen order and ``refs[q][l]``
+    indexes leaf l of query q in it."""
+    index: dict = {}
+    distinct: list = []
+    refs = []
+    for leaves in leaves_by_query:
+        r = []
+        for t in leaves:
+            key = (t.data_ptr(), t.numel())
+            i = index.get(key)
+            if i is None:
+                i = index[key] = len(distinct)
+                distinct.append(t)
+            r.append(i)
+        refs.append(tuple(r))
+    return distinct, refs
+
+
 def tree_count_plain(leaves_by_query, program: TreeProgram) -> torch.Tensor:
-    """popcount(tree(leaves)) for each query's leaf list -> i32[Q].
-    Evaluates the tree itself, not the postfix code, so it checks the
-    kernel's encoding too."""
-    first = leaves_by_query[0][0]
-    out = torch.empty(len(leaves_by_query), dtype=torch.int32, device=first.device)
-    for qi, leaves in enumerate(leaves_by_query):
-        out[qi] = popcount(eval_tree(program.tree, leaves)).sum()
+    """popcount(tree(leaves)) for each query's leaf list -> i32[Q], from
+    the same tables the kernel gets (``tree_tables``). Evaluates the tree
+    itself, not the kernel's code, so it checks that encoding too."""
+    distinct, refs = tree_tables(leaves_by_query)
+    out = torch.empty(len(refs), dtype=torch.int32, device=distinct[0].device)
+    for qi, r in enumerate(refs):
+        out[qi] = popcount(eval_tree(program.tree, [distinct[i] for i in r])).sum()
     return out
+
+
+def _tree_launches(leaves_by_query, program: TreeProgram) -> list:
+    """Consecutive query groups that each fit one tree-count launch (the
+    cuda.TREE_MAX_* limits on leaf references, distinct leaves and
+    resolved program words)."""
+    per = min(
+        cuda.TREE_MAX_REFS // program.nleaves,
+        cuda.TREE_MAX_RESOLVED // len(program.kernel_code),
+    )
+    groups, cur, seen = [], [], set()
+    for leaves in leaves_by_query:
+        new = {(t.data_ptr(), t.numel()) for t in leaves} - seen
+        if cur and (len(cur) == per or len(seen) + len(new) > cuda.TREE_MAX_DISTINCT):
+            groups.append(cur)
+            cur, seen = [], set()
+            new = {(t.data_ptr(), t.numel()) for t in leaves}
+        cur.append(leaves)
+        seen |= new
+    groups.append(cur)
+    return groups
 
 
 def tree_count(leaves_by_query, program: TreeProgram) -> torch.Tensor:
     """Fused Count over a boolean tree: Q queries, each a list of
     ``program.nleaves`` same-shape word tensors (u32[S, W] leaf stacks
-    in the executor) -> i32[Q]. Q = 1 is the per-query form. A launch
-    carries at most cuda.TREE_MAX_POINTERS leaf pointers, so a wider
-    batch runs as several launches."""
+    in the executor) -> i32[Q]. Q = 1 is the per-query form. A batch
+    past one launch's limits runs as several launches."""
     if _on_cuda(leaves_by_query[0][0]):
-        per = cuda.TREE_MAX_POINTERS // program.nleaves
-        if len(leaves_by_query) <= per:
+        groups = _tree_launches(leaves_by_query, program)
+        if len(groups) == 1:
             return cuda.tree_count(leaves_by_query, program)
-        return torch.cat(
-            [
-                cuda.tree_count(leaves_by_query[i : i + per], program)
-                for i in range(0, len(leaves_by_query), per)
-            ]
-        )
+        return torch.cat([cuda.tree_count(g, program) for g in groups])
     return tree_count_plain(leaves_by_query, program)
 
 

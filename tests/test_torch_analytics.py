@@ -359,3 +359,69 @@ def test_deep_field_predicates(deep, q):
     assert got[1] == got[0] == got[2]
     if "==" in q:
         assert got[0] == [5]
+
+
+MM_MIN, MM_MAX = -1000, 1000
+
+
+@pytest.fixture(scope="module")
+def minmax_sides(tmp_path_factory):
+    """5 shards of ``seg``; the int field ``v`` (min -1000) holds values in
+    shards 0, 2 and 3 only. The minimum -1000 sits in shards 0 (2
+    columns) and 2 (3 columns), the maximum 1000 in shards 2 (1) and 3
+    (4): ties across shards."""
+    d = tmp_path_factory.mktemp("minmax_holder")
+    rng = np.random.default_rng(808)
+    h = JaxHolder(str(d))
+    h.open()
+    idx = h.create_index("i")
+    seg = idx.create_field("seg")
+    v = idx.create_field("v", JaxFieldOptions(type="int", min=MM_MIN, max=MM_MAX))
+    cols = np.concatenate([s * SW + rng.choice(SW, size=400, replace=False) for s in range(5)])
+    seg.import_bits(rng.integers(0, 4, size=cols.size).tolist(), cols.tolist())
+    vcols, vvals = [], []
+    for shard, lows, highs in ((0, 2, 0), (2, 3, 1), (3, 0, 4)):
+        c = cols[shard * 400 : (shard + 1) * 400]
+        x = rng.integers(MM_MIN + 1, MM_MAX, size=c.size)
+        x[:lows] = MM_MIN
+        x[lows : lows + highs] = MM_MAX
+        vcols += c.tolist()
+        vvals += x.tolist()
+    v.import_values(vcols, vvals)
+    h.close()
+    s = _Sides(d, tmp_path_factory.mktemp("minmax_shared"))
+    yield s
+    s.close()
+
+
+@pytest.mark.parametrize(
+    "q",
+    [
+        "Min(field=v)",
+        "Max(field=v)",
+        "Min(Row(seg=1), field=v)",
+        "Max(Row(seg=2), field=v)",
+        "Max(Range(v < 0), field=v)",
+        "Min(Range(v > 0), field=v)",
+        "Min(Row(seg=9), field=v)",
+    ],
+)
+def test_min_max_batched_leg_matches_jax(minmax_sides, monkeypatch, q):
+    """Min/Max over every shard take the port's batched leg: one K8
+    recurrence per shard in one launch (its plain version here), folded
+    in shard order; the answers equal the JAX executor's and the CPU
+    leg's, negative minimum, ties and value-less shards included."""
+    seen = []
+    real = bsi.bsi_minmax_plain
+
+    def spy(planes, filt, is_min):
+        seen.append(planes.shape[0])
+        return real(planes, filt, is_min)
+
+    monkeypatch.setattr(bsi, "bsi_minmax_plain", spy)
+    ans = _same(minmax_sides, q)
+    assert seen == [5], q
+    if q == "Min(field=v)":
+        assert ans == ("vc", MM_MIN, 2)
+    if q == "Max(field=v)":
+        assert ans == ("vc", MM_MAX, 1)

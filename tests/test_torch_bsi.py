@@ -261,3 +261,64 @@ def test_distinct_presence_matches_jax(depth):
         want = np.asarray(jops.bsi_distinct_presence(stack, filts, bit_depth=depth, has_filter=has_filter))
         got = tops.bsi_distinct_presence(_t(stack), _t(filts), bit_depth=depth, has_filter=has_filter)
         assert np.array_equal(tops.words_to_numpy(got), want)
+
+
+# -- K8: the per-shard Min/Max recurrences in one launch -------------------------------
+
+
+@pytest.mark.parametrize("depth", [0, 1, 10, 41])
+@pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
+@pytest.mark.parametrize("has_filter", [False, True], ids=["nofilter", "filter"])
+def test_minmax_batched_plain_matches_jax_per_shard(depth, is_min, has_filter):
+    """K8's plain version, shard by shard, against the JAX package's
+    one-shard recurrence: all-ones planes, a filter that empties a shard,
+    a shard with no value, a sparse filter that branches both ways."""
+    rng = np.random.default_rng(depth * 4 + is_min * 2 + has_filter)
+    s = 5
+    stack = _planes(rng, depth, shards=s)
+    stack[1, :depth] = 0xFFFFFFFF
+    stack[3, depth] = 0
+    filts = _u32(rng, (s, W))
+    filts[2] = 0
+    filts[4] = 0
+    filts[4, ::17] = 0x10101
+    bits, count = tops.bsi_minmax_batched(
+        _t(stack), _t(filts), is_min=is_min, bit_depth=depth, has_filter=has_filter
+    )
+    assert bits.dtype == torch.bool and tuple(bits.shape) == (s, depth)
+    assert count.dtype == torch.int32 and tuple(count.shape) == (s,)
+    fn = jops.bsi_min if is_min else jops.bsi_max
+    for i in range(s):
+        wb, wc = fn(stack[i], filts[i], bit_depth=depth, has_filter=has_filter)
+        assert bits[i].tolist() == np.asarray(wb).tolist() and int(count[i]) == int(wc), i
+    assert int(count[3]) == 0
+    assert (int(count[2]) == 0) == has_filter
+
+
+@pytest.mark.parametrize("fn", ["bsi_min", "bsi_max"])
+@pytest.mark.parametrize("depth", [1, 10, 41])
+def test_min_max_batch_folds_to_jax_global_recurrence(fn, depth):
+    """A [S, D+1, W] batch to bsi_min/bsi_max is one set of columns: the
+    per-shard results folded on the device equal the JAX recurrence over
+    the shards laid end to end (ties across shards add their counts)."""
+    rng = np.random.default_rng(depth + len(fn))
+    s = 4
+    stack = _planes(rng, depth, shards=s)
+    stack[:, depth] &= rng.integers(0, 2**32, size=(s, W), dtype=np.uint32) & np.uint32(0x00110011)
+    stack[2, depth] = 0
+    filts = _u32(rng, (s, W))
+    filts[1] = 0
+
+    def flat(a):
+        return np.ascontiguousarray(a.transpose(1, 0, 2)).reshape(depth + 1, s * W)
+
+    for has_filter in (False, True):
+        wb, wc = getattr(jops, fn)(flat(stack), filts.reshape(-1), bit_depth=depth, has_filter=has_filter)
+        gb, gc = getattr(tops, fn)(_t(stack), _t(filts), bit_depth=depth, has_filter=has_filter)
+        assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc), has_filter
+    # no value anywhere: what the recurrence gives an empty set
+    empty = stack.copy()
+    empty[:, depth] = 0
+    wb, wc = getattr(jops, fn)(flat(empty), None, bit_depth=depth, has_filter=False)
+    gb, gc = getattr(tops, fn)(_t(empty), None, bit_depth=depth, has_filter=False)
+    assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc) == 0

@@ -106,19 +106,92 @@ def test_wrapper_rejects_misaligned(dev):
 
 
 def test_tree_count_rejects_too_many_leaf_pointers(dev):
+    """One launch takes TREE_MAX_REFS leaf references and
+    TREE_MAX_DISTINCT distinct leaves; past either the wrapper raises and
+    the public function splits the batch."""
     prog = ops.TreeProgram(("Union", (("leaf", 0), ("leaf", 1))))
     leaf = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
-    q = ops.cuda.TREE_MAX_POINTERS // 2
+    q = ops.cuda.TREE_MAX_REFS // 2
     assert ops.cuda.tree_count([[leaf, leaf]] * q, prog).shape == (q,)
     with pytest.raises(ValueError):
         ops.cuda.tree_count([[leaf, leaf]] * (q + 1), prog)
-    # the public function splits a wider batch into several launches
     rng = np.random.default_rng(9)
-    leaves = [[_words(rng, (1, 1024), dev), leaf] for _ in range(q + 3)]
+    many = [[_words(rng, (1, 1024), dev), leaf] for _ in range(ops.cuda.TREE_MAX_DISTINCT)]
+    with pytest.raises(ValueError):
+        ops.cuda.tree_count(many, prog)
+    # the public function splits a wider batch into several launches
+    for leaves in (many, [[leaf, leaf]] * (q + 3)):
+        before = ops.cuda.TREE_COUNT.launches
+        got = ops.tree_count(leaves, prog)
+        assert ops.cuda.TREE_COUNT.launches == before + 2
+        assert torch.equal(got, ops.tree_count_plain(leaves, prog))
+
+
+def test_tree_count_shared_leaves_at_the_chain_shape(dev):
+    """Q=4 coalesced 5-leaf chains over 12 distinct 64 x 32768 leaf stacks
+    (the tall chains' launch), and a batch at the new limits: one launch
+    each, == plain."""
+    rng = np.random.default_rng(31)
+    tree = ("Union", (("Intersect", (("leaf", 0), ("leaf", 1))), ("Intersect", (("leaf", 2), ("leaf", 3))), ("leaf", 4)))
+    prog = ops.TreeProgram(tree)
+    pool = [_words(rng, (64, 32768), dev) for _ in range(12)]
+    picks = [(0, 1, 2, 3, 4), (0, 5, 6, 3, 7), (8, 1, 9, 3, 10), (0, 11, 2, 3, 4)]
+    leaves = [[pool[i] for i in p] for p in picks]
+    assert len(ops.tree_tables(leaves)[0]) == 12
     before = ops.cuda.TREE_COUNT.launches
     got = ops.tree_count(leaves, prog)
-    assert ops.cuda.TREE_COUNT.launches == before + 2
+    torch.cuda.synchronize()
+    assert ops.cuda.TREE_COUNT.launches == before + 1
     assert torch.equal(got, ops.tree_count_plain(leaves, prog))
+    # 307 queries x 5 leaves = 1535 references over 256 distinct leaves
+    small = [_words(rng, (2, 1024), dev) for _ in range(256)]
+    n = ops.cuda.TREE_MAX_REFS // 5
+    wide = [[small[(5 * k + j) % 256] for j in range(5)] for k in range(n)]
+    before = ops.cuda.TREE_COUNT.launches
+    got = ops.tree_count(wide, prog)
+    assert ops.cuda.TREE_COUNT.launches == before + 1
+    assert torch.equal(got, ops.tree_count_plain(wide, prog))
+
+
+def test_tree_count_deepest_stack_with_most_leaves(dev):
+    """A tree 16 deep (15 operators, a spilled stack entry at each level)
+    over 16 queries of 16 leaves each, 256 distinct: the ring's widest
+    stage beside the most stack slots, one launch, == plain."""
+    ops_cycle = ("Intersect", "Union", "Xor", "Difference")
+    tree = ("leaf", 15)
+    for i in reversed(range(15)):
+        tree = (ops_cycle[i % 4], (("leaf", i), tree))
+    prog = ops.TreeProgram(tree)
+    assert prog.depth == ops.packed.TREE_MAX_STACK and prog.spill == 14
+    rng = np.random.default_rng(16)
+    pool = [_words(rng, (1, 4096), dev) for _ in range(256)]
+    leaves = [pool[16 * k : 16 * (k + 1)] for k in range(16)]
+    before = ops.cuda.TREE_COUNT.launches
+    got = ops.tree_count(leaves, prog)
+    torch.cuda.synchronize()
+    assert ops.cuda.TREE_COUNT.launches == before + 1
+    assert torch.equal(got, ops.tree_count_plain(leaves, prog))
+
+
+@pytest.mark.parametrize("n_words", [4, 1024, 4100, 32768, 58 * 32768, 64 * 32768 + 12])
+def test_count_bits_one_launch(dev, n_words):
+    """The one-leaf count at tile-ragged sizes: one launch, no memset, and
+    the per-stream accumulator left at zero for the next count."""
+    rng = np.random.default_rng(n_words)
+    a = rng.integers(0, 2**32, size=n_words, dtype=np.uint32)
+    a[:3] = 0xFFFFFFFF
+    t = ops.words_from_numpy(a, dev)
+    want = int(np.bitwise_count(a).sum())
+    before = ops.cuda.TREE_COUNT.launches
+    assert int(ops.count_bits(t)) == want
+    assert int(ops.count_bits(t)) == want
+    assert ops.cuda.TREE_COUNT.launches == before + 2
+    # another stream has its own accumulator
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        got = ops.count_bits(t)
+    s.synchronize()
+    assert int(got) == want
 
 
 # -- K4 groupby_reduce and K5 bsi_range ------------------------------------------------
@@ -182,8 +255,9 @@ def test_bsi_range_matches_plain(dev, depth, op):
 
 
 def test_bsi_device_recurrences_on_card(dev):
-    """Min/Max/Percentile/Distinct run as torch ops on the card, each plane
-    step's popcount on the tree count, and agree with the CPU run."""
+    """Min/Max run on K8 (one shard, a batch folded, the per-shard form),
+    Percentile/Distinct as torch ops on the card (each Percentile step's
+    popcount on the tree count); all agree with the CPU run."""
     rng = np.random.default_rng(4)
     a = rng.integers(0, 2**32, size=(3, 11, 1024), dtype=np.uint32)
     filt = rng.integers(0, 2**32, size=(3, 1024), dtype=np.uint32)
@@ -196,11 +270,59 @@ def test_bsi_device_recurrences_on_card(dev):
         gb, gc = fn(*gpu, **args)
         cb, cc = fn(*cpu, **args)
         assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
+        before = ops.cuda.BSI_MINMAX.launches
+        gb, gc = fn(gpu[0][1], gpu[1][1], **args)
+        assert ops.cuda.BSI_MINMAX.launches == before + 1
+        cb, cc = fn(cpu[0][1], cpu[1][1], **args)
+        assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
+    for is_min in (True, False):
+        gb, gc = ops.bsi_minmax_batched(*gpu, is_min=is_min, bit_depth=10, has_filter=True)
+        cb, cc = ops.bsi_minmax_batched(*cpu, is_min=is_min, bit_depth=10, has_filter=True)
+        assert torch.equal(gb.cpu(), cb) and torch.equal(gc.cpu(), cc)
     gb, gc = ops.bsi_percentile_batched(*gpu, 9500, bit_depth=10, has_filter=True)
     cb, cc = ops.bsi_percentile_batched(*cpu, 9500, bit_depth=10, has_filter=True)
     assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
     got = ops.bsi_distinct_presence(*gpu, bit_depth=10, has_filter=True)
     assert torch.equal(got.cpu(), ops.bsi_distinct_presence(*cpu, bit_depth=10, has_filter=True))
+
+
+@pytest.mark.parametrize("depth", [0, 24, 41])
+@pytest.mark.parametrize("s,w", [(1, 32768), (3, 4096), (58, 32768)])
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_bsi_minmax_matches_plain(dev, depth, s, w, with_filter):
+    """K8 == its plain version, Min and Max, one launch each: all-ones
+    planes, a shard with no value, a filter emptying a shard, a sparse
+    filter that branches both ways."""
+    rng = np.random.default_rng(depth * 100 + s + with_filter)
+    a = rng.integers(0, 2**32, size=(s, depth + 1, w), dtype=np.uint32)
+    a[0, : depth // 2] = 0xFFFFFFFF
+    f = rng.integers(0, 2**32, size=(s, w), dtype=np.uint32)
+    if s > 1:
+        a[1, depth] = 0
+        f[-1] = 0
+        f[s // 2] &= np.uint32(0x00010001)
+    planes = ops.words_from_numpy(a, dev)
+    filt = ops.words_from_numpy(f, dev) if with_filter else None
+    for is_min in (True, False):
+        before = ops.cuda.BSI_MINMAX.launches
+        got = ops.cuda.bsi_minmax(planes, filt, is_min)
+        torch.cuda.synchronize()
+        assert ops.cuda.BSI_MINMAX.launches == before + 1
+        want = ops.bsi_minmax_plain(planes, filt, is_min)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), is_min
+
+
+def test_bsi_minmax_strided_and_rejects(dev):
+    """A plane stack read in place through its strides; a shard width not
+    a multiple of 8 x 4 words raises."""
+    rng = np.random.default_rng(6)
+    wide = ops.words_from_numpy(rng.integers(0, 2**32, size=(4, 30, 2048), dtype=np.uint32), dev)
+    sub = wide[:, 3:14]
+    got = ops.cuda.bsi_minmax(sub, None, True)
+    want = ops.bsi_minmax_plain(sub.contiguous(), None, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        ops.cuda.bsi_minmax(torch.zeros((2, 5, 2048 + 16), dtype=torch.int32, device=dev), None, True)
 
 
 # -- K6 expand_blocks and K7 word_delta -----------------------------------------------

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from pilosa_tpu import ops as jops
+from pilosa_tpu.core import Holder as JaxHolder
+from pilosa_tpu.executor import Executor as JaxExecutor
 from pilosa_tpu.executor.executor import _eval_tree
 from pilosa_tpu.ops.pallas_kernels import (
     intersection_counts_matrix_batch_pallas,
@@ -205,3 +207,88 @@ def test_tree_program_limits_raise():
         tops.TreeProgram(wide)
     with pytest.raises(ValueError, match="not a boolean tree node"):
         tops.TreeProgram(("Sum", (L[0],)))
+
+
+# -- K3's host lowering: shared leaves and the kernel's program -----------------------
+
+
+def test_tree_tables_share_leaves_and_match_jax_batch(tmp_path):
+    """Coalesced chains that stage the same rows: each storage is one
+    distinct leaf, every query names its leaves by index, and the counts
+    from those tables equal per-query counts and the reference's batched
+    program (_tree_count_batch_jit)."""
+    tree = TREES["union_of_intersects"]
+    prog = tops.TreeProgram(tree)
+    rng = np.random.default_rng(17)
+    pool = [_u32(rng, (3, 2048)) for _ in range(8)]
+    picks = [(0, 1, 2, 3, 4), (0, 5, 2, 6, 4), (0, 1, 2, 3, 4), (7, 7, 7, 7, 7)]
+    torch_pool = [_t(a) for a in pool]
+    queries = [[torch_pool[i] for i in p] for p in picks]
+    # a view of the same storage is the same leaf
+    queries[2][1] = torch_pool[1].view(-1).view(3, 2048)
+    distinct, refs = tops.tree_tables(queries)
+    assert len(distinct) == 8
+    assert refs[0] == (0, 1, 2, 3, 4) and refs[2] == refs[0]
+    assert refs[1] == (0, 5, 2, 6, 4) and refs[3] == (7,) * 5
+    assert all(distinct[r].data_ptr() == q[l].data_ptr() for q, rr in zip(queries, refs) for l, r in enumerate(rr))
+    got = tops.tree_count(queries, prog)
+    assert got.tolist() == [int(tops.tree_count([q], prog)[0]) for q in queries]
+    assert tops.tree_count_plain(queries, prog).tolist() == got.tolist()
+    h = JaxHolder(str(tmp_path / "h"))
+    h.open()
+    try:
+        jex = JaxExecutor(h, device_policy="always")
+        flat = [pool[i] for p in picks for i in p]
+        want = np.asarray(jex._tree_count_batch_jit(tree, len(picks), prog.nleaves)(*flat))
+        jex.close()
+    finally:
+        h.close()
+    assert got.tolist() == want.tolist()
+
+
+def _kernel_run(code, leaves):
+    """tree_count.cu's interpreter (tc_run) over CPU words: the top of the
+    stack in a register, the entries below it in spill slots. Returns
+    (result, spill slots used)."""
+    apply = {
+        tops.packed.K_AND: tops.and_,
+        tops.packed.K_OR: tops.or_,
+        tops.packed.K_XOR: tops.xor_,
+        tops.packed.K_ANDNOT: tops.andnot,
+    }
+    top, spill, peak = None, [], 0
+    for i, ins in enumerate(code):
+        op, arg = ins >> 16, ins & 0xFFFF
+        if i == 0:
+            assert op == tops.packed.K_PUSH
+        if arg == tops.packed.KERNEL_STACK:
+            top = apply[op](spill.pop(), top)
+        elif op == tops.packed.K_PUSH:
+            if top is not None:
+                spill.append(top)
+                peak = max(peak, len(spill))
+            top = leaves[arg]
+        else:
+            top = apply[op](top, leaves[arg])
+    assert not spill
+    return top, peak
+
+
+DEEP = ("Difference", (L[0], ("Union", (L[1], ("Xor", (L[2], ("Intersect", (L[3], L[4])), L[0])))), L[2]))
+
+
+@pytest.mark.parametrize("name", sorted(TREES) + ["deep"])
+def test_kernel_program_matches_tree(name):
+    """The peephole program the kernel runs ("push leaf; op" folded into
+    the top of the stack) computes the tree, within its spill slots, and
+    a chain of one operator never spills."""
+    tree = DEEP if name == "deep" else TREES[name]
+    prog = tops.TreeProgram(tree)
+    rng = np.random.default_rng(len(name) + 5)
+    leaves = [_t(_u32(rng, (2, 512))) for _ in range(prog.nleaves)]
+    got, peak = _kernel_run(prog.kernel_code, leaves)
+    assert torch.equal(got, tops.eval_tree(tree, leaves))
+    assert peak == prog.spill <= prog.depth - 1
+    assert len(prog.kernel_code) <= len(prog.code)
+    if name in ("intersect_of_unions", "difference_of_union", "single_leaf"):
+        assert prog.spill <= 1
