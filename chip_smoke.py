@@ -69,7 +69,14 @@ run on the card on the same inputs (integers: the bar is ==). Both are
 timed with CUDA events, the L2 cache flushed (by a read, leaving clean
 lines) before every launch and the host's enqueue kept out of the
 window. The tree count is also checked and timed at
-its most launched shape, a one-leaf count of one shard row.
+its most launched shape, a one-leaf count of one shard row; the dense
+scorer at the widest batch (Q) of the dense phases; the GroupBy kernel
+at the count-only ssb panel and at a dense, non-exclusive shape (no
+filter, two 8-row set fields whose columns sit in several rows each,
+drawn from a seed), the worst case of a kernel that visits only the
+group words that are set. Bounds count what the inputs need: for the
+GroupBy kernel, the set group words and the sectors where the filter is
+set; for the dense scorer, the non-zero source words.
 
 The fragments are written by a pool of worker processes, stopped before
 the card is used.
@@ -1028,6 +1035,11 @@ class Recorder:
         self._mu = threading.Lock()
         # GroupBy launches with K > 1 groups and P > 0 planes
         self.groupby_multi_with_planes = 0
+        # the widest count-only GroupBy launch (K > 1, P = 0) and the
+        # widest-Q dense scoring launch of the dense_tall path
+        self.groupby_count_only = None
+        self._count_only_k = 0
+        self.dense_widest_q = None
         # expand_blocks launches on the tiered path with each input kind
         # non-empty, and the largest such launch per kind
         self.expand_kinds = {"positions": 0, "runs": 0, "dense": 0}
@@ -1081,8 +1093,12 @@ class Recorder:
     def _delta_bytes(words, shard_idx, word_idx, or_mask, andnot_mask):
         return words.numel() * 4 + word_idx.numel() * 16
 
-    @staticmethod
-    def _dense_bytes(srcs, mat):
+    def _dense_bytes(self, srcs, mat):
+        if self.path == "dense_tall":
+            with self._mu:
+                cur = self.dense_widest_q
+                if cur is None or (srcs.shape[0], mat.numel()) > (cur[0].shape[0], cur[1].numel()):
+                    self.dense_widest_q = (srcs, mat)
         return (srcs.numel() + mat.numel()) * 4
 
     @staticmethod
@@ -1107,6 +1123,11 @@ class Recorder:
         if k > 1 and planes.shape[1] > 0:
             with self._mu:
                 self.groupby_multi_with_planes += 1
+        if k > 1 and planes.shape[1] == 0:
+            with self._mu:
+                if k > self._count_only_k:
+                    self._count_only_k = k
+                    self.groupby_count_only = (dims, filt, planes)
         return k * planes.shape[0] * planes.shape[2] * (planes.shape[1] + 1)
 
     @staticmethod
@@ -1128,21 +1149,118 @@ class Card:
         self.sm_clock_hz = float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+# bytes of the sector, the unit in which the card reads device memory
+SECTOR_BYTES = 32
+# int32 words one step of groupby_need materialises
+NEED_CHUNK_WORDS = 1 << 26
+
+
+def groupby_need(dims, filt, planes) -> dict:
+    """What a GroupBy launch's inputs need, counted from the inputs on
+    whatever device they lie: the non-zero group words summed over the K
+    groups (``group_words``), and the 32-byte sectors of the flattened word
+    axis where the filter is non-zero (``sectors``; every sector without a
+    filter) out of ``all_sectors``. Dimensions are [R, S, W] (or [R, Wf]),
+    the filter [S, W] or None, planes [S, P, W]. Groups are enumerated a
+    chunk at a time over the words where the filter is set."""
+    import torch
+
+    s, _, w = planes.shape
+    wf = s * w
+    flat = [d.reshape(d.shape[0], wf) for d in dims]
+    per_sector = SECTOR_BYTES // 4
+    all_sectors = -(-wf // per_sector)
+    if filt is None:
+        f = None
+        sectors = all_sectors
+        n = wf
+    else:
+        f = filt.reshape(wf)
+        padded = torch.zeros(all_sectors * per_sector, dtype=f.dtype, device=f.device)
+        padded[:wf] = f
+        sectors = int((padded.view(all_sectors, per_sector) != 0).any(dim=1).sum())
+        pos = torch.nonzero(f != 0).flatten()
+        f = f[pos]
+        flat = [d[:, pos] for d in flat]
+        n = int(pos.numel())
+    radix = [int(d.shape[0]) for d in flat]
+    k = 1
+    for r in radix:
+        k *= r
+    words = 0
+    if n:
+        tile = max(1, NEED_CHUNK_WORDS // n)
+        for k0 in range(0, k, tile):
+            ks = torch.arange(k0, min(k, k0 + tile), device=planes.device)
+            g = torch.full((ks.numel(), n), -1, dtype=torch.int32, device=planes.device)
+            if f is not None:
+                g &= f
+            rem = ks
+            for d in range(len(flat) - 1, -1, -1):
+                g &= flat[d][rem % radix[d]]
+                rem = rem // radix[d]
+            words += int((g != 0).sum())
+    return {"group_words": words, "sectors": sectors, "all_sectors": all_sectors, "groups": k}
+
+
+def dense_need(srcs) -> int:
+    """The non-zero words of the dense scorer's sources, summed over them:
+    each needs one popcount per matrix row."""
+    return int((srcs != 0).sum())
+
+
+def _popc_s(n: int, card: Card) -> float:
+    return n / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
+
+
+def bound_dense_work(name: str, args, card: Card) -> float | None:
+    """The earlier yardstick of K1 and K4 (ms), kept so shares taken
+    against it can be read beside the bound that counts what the inputs
+    need: K1 by bytes alone, K4 by K x Wf x (P + 1) popcounts with every
+    row read whole."""
+    if name == "dense_scores":
+        srcs, mat = args
+        q, w = srcs.shape
+        return (mat.numel() + q * w + q * mat.shape[0]) * 4 / HBM_BYTES_PER_S * 1e3
+    if name == "groupby_reduce":
+        dims, filt, planes = args
+        s, p, w = planes.shape
+        k = 1
+        for d in dims:
+            k *= d.shape[0]
+        rows = sum(d.shape[0] for d in dims) + (1 if filt is not None else 0) + p
+        nbytes = rows * s * w * 4 + k * (p + 1) * 4
+        return max(nbytes / HBM_BYTES_PER_S, _popc_s(k * s * w * (p + 1), card)) * 1e3
+    return None
+
+
 def bound(name: str, args, card: Card) -> dict:
     """The least time the card could take for the function on these
     inputs: the larger of its bytes (each input read once, each output
     written once) over HBM's rate and its operations over the card's rate
-    for them (popcounts for the GroupBy kernel, 32-bit integer ops for the
-    range kernel). For the sparse scorer, the blocks in range and the
-    source containers they name; for the tree count, each distinct leaf;
-    for the range kernel, the planes its program reads."""
+    for them (popcounts for the scorers and the GroupBy kernel, 32-bit
+    integer ops for the range kernel). Where the work depends on the data,
+    what these inputs need: for the dense scorer, a popcount per row and
+    non-zero source word; for the GroupBy kernel, P + 1 popcounts per
+    non-zero group word, the filter read whole and every other row only in
+    the sectors where the filter is set; for the sparse scorer, the blocks
+    in range and the source containers they name; for the tree count, each
+    distinct leaf; for the range kernel, the planes its program reads.
+
+    Popcounts are timed at the CUDA cores' rate (``popcount_ms``). The
+    dense scorer runs them as single-bit matrix products on the tensor
+    cores, whose single-bit rate NVIDIA does not publish for the H100, so
+    for it that term is no floor and the bound is the bytes alone."""
     import torch
 
     ops_s = 0.0
+    tensor_cores = False
     if name == "dense_scores":
         srcs, mat = args
         q, w = srcs.shape
         nbytes = (mat.numel() + q * w + q * mat.shape[0]) * 4
+        ops_s = _popc_s(dense_need(srcs) * mat.shape[0], card)
+        tensor_cores = True
     elif name == "sparse_stacked_scores":
         srcs, blocks, brow, bslot, bshard, num_rows = args
         q, s, w = srcs.shape
@@ -1164,14 +1282,12 @@ def bound(name: str, args, card: Card) -> dict:
     elif name == "groupby_reduce":
         dims, filt, planes = args
         s, p, w = planes.shape
-        wf = s * w
-        k = 1
-        for d in dims:
-            k *= d.shape[0]
-        rows = sum(d.shape[0] for d in dims) + (1 if filt is not None else 0) + p
-        nbytes = rows * wf * 4 + k * (p + 1) * 4
-        popcounts = k * wf * (p + 1)  # one per 32-bit word
-        ops_s = popcounts / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
+        need = groupby_need(dims, filt, planes)
+        rows = sum(d.shape[0] for d in dims) + p
+        filt_bytes = s * w * 4 if filt is not None else 0
+        row_bytes = min(need["sectors"] * SECTOR_BYTES, s * w * 4)
+        nbytes = filt_bytes + rows * row_bytes + need["groups"] * (p + 1) * 4
+        ops_s = _popc_s(need["group_words"] * (p + 1), card)
     elif name == "bsi_range":
         planes, code, out_sel = args
         s, _, w = planes.shape
@@ -1196,10 +1312,12 @@ def bound(name: str, args, card: Card) -> dict:
     else:
         raise KeyError(name)
     bytes_s = nbytes / HBM_BYTES_PER_S
+    floor_ops_s = 0.0 if tensor_cores else ops_s
     return {
-        "bound_ms": max(bytes_s, ops_s) * 1e3,
-        "bound_by": "operations" if ops_s > bytes_s else "bytes",
+        "bound_ms": max(bytes_s, floor_ops_s) * 1e3,
+        "bound_by": "operations" if floor_ops_s > bytes_s else "bytes",
         "bytes": nbytes,
+        "popcount_ms": ops_s * 1e3,
     }
 
 
@@ -1248,6 +1366,60 @@ def time_ms(fn, iters: int, flush, as_before: bool = False) -> float:
 
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
+
+
+# the dense, non-exclusive GroupBy shape: no filter, two set fields of 8
+# rows whose columns each sit in about 3 of the 8 (bits at density 3/8),
+# and 25 planes, over the ssb panel's 58 shards
+NONEXCL_DIMS = 2
+NONEXCL_ROWS = 8
+NONEXCL_PLANES = 25
+NONEXCL_SEED = 1905
+
+
+def nonexclusive_groupby_inputs(device, seed: int = NONEXCL_SEED):
+    """(dims, None, planes) of the dense, non-exclusive GroupBy shape,
+    drawn on ``device`` from ``seed``: the enumerating kernel's worst case,
+    every group set at nearly every word."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    s, w = -(-SSB_ROWS // SW), SW // 32
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, generator=g, device=device)
+
+    dims = []
+    for _ in range(NONEXCL_DIMS):
+        shape = (NONEXCL_ROWS, s, w)
+        dims.append(words(*shape) & (words(*shape) | words(*shape)))
+    return dims, None, words(s, NONEXCL_PLANES, w)
+
+
+def _held(name: str, kernel_fn, plain_fn, args, flush, card: Card) -> dict:
+    """One more launch of ``name`` held against its plain version (==)
+    and timed, with its bound, its share of it and the earlier yardstick."""
+    import torch
+
+    got = _as_tuple(kernel_fn(*args))
+    want = _as_tuple(plain_fn(*args))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} differs from its plain version at {_shape(name, args)}")
+    ms = time_ms(lambda: kernel_fn(*args), 20, flush)
+    b = bound(name, args, card)
+    return {
+        "shape": _shape(name, args),
+        "max_abs_err": 0,
+        "ms": ms,
+        "plain_ms": time_ms(lambda: plain_fn(*args), 3, flush),
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "share_of_bound": b["bound_ms"] / ms,
+        "popcount_ms": b["popcount_ms"],
+        "bound_dense_work_ms": bound_dense_work(name, args, card),
+    }
 
 
 def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Card) -> list[dict]:
@@ -1304,6 +1476,7 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
                 "bound_by": b["bound_by"],
                 "library_ms": None,
                 "bytes": b["bytes"],
+                "popcount_ms": b["popcount_ms"],
                 "shape": _shape(name, args),
             }
         )
@@ -1323,6 +1496,20 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             rows[-1]["patch_ms"] = time_ms(lambda: cuda.word_delta_patch(words, out, sh, wi, om, am), 20, flush)
             patch_bytes = _update_bytes(sh, wi, om, am) + 8 * wi.numel()
             rows[-1]["patch_bound_ms"] = patch_bytes / HBM_BYTES_PER_S * 1e3
+        if name in ("dense_scores", "groupby_reduce"):
+            rows[-1]["share_of_bound"] = b["bound_ms"] / ms
+            rows[-1]["bound_dense_work_ms"] = bound_dense_work(name, args, card)
+        if name == "dense_scores":
+            if rec.dense_widest_q is None:
+                raise AssertionError("no dense_scores launch on the dense_tall path")
+            rows[-1]["widest_q_dense_tall"] = _held(name, kernel_fn, plain_fn, rec.dense_widest_q, flush, card)
+        if name == "groupby_reduce":
+            if rec.groupby_count_only is None:
+                raise AssertionError("no count-only GroupBy launch (K > 1, P = 0) on the ssb path")
+            rows[-1]["count_only_panel"] = _held(name, kernel_fn, plain_fn, rec.groupby_count_only, flush, card)
+            nonexcl = nonexclusive_groupby_inputs(device)
+            rows[-1]["dense_nonexclusive"] = _held(name, kernel_fn, plain_fn, nonexcl, flush, card)
+            del nonexcl
         if name == "tree_count":
             rows[-1]["share_of_bound"] = b["bound_ms"] / ms
             rows[-1]["ms_as_before"] = time_ms(lambda: kernel_fn(*args), 20, flush, as_before=True)

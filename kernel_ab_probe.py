@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the tree count (K3) of checkouts of the port in turns on one NVIDIA card.
+"""Time kernels of checkouts of the port in turns on one NVIDIA card.
 
 Run from the root of a checkout:
 
@@ -10,19 +10,38 @@ for example a parent commit unpacked with ``git archive`` into a
 git-ignored directory. The arms run one after another in the order given,
 so ``A B B A`` pairs each arm's runs around the other's. Each arm runs in
 a process of its own and imports that checkout's ``pilosa_tpu_torch``
-(its kernels built from its sources), then times its ``ops.cuda.
-tree_count`` wrapper on the same seeded inputs:
+(its kernels built from its sources), then times its ``ops.cuda``
+wrappers on the same seeded inputs, drawn once by this process:
 
-  chain  4 coalesced Count(chain) queries of the tall index's
-         Union-of-Intersects shape, 5 leaves each over 12 distinct
-         64 x 32768-word stacks (the tall chains' widest launch);
-  one    a one-leaf count of one 32768-word row (the shape launched most).
+  chain        the tree count (K3): 4 coalesced Count(chain) queries of
+               the tall index's Union-of-Intersects shape, 5 leaves each
+               over 12 distinct 64 x 32768-word stacks (the tall chains'
+               widest launch);
+  one          the tree count of one 32768-word row (its most launched
+               shape);
+  dense_q1/4/8/32 the dense scorer (K1) with Q = 1, 4, 8, 32 sources against a
+               4096 x 32768-word matrix, every bit set with probability
+               1/64 (1.56 %, the dense workload's density);
+  groupby_q32  the GroupBy kernel (K4) at SSB Q3.2's launch: customer city
+               x supplier city x year (10 x 10 x 6 groups) under
+               c_nation = s_nation = UNITED STATES, with lo_revenue's 24
+               planes and its not-null plane, over 58 shards;
+  groupby_count_only  the count-only panel GroupBy(Rows(c_region),
+               Rows(s_region)): 25 groups, no filter, no planes;
+  sum          the one-group launch of Sum(field=lo_revenue): 25 planes;
+  groupby_nonexclusive  the dense, non-exclusive shape ``chip_smoke.py``
+               also holds: two set-field dimensions of 8 rows, each bit
+               set with probability 3/8 (a column in about 3 rows of each),
+               lo_revenue's 25 planes, no filter, 58 shards: every group
+               set at nearly every word.
+The ssb columns are drawn as ``chip_smoke.py`` draws them
+(``ssb_columns``) and packed to words with numpy.
 
-Every result must equal a numpy evaluation of the same trees. Times are
+Every result must equal a numpy count of the same function. Times are
 medians of CUDA-event windows taken with this checkout's
-``chip_smoke.time_ms``, both ways: as ``chip_smoke.py`` times now (L2
-flushed by a read, the host's enqueue outside the window) and the
-earlier way (flushed by a write, the enqueue inside).
+``chip_smoke.time_ms``: L2 flushed by a read and the host's enqueue
+outside the window (the tree count also the earlier way, flushed by a
+write and the enqueue inside).
 
 Output: the card's name and power limit, one JSON line per arm, and as
 the last line a summary of every arm's times in run order. Exits nonzero
@@ -34,8 +53,10 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -46,6 +67,12 @@ DISTINCT = 12
 TREE = ("Union", (("Intersect", (("leaf", 0), ("leaf", 1))), ("Intersect", (("leaf", 2), ("leaf", 3))), ("leaf", 4)))
 PICKS = ((0, 1, 2, 3, 4), (0, 5, 6, 3, 7), (8, 1, 9, 3, 10), (0, 11, 2, 3, 4))
 ITERS = 30
+DENSE_SHAPE = (4096, 32768)
+DENSE_QS = (1, 4, 8, 32)
+# AND of this many uniform words: each bit set with probability 1/64
+DENSE_AND = 6
+CASES = ("chain", "one") + tuple(f"dense_q{q}" for q in DENSE_QS) + (
+    "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive")
 
 
 def _smoke():
@@ -56,7 +83,7 @@ def _smoke():
     return mod
 
 
-def _inputs():
+def _tree_inputs():
     rng = np.random.default_rng(2024)
     pool = [rng.integers(0, 2**32, size=LEAF_SHAPE, dtype=np.uint32) for _ in range(DISTINCT)]
     chain = [
@@ -66,8 +93,111 @@ def _inputs():
     return pool, chain, int(np.bitwise_count(pool[0][0]).sum())
 
 
-def run_arm(checkout: str) -> int:
-    """One arm: ``checkout``'s tree count. Prints {"arm", ...} last."""
+def _sparse_words(rng, shape):
+    out = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    for _ in range(DENSE_AND - 1):
+        out &= rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return out
+
+
+def _pack(mask, shards: int, sw: int) -> np.ndarray:
+    """A bool column mask as u32[shards, sw / 32] words, bit i of word j
+    being column 32 j + i of the shard (columns past the end unset)."""
+    full = np.zeros(shards * sw, dtype=bool)
+    full[: mask.size] = mask
+    return np.packbits(full.reshape(shards, sw), axis=1, bitorder="little").view(np.uint32)
+
+
+def _groupby_oracle(dim_cols, ids, sel, bits):
+    """counts[K] and plane_counts[K, P] by numpy over the columns: group
+    index in product order (first dimension slowest)."""
+    k = 1
+    for i in ids:
+        k *= len(i)
+    idx = np.zeros(int(sel.sum()), dtype=np.int64)
+    for col, rows in zip(dim_cols, ids):
+        lut = np.full(int(col.max()) + 1, -1, dtype=np.int64)
+        lut[list(rows)] = np.arange(len(rows))
+        idx = idx * len(rows) + lut[col[sel]]
+    counts = np.bincount(idx, minlength=k)
+    planes = np.stack([np.bincount(idx, weights=b[sel], minlength=k) for b in bits], axis=1) if bits else np.zeros((k, 0))
+    return counts.astype(np.int64), planes.astype(np.int64)
+
+
+def _nonexclusive(smoke, planes) -> dict:
+    """The dense non-exclusive GroupBy case over ``planes`` (u32[S, P, W]):
+    its dimension rows and numpy's counts, group index in product order."""
+    rng = np.random.default_rng(smoke.NONEXCL_SEED)
+    planes = planes[:, : smoke.NONEXCL_PLANES]
+    s, _, w = planes.shape
+    shape = (smoke.NONEXCL_ROWS, s, w)
+    dims = []
+    for _ in range(smoke.NONEXCL_DIMS):
+        a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+        a &= rng.integers(0, 2**32, size=shape, dtype=np.uint32) | rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+        dims.append(a)
+    counts, plane_counts = [], []
+    for i in range(smoke.NONEXCL_ROWS):
+        for j in range(smoke.NONEXCL_ROWS):
+            g = dims[0][i] & dims[1][j]
+            counts.append(int(np.bitwise_count(g).sum(dtype=np.int64)))
+            plane_counts.append(np.bitwise_count(planes & g[:, None, :]).sum(axis=(0, 2), dtype=np.int64))
+    return {
+        **{f"nx_dim{d}": a for d, a in enumerate(dims)},
+        "nx_counts": np.array(counts, dtype=np.int64),
+        "nx_plane_counts": np.stack(plane_counts),
+    }
+
+
+def draw_inputs(smoke, out_dir: str) -> None:
+    """Every input and expected answer of the dense and GroupBy cases,
+    saved as .npy files in ``out_dir``."""
+    rng = np.random.default_rng(1404)
+    mat = _sparse_words(rng, DENSE_SHAPE)
+    srcs = _sparse_words(rng, (max(DENSE_QS), DENSE_SHAPE[1]))
+    want = np.stack([np.bitwise_count(mat & s).sum(axis=1, dtype=np.int64) for s in srcs])
+    np.save(os.path.join(out_dir, "dense_mat.npy"), mat)
+    np.save(os.path.join(out_dir, "dense_srcs.npy"), srcs)
+    np.save(os.path.join(out_dir, "dense_want.npy"), want)
+    del mat
+
+    sw = smoke.SW
+    shards = -(-smoke.SSB_ROWS // sw)
+    parts = [smoke.ssb_columns(s) for s in range(shards)]
+    c = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    del parts
+    us = list(range(smoke.UNITED_STATES * 10, smoke.UNITED_STATES * 10 + 10))
+    years = list(smoke.SSB_YEARS[:6])
+    lo, hi = smoke.SSB_INT_FIELDS["lo_revenue"]
+    depth = smoke._bit_depth(hi - lo)
+    rev = c["lo_revenue"].astype(np.int64) - lo
+    bits = [((rev >> i) & 1).astype(bool) for i in range(depth)] + [np.ones(rev.size, dtype=bool)]
+    arrays = {
+        "q32_dim0": np.stack([_pack(c["c_city"] == r, shards, sw) for r in us]),
+        "q32_dim1": np.stack([_pack(c["s_city"] == r, shards, sw) for r in us]),
+        "q32_dim2": np.stack([_pack(c["d_year"] == y, shards, sw) for y in years]),
+        "q32_filt": _pack((c["c_nation"] == smoke.UNITED_STATES) & (c["s_nation"] == smoke.UNITED_STATES), shards, sw),
+        "planes": np.stack([_pack(b, shards, sw) for b in bits], axis=1),
+        "co_dim0": np.stack([_pack(c["c_region"] == r, shards, sw) for r in range(5)]),
+        "co_dim1": np.stack([_pack(c["s_region"] == r, shards, sw) for r in range(5)]),
+    }
+    sel = (c["c_nation"] == smoke.UNITED_STATES) & (c["s_nation"] == smoke.UNITED_STATES)
+    sel &= np.isin(c["c_city"], us) & np.isin(c["s_city"], us) & np.isin(c["d_year"], years)
+    arrays["q32_counts"], arrays["q32_plane_counts"] = _groupby_oracle(
+        [c["c_city"], c["s_city"], c["d_year"]], [us, us, years], sel, bits
+    )
+    arrays["co_counts"], _ = _groupby_oracle(
+        [c["c_region"], c["s_region"]], [range(5), range(5)], np.ones(rev.size, dtype=bool), []
+    )
+    arrays["sum_plane_counts"] = np.array([int(b.sum()) for b in bits], dtype=np.int64)
+    del c, bits, rev, sel
+    arrays.update(_nonexclusive(smoke, arrays["planes"]))
+    for name, a in arrays.items():
+        np.save(os.path.join(out_dir, name + ".npy"), a)
+
+
+def run_arm(checkout: str, data: str) -> int:
+    """One arm: ``checkout``'s kernels. Prints {"arm", ...} last."""
     sys.path.insert(0, checkout)
     import torch
 
@@ -80,30 +210,55 @@ def run_arm(checkout: str) -> int:
     smoke = _smoke()
     ops.build_kernels()
     dev = torch.device("cuda")
-    pool, chain_want, one_want = _inputs()
+
+    def load(name):
+        return np.load(os.path.join(data, name + ".npy"))
+
+    def up(name):
+        return ops.words_from_numpy(load(name), dev)
+
+    pool, chain_want, one_want = _tree_inputs()
     leaves = [ops.words_from_numpy(a, dev) for a in pool]
+    chain_args = ([[leaves[i] for i in p] for p in PICKS], ops.TreeProgram(TREE))
+    one_args = ([[leaves[0][0]]], ops.TreeProgram(("leaf", 0)))
+    mat, srcs, dense_want = up("dense_mat"), up("dense_srcs"), load("dense_want")
+    planes = up("planes")
+    q32 = ([up(f"q32_dim{i}") for i in range(3)], up("q32_filt"), planes)
+    co = ([up(f"co_dim{i}") for i in range(2)], None, planes[:, :0])
+    sum_args = ([], None, planes)
+    nx = ([up("nx_dim0"), up("nx_dim1")], None, planes[:, : smoke.NONEXCL_PLANES])
+    cuda = ops.cuda
     cases = {
-        "chain": ([[leaves[i] for i in p] for p in PICKS], ops.TreeProgram(TREE), chain_want),
-        "one": ([[leaves[0][0]]], ops.TreeProgram(("leaf", 0)), [one_want]),
+        "chain": (lambda: cuda.tree_count(*chain_args), [chain_want]),
+        "one": (lambda: cuda.tree_count(*one_args), [[one_want]]),
+        "groupby_q32": (lambda: cuda.groupby_reduce(*q32), [load("q32_counts"), load("q32_plane_counts")]),
+        "groupby_count_only": (lambda: cuda.groupby_reduce(*co), [load("co_counts")]),
+        "sum": (lambda: cuda.groupby_reduce(*sum_args)[1][0], [load("sum_plane_counts")]),
+        "groupby_nonexclusive": (lambda: cuda.groupby_reduce(*nx), [load("nx_counts"), load("nx_plane_counts")]),
     }
+    for q in DENSE_QS:
+        s = srcs[:q].contiguous()
+        cases[f"dense_q{q}"] = (lambda s=s: cuda.dense_scores(s, mat), [dense_want[:q]])
+    torch.cuda.synchronize()
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
     out = {"arm": checkout}
-    for name, (args, prog, want) in cases.items():
-        got = ops.cuda.tree_count(args, prog).tolist()
-        if got != want:
-            raise AssertionError(f"{checkout} {name}: {got} != {want}")
-        fn = lambda: ops.cuda.tree_count(args, prog)  # noqa: E731
-        out[name] = {
-            "ms": smoke.time_ms(fn, ITERS, flush),
-            "ms_as_before": smoke.time_ms(fn, ITERS, flush, as_before=True),
-        }
+    for name in CASES:
+        fn, want = cases[name]
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            if not np.array_equal(g.cpu().numpy().astype(np.int64), np.asarray(w, dtype=np.int64)):
+                raise AssertionError(f"{checkout} {name}: differs from the numpy count")
+        out[name] = {"ms": smoke.time_ms(fn, ITERS, flush)}
+        if name in ("chain", "one"):
+            out[name]["ms_as_before"] = smoke.time_ms(fn, ITERS, flush, as_before=True)
     print(json.dumps(out), flush=True)
     return 0
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) >= 2 and argv[0] == "--arm":
-        return run_arm(os.path.abspath(argv[1]))
+    if len(argv) >= 3 and argv[0] == "--arm":
+        return run_arm(os.path.abspath(argv[1]), argv[2])
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -112,20 +267,26 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab_probe.py: no CUDA device", file=sys.stderr)
         return 2
-    print(_smoke().card_line(), flush=True)
-    rows = []
-    for d in argv:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--arm", os.path.abspath(d)],
-            capture_output=True, text=True, timeout=900,
-        )
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            return 1
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    print(json.dumps({"summary": [{"arm": r["arm"], **{k: r[k] for k in ("chain", "one")}} for r in rows]}))
+    smoke = _smoke()
+    print(smoke.card_line(), flush=True)
+    data = tempfile.mkdtemp(prefix="kernel_ab_probe_")
+    try:
+        draw_inputs(smoke, data)
+        rows = []
+        for d in argv:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--arm", os.path.abspath(d), data],
+                capture_output=True, text=True, timeout=900,
+            )
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                return 1
+            row = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    print(json.dumps({"summary": [{"arm": r["arm"], **{k: r[k]["ms"] for k in CASES}} for r in rows]}))
     return 0
 
 

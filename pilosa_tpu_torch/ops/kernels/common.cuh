@@ -21,3 +21,16 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
+
+// d += popcount(a & b) over 256 bits for a 16 x 8 tile (mma.sync
+// m16n8k256 .b1 .and.popc): a0/a2 row g, a1/a3 row g + 8, b0/b1 column g
+// of lane (g, t), at its two k words.
+__device__ __forceinline__ void mma_and_popc(unsigned (&d)[4], unsigned a0, unsigned a1,
+                                             unsigned a2, unsigned a3, unsigned b0,
+                                             unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}

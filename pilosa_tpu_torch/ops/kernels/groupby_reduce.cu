@@ -9,33 +9,44 @@
 // its jit twins combine_groups / groupby_counts / groupby_plane_counts /
 // groupby_sum_reduce in pilosa_tpu/ops/packed.py), fused with its producer:
 // the JAX path writes the [K, Wf] group matrix to HBM and re-reads it once
-// per plane; here a group's words live only in registers.
+// per plane; here no group word leaves a register.
 //
-// Bound: operations. The work is K * Wf * (P + 1) popcounts of 32-bit words
-// (16 a clock per SM on compute capability 9.0), against one read of the
-// dimension rows, the filter and the planes.
+// Bound: what the inputs need. A filtered panel (SSB Q3.2: 600 groups over
+// 1/625 of the columns) holds few non-zero group words, so its bound is the
+// bytes of the filter plus the other rows where the filter is set; only a
+// dense panel (no filter, every group set at every word) is bound by its
+// K * Wf * (P + 1) popcounts.
 //
-// Design: one warp per group and word range; the lanes walk 16-byte vectors
-// of the flattened word axis, so every load is coalesced. Each lane keeps its
-// counts in registers (one accumulator per plane, PMAX a template bound) over
-// its whole range; a warp shuffle reduces them once and lane 0 adds them to
-// the outputs with integer atomics (exact in any order). Inputs are read in
-// place through their strides: a staged [S, P, W] plane stack needs no
-// transpose. Two shapes of block:
-//   * K >= 8 (a GroupBy panel): 8 groups, one warp each, share a word
-//     range. The block stages each tile of the planes and the filter in
-//     shared memory once, and all 8 warps read it from there, so a plane
-//     word crosses L2 once per 8 groups instead of once per group; only the
-//     dimension rows, which differ per group, are read per warp. Without
-//     the staging (the first version of this kernel) the planes were read
-//     per warp and the panel took 8x its popcount bound.
-//   * K < 8 (Sum: K = 1): there is no reuse to stage, so the warps of a
-//     block and the grid's second axis split the word range instead, and
-//     132 SMs stay busy.
-// The grid's fast axis is the group block, so blocks that share a word range
-// run together and share it in L2.
+// Design: three paths, chosen by what the launch shows (K, P, a filter).
+//   * A panel with a filter, planes, or too wide for the count-only path
+//     below, walks the word axis once. Each warp reads the filter 32 words at a
+//     time and gathers the words where it is set in shared memory until
+//     every lane has one; then each lane walks its own word's groups depth
+//     first over the dimensions, first dimension slowest, with a running AND
+//     in a register: it loads 8 rows of a dimension at once, descends only
+//     into rows its AND keeps (so a group word is reached only where it is
+//     set, and every group it is set in is reached, exclusive rows or not),
+//     and at a reached group adds popcount(g) and popcount(g & plane[p])
+//     (plane words loaded once per word) to a K x (P + 1) histogram in
+//     shared memory. A lane reads only the sectors where the filter is set.
+//     (A first version walked each 32-word chunk with the whole warp, voting
+//     on rows and summing counts over the lanes: at Q3.2's density some 5 %
+//     of its lanes had work, and it took more than twice as long.)
+//   * An unfiltered count-only panel of at most 64 groups and 16 rows
+//     (GroupBy(Rows(c_region), Rows(s_region))) has every group set nearly
+//     everywhere: its rows stream once through shared memory and each
+//     thread counts a quarter of the groups at a 16-byte vector in
+//     registers.
+//   * K = 1 (Sum through bsi_plane_counts) has one group set wherever the
+//     filter is: one warp per word range, 16-byte loads, a register
+//     accumulator per plane and one reduction at the end.
+// The grids are persistent (as many blocks as fit on the SMs, one for K = 1
+// per word range) and each block adds its non-zero sums to the outputs once,
+// with integer atomics (exact in any order); a histogram too big for shared
+// memory (K x (P + 1) over 200 KB) adds to the outputs directly.
 
 #include "common.cuh"
+#include "tma.cuh"
 
 #define GB_MAX_DIMS 8
 
@@ -57,49 +68,62 @@ struct GbArgs {
   int nplanes;
   long long wv;          // vectors per shard
   long long nv;          // vectors in all
-  long long split_vecs;  // vectors per grid.y split
+  long long split_vecs;  // vectors per block of the streaming kernel (K = 1)
   int k;
-  int groups_per_block;  // warps of a block / warps per group
-  int warps_per_group;
   int32_t* counts;
   int32_t* plane_counts;
 };
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// the largest shared histogram, K x (P + 1) counts
+constexpr size_t kHistMaxBytes = 200 * 1024;
+// the dense count-only path: groups, rows, vectors per tile row, ring depth
+constexpr int kCountGroups = 64;
+constexpr int kCountRows = 16;
+constexpr int kCountVecs = 64;
+constexpr int kCountStages = 4;
+// rows of a dimension the walk loads at once
+constexpr int kWalkBatch = 8;
 
 __device__ __forceinline__ uint4 and4(uint4 a, const uint4 b) {
   a.x &= b.x; a.y &= b.y; a.z &= b.z; a.w &= b.w;
   return a;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// -- K = 1: streaming ----------------------------------------------------------------
+
 template <int PMAX>
 __global__ void __launch_bounds__(kThreads)
-groupby_reduce_kernel(const GbArgs a) {
+groupby_stream_kernel(const __grid_constant__ GbArgs a) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * a.groups_per_block + warp / a.warps_per_group;
-  const int sub = warp % a.warps_per_group;
-  if (k >= a.k) return;  // whole warp; the kernel has no block barrier
 
-  // this group's row of each dimension, last dimension fastest
+  // the one group's row of each dimension (every dimension has one row)
   const uint4* rowp[GB_MAX_DIMS];
-  long long rem = k;
 #pragma unroll
-  for (int d = GB_MAX_DIMS - 1; d >= 0; --d) {
-    rowp[d] = nullptr;
-    if (d < a.ndims) {
-      const int r = (int)(rem % a.dims[d].rows);
-      rem /= a.dims[d].rows;
-      rowp[d] = a.dims[d].base + (long long)r * a.dims[d].row_stride;
-    }
-  }
+  for (int d = 0; d < GB_MAX_DIMS; ++d) rowp[d] = d < a.ndims ? a.dims[d].base : nullptr;
 
-  const long long v_begin = (long long)blockIdx.y * a.split_vecs;
+  const long long v_begin = (long long)blockIdx.x * a.split_vecs;
   long long v_end = v_begin + a.split_vecs;
   if (v_end > a.nv) v_end = a.nv;
-  const long long step = (long long)a.warps_per_group * 32;
-  long long v = v_begin + (long long)sub * 32 + lane;
+  const long long step = (long long)kThreads;
+  long long v = v_begin + (long long)warp * 32 + lane;
   long long s = v / a.wv;  // once; then carried incrementally
   long long w = v - s * a.wv;
 
@@ -129,119 +153,303 @@ groupby_reduce_kernel(const GbArgs a) {
   }
 
   cnt = warp_sum(cnt);
-  if (lane == 0 && cnt != 0) atomicAdd(a.counts + k, (int)cnt);
+  if (lane == 0 && cnt != 0) atomicAdd(a.counts, (int)cnt);
 #pragma unroll
   for (int p = 0; p < PMAX; ++p) {
     if (p < a.nplanes) {
       const unsigned t = warp_sum(acc[p]);
-      if (lane == 0 && t != 0) atomicAdd(a.plane_counts + k * a.nplanes + p, (int)t);
+      if (lane == 0 && t != 0) atomicAdd(a.plane_counts + p, (int)t);
     }
   }
 }
 
-// Vectors per shared-memory tile of the planes: (P + 1) x TILE x 16 bytes.
-template <int PMAX>
-struct Tile {
-  static constexpr int kVecs = PMAX <= 32 ? 128 : 64;
-};
+// -- a dense count-only panel: no filter, no planes, K <= 64, 16 rows --------------------
 
-template <int PMAX>
+// Every group is set at nearly every word and there are few rows to read:
+// the rows stream once through a 4-stage ring in shared memory (cp.async,
+// 16 bytes a thread at a time, so many loads are in flight), and each
+// thread counts a quarter of the groups at one 16-byte vector of each tile
+// into registers of its own.
+template <int KMAX>
 __global__ void __launch_bounds__(kThreads)
-groupby_tiled_kernel(const GbArgs a) {
-  constexpr int T = Tile<PMAX>::kVecs;
-  extern __shared__ uint4 s_tile[];  // [nplanes + 1][T]: planes, then the filter
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * kWarps + warp;
-  const bool active = k < a.k;  // idle warps still load and synchronise
-
-  const uint4* rowp[GB_MAX_DIMS];
-  long long rem = active ? k : 0;
-#pragma unroll
-  for (int d = GB_MAX_DIMS - 1; d >= 0; --d) {
-    rowp[d] = nullptr;
-    if (d < a.ndims) {
-      const int r = (int)(rem % a.dims[d].rows);
+groupby_count_kernel(const __grid_constant__ GbArgs a, int nrows) {
+  constexpr int KT = KMAX / 4;  // groups a thread counts
+  extern __shared__ uint4 s_ring[];  // [kCountStages][kCountRows][kCountVecs]
+  __shared__ const uint4* s_base[kCountRows];
+  __shared__ long long s_shard[kCountRows];
+  __shared__ unsigned char s_row[KMAX * GB_MAX_DIMS];  // group k's flat row in dim d
+  __shared__ unsigned s_cnt[KMAX];
+  const int tid = threadIdx.x;
+  if (tid < KMAX) s_cnt[tid] = 0;
+  if (tid == 0) {
+    int j = 0;
+    for (int d = 0; d < a.ndims; ++d)
+      for (int r = 0; r < a.dims[d].rows; ++r, ++j) {
+        s_base[j] = a.dims[d].base + (long long)r * a.dims[d].row_stride;
+        s_shard[j] = a.dims[d].shard_stride;
+      }
+  }
+  for (int k = tid; k < a.k; k += kThreads) {
+    int rem = k, first = nrows;
+    for (int d = a.ndims - 1; d >= 0; --d) {
+      first -= a.dims[d].rows;
+      s_row[k * GB_MAX_DIMS + d] = (unsigned char)(first + rem % a.dims[d].rows);
       rem /= a.dims[d].rows;
-      rowp[d] = a.dims[d].base + (long long)r * a.dims[d].row_stride;
     }
   }
+  __syncthreads();
 
-  long long v = (long long)blockIdx.y * a.split_vecs;
-  long long v_end = v + a.split_vecs;
-  if (v_end > a.nv) v_end = a.nv;
-  long long s = v / a.wv;
-  long long w = v - s * a.wv;
-  const int np = a.nplanes;
-  uint4* s_filt = s_tile + np * T;
-
-  unsigned cnt = 0;
-  unsigned acc[PMAX];
-#pragma unroll
-  for (int p = 0; p < PMAX; ++p) acc[p] = 0;
-
-  while (v < v_end) {
-    // a tile never crosses a shard
-    long long n = a.wv - w;
-    if (n > v_end - v) n = v_end - v;
-    if (n > T) n = T;
-    const uint4* pbase = a.planes + s * a.plane_shard_stride + w;
-    for (int i = threadIdx.x; i < (np + 1) * T; i += kThreads) {
-      const int p = i / T;  // T is a power of two
-      const int j = i - p * T;
-      if (j >= n) continue;
-      if (p < np)
-        s_tile[i] = __ldg(pbase + (long long)p * a.plane_stride + j);
-      else
-        s_filt[j] = a.filt != nullptr ? __ldg(a.filt + s * a.filt_shard_stride + w + j)
-                                      : make_uint4(~0u, ~0u, ~0u, ~0u);
+  const unsigned wv = (unsigned)a.wv;
+  const long long ntiles_all = (a.nv + kCountVecs - 1) / kCountVecs;
+  const long long per = (ntiles_all + gridDim.x - 1) / gridDim.x;
+  const long long t0 = (long long)blockIdx.x * per;
+  const long long t1 = min(t0 + per, ntiles_all);
+  auto issue = [&](long long j) {
+    if (j < t1) {
+      uint4* dst = s_ring + (size_t)(j % kCountStages) * kCountRows * kCountVecs;
+      for (int i = tid; i < nrows * kCountVecs; i += kThreads) {
+        const int row = i / kCountVecs;
+        const int vv = i - row * kCountVecs;
+        const long long v = j * kCountVecs + vv;
+        if (v >= a.nv) continue;
+        const unsigned s = (unsigned)(v / wv);
+        const unsigned w = (unsigned)(v - (long long)s * wv);
+        cp_async16(dst + row * kCountVecs + vv, s_base[row] + (long long)s * s_shard[row] + w);
+      }
     }
+    cp_async_commit();
+  };
+  for (int j = 0; j < kCountStages - 1; ++j) issue(t0 + j);
+
+  const int vv = tid % kCountVecs;
+  const int part = tid / kCountVecs;  // groups k = part + 4 i
+  unsigned acc[KT];
+#pragma unroll
+  for (int i = 0; i < KT; ++i) acc[i] = 0;
+  for (long long j = t0; j < t1; ++j) {
+    issue(j + kCountStages - 1);  // into the stage the last barrier freed
+    cp_async_wait<kCountStages - 1>();
     __syncthreads();
-    if (active) {
-      for (int j = lane; j < n; j += 32) {
-        uint4 g = s_filt[j];
+    const uint4* tile = s_ring + (size_t)(j % kCountStages) * kCountRows * kCountVecs + vv;
+    if (j * kCountVecs + vv < a.nv) {
 #pragma unroll
-        for (int d = 0; d < GB_MAX_DIMS; ++d)
-          if (d < a.ndims) g = and4(g, __ldg(rowp[d] + s * a.dims[d].shard_stride + w + j));
-        cnt += popc4(g);
+      for (int i = 0; i < KT; ++i) {
+        const int k = part + 4 * i;
+        if (k < a.k) {
+          uint4 g = make_uint4(~0u, ~0u, ~0u, ~0u);
 #pragma unroll
-        for (int p = 0; p < PMAX; ++p)
-          if (p < np) acc[p] += popc_and(g, s_tile[p * T + j]);
+          for (int d = 0; d < GB_MAX_DIMS; ++d)
+            if (d < a.ndims) g = and4(g, tile[s_row[k * GB_MAX_DIMS + d] * kCountVecs]);
+          acc[i] += popc4(g);
+        }
       }
     }
     __syncthreads();
-    v += n;
-    w += n;
-    if (w == a.wv) {
-      w = 0;
-      ++s;
-    }
   }
-
-  if (!active) return;
-  cnt = warp_sum(cnt);
-  if (lane == 0 && cnt != 0) atomicAdd(a.counts + k, (int)cnt);
+  cp_async_wait<0>();
 #pragma unroll
-  for (int p = 0; p < PMAX; ++p) {
-    if (p < np) {
-      const unsigned t = warp_sum(acc[p]);
-      if (lane == 0 && t != 0) atomicAdd(a.plane_counts + k * np + p, (int)t);
+  for (int i = 0; i < KT; ++i) {
+    const int k = part + 4 * i;
+    const unsigned t = warp_sum(acc[i]);  // a warp shares its part
+    if ((tid & 31) == 0 && k < a.k && t != 0) atomicAdd(&s_cnt[k], t);
+  }
+  __syncthreads();
+  if (tid < a.k && s_cnt[tid] != 0) atomicAdd(a.counts + tid, (int)s_cnt[tid]);
+}
+
+// -- K >= 2: the walk over the groups that are set -----------------------------------
+
+// Adds v to entry idx (0 the count, 1 + p plane p) of group k.
+__device__ __forceinline__ void gb_add(const GbArgs& a, unsigned* hist, int k, int idx, unsigned v) {
+  const int np = a.nplanes;
+  if (hist != nullptr)
+    atomicAdd(hist + (size_t)k * (np + 1) + idx, v);
+  else if (idx == 0)
+    atomicAdd(a.counts + k, (int)v);
+  else
+    atomicAdd(a.plane_counts + (size_t)k * np + idx - 1, (int)v);
+}
+
+// Dimension L under the running AND g of groups k (the product index of the
+// rows chosen so far), walked by one lane over its own word; rowp[d] points
+// at the lane's word in row 0 of d. A reached group adds its P + 1 counts
+// with the lane's atomics.
+template <int L, int PMAX>
+__device__ __forceinline__ void gb_lane_walk(const GbArgs& a, const uint32_t* const (&rowp)[GB_MAX_DIMS],
+                                             const unsigned (&pl)[PMAX > 0 ? PMAX : 1],
+                                             unsigned* hist, unsigned g, int k) {
+  if (L == a.ndims) {
+    gb_add(a, hist, k, 0, __popc(g));
+#pragma unroll
+    for (int p = 0; p < PMAX; ++p) {
+      if (p < a.nplanes) {
+        const unsigned v = __popc(g & pl[p]);
+        if (v != 0) gb_add(a, hist, k, 1 + p, v);
+      }
+    }
+    return;
+  }
+  if constexpr (L < GB_MAX_DIMS) {
+    const int rows = a.dims[L].rows;
+    const long long rs = a.dims[L].row_stride * 4;  // words
+    const uint32_t* p = rowp[L];
+    for (int r0 = 0; r0 < rows; r0 += kWalkBatch) {
+      unsigned m = 0;  // kWalkBatch rows in flight, then the ones to descend into
+#pragma unroll
+      for (int i = 0; i < kWalkBatch; ++i)
+        if (r0 + i < rows && (g & __ldg(p + (long long)(r0 + i) * rs)) != 0) m |= 1u << i;
+      while (m != 0) {
+        const int i = __ffs(m) - 1;
+        m &= m - 1;
+        gb_lane_walk<L + 1, PMAX>(a, rowp, pl, hist, g & __ldg(p + (long long)(r0 + i) * rs),
+                                  k * rows + r0 + i);
+      }
     }
   }
 }
 
 template <int PMAX>
-static cudaError_t launch(const GbArgs& a, dim3 grid, cudaStream_t stream) {
-  if (a.groups_per_block < kWarps || PMAX == 0) {
-    groupby_reduce_kernel<PMAX><<<grid, kThreads, 0, stream>>>(a);
-    return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+groupby_walk_kernel(const __grid_constant__ GbArgs a, int use_hist) {
+  extern __shared__ unsigned hist_s[];
+  // words where the filter is set, gathered per warp until every lane has
+  // one: (word index, filter word)
+  __shared__ uint2 s_queue[kWarps][2 * 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int np = a.nplanes;
+  unsigned* hist = use_hist ? hist_s : nullptr;
+  const int nent = use_hist ? a.k * (np + 1) : 0;
+  for (int i = threadIdx.x; i < nent; i += kThreads) hist_s[i] = 0;
+  __syncthreads();
+
+  const unsigned wsh = (unsigned)a.wv * 4;  // words per shard
+  const unsigned nwords = (unsigned)a.nv * 4;
+  const uint32_t* filt = reinterpret_cast<const uint32_t*>(a.filt);
+  const uint32_t* planes = reinterpret_cast<const uint32_t*>(a.planes);
+  const unsigned nchunks = (nwords + 31) / 32;
+  const unsigned total = gridDim.x * kWarps;
+
+  // this lane's rows and planes at word i
+  auto setup = [&](unsigned i, unsigned f, const uint32_t* (&rowp)[GB_MAX_DIMS],
+                   unsigned (&pl)[PMAX > 0 ? PMAX : 1]) {
+    const unsigned s = i / wsh;
+    const unsigned w = i - s * wsh;
+#pragma unroll
+    for (int d = 0; d < GB_MAX_DIMS; ++d)
+      rowp[d] = d < a.ndims ? reinterpret_cast<const uint32_t*>(a.dims[d].base) +
+                                  (long long)s * a.dims[d].shard_stride * 4 + w
+                            : nullptr;
+    const uint32_t* pp = planes + (long long)s * a.plane_shard_stride * 4 + w;
+#pragma unroll
+    for (int p = 0; p < (PMAX > 0 ? PMAX : 1); ++p)
+      pl[p] = (PMAX > 0 && p < np && f != 0) ? __ldg(pp + (long long)p * a.plane_stride * 4) : 0u;
+  };
+  const uint32_t* rowp[GB_MAX_DIMS];
+  unsigned pl[PMAX > 0 ? PMAX : 1];
+
+  // gather the words where the filter is set until every lane has one,
+  // then each lane walks its own
+  uint2* q = s_queue[warp];
+  int qn = 0;  // uniform
+  const unsigned lt = (1u << lane) - 1u;
+  for (unsigned ch = blockIdx.x * kWarps + warp;; ch += total) {
+    const bool more = ch < nchunks;  // uniform
+    if (more) {
+      const unsigned i = ch * 32 + lane;
+      unsigned f = 0;
+      if (i < nwords) {
+        const unsigned s = i / wsh;
+        f = filt != nullptr ? __ldg(filt + (long long)s * a.filt_shard_stride * 4 + (i - s * wsh))
+                            : ~0u;
+      }
+      const unsigned bal = __ballot_sync(kFull, f != 0);
+      if (f != 0) q[qn + __popc(bal & lt)] = make_uint2(i, f);
+      qn += __popc(bal);
+      __syncwarp();
+    }
+    if (qn >= 32 || (!more && qn > 0)) {
+      const uint2 e = lane < qn ? q[lane] : make_uint2(0, 0);
+      __syncwarp();
+      if (qn > 32 && lane < qn - 32) q[lane] = q[32 + lane];
+      qn = qn > 32 ? qn - 32 : 0;
+      __syncwarp();
+      setup(e.x, e.y, rowp, pl);
+      if (e.y != 0) gb_lane_walk<0, PMAX>(a, rowp, pl, hist, e.y, 0);
+      __syncwarp();
+    }
+    if (!more && qn == 0) break;
   }
-  constexpr int P = PMAX > 0 ? PMAX : 1;
-  const size_t smem = (size_t)(a.nplanes + 1) * Tile<P>::kVecs * sizeof(uint4);
-  cudaError_t e = cudaFuncSetAttribute(groupby_tiled_kernel<P>,
+
+  if (!use_hist) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nent; i += kThreads) {
+    const unsigned v = hist_s[i];
+    if (v == 0) continue;
+    const int k = i / (np + 1);
+    const int idx = i - k * (np + 1);
+    if (idx == 0)
+      atomicAdd(a.counts + k, (int)v);
+    else
+      atomicAdd(a.plane_counts + (size_t)k * np + idx - 1, (int)v);
+  }
+}
+
+template <int KMAX>
+static cudaError_t launch_count(const GbArgs& a, int nrows, int sms, cudaStream_t stream) {
+  const size_t smem = (size_t)kCountStages * kCountRows * kCountVecs * sizeof(uint4);
+  cudaError_t e = cudaFuncSetAttribute(groupby_count_kernel<KMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  groupby_tiled_kernel<P><<<grid, kThreads, smem, stream>>>(a);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, groupby_count_kernel<KMAX>, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long tiles = (a.nv + kCountVecs - 1) / kCountVecs;
+  if (blocks > tiles) blocks = tiles;
+  groupby_count_kernel<KMAX><<<(unsigned)blocks, kThreads, smem, stream>>>(a, nrows);
+  return cudaGetLastError();
+}
+
+template <int PMAX>
+static cudaError_t launch(const GbArgs& a, int sms, cudaStream_t stream) {
+  if (a.k == 1) {
+    // split the word axis until about 8 blocks per SM are in flight,
+    // keeping at least 4 steps of 32 vectors per warp
+    GbArgs b = a;
+    const long long per_block_min = (long long)kThreads * 4;
+    long long splits = (long long)sms * 8;
+    const long long max_splits = (a.nv + per_block_min - 1) / per_block_min;
+    if (splits > max_splits) splits = max_splits;
+    if (splits < 1) splits = 1;
+    b.split_vecs = (a.nv + splits - 1) / splits;
+    splits = (a.nv + b.split_vecs - 1) / b.split_vecs;
+    groupby_stream_kernel<PMAX><<<(unsigned)splits, kThreads, 0, stream>>>(b);
+    return cudaGetLastError();
+  }
+  int nrows = 0;
+  for (int d = 0; d < a.ndims; ++d) nrows += a.dims[d].rows;
+  if (a.filt == nullptr && a.nplanes == 0 && a.k <= kCountGroups && nrows <= kCountRows)
+    return a.k <= 16   ? launch_count<16>(a, nrows, sms, stream)
+           : a.k <= 32 ? launch_count<32>(a, nrows, sms, stream)
+                       : launch_count<64>(a, nrows, sms, stream);
+  const size_t hist_bytes = (size_t)a.k * (a.nplanes + 1) * sizeof(unsigned);
+  const int use_hist = hist_bytes <= kHistMaxBytes;
+  const size_t smem = use_hist ? hist_bytes : 0;
+  cudaError_t e = cudaFuncSetAttribute(groupby_walk_kernel<PMAX>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, groupby_walk_kernel<PMAX>, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) per_sm = 1;
+  const long long chunks = (a.nv * 4 + 31) / 32;
+  long long blocks = (long long)sms * per_sm;
+  const long long most = (chunks + kWarps - 1) / kWarps;
+  if (blocks > most) blocks = most;
+  groupby_walk_kernel<PMAX><<<(unsigned)blocks, kThreads, smem, stream>>>(a, use_hist);
   return cudaGetLastError();
 }
 
@@ -257,8 +465,9 @@ extern "C" int pilosa_groupby_reduce(const GbDim* dims, int ndims, const void* f
                                      int nplanes, long long s, long long wv, long long k,
                                      void* counts, void* plane_counts, int device,
                                      void* stream) {
+  // the walk indexes words with 32-bit integers
   if (ndims < 0 || ndims > GB_MAX_DIMS || nplanes < 0 || nplanes > 64 || k < 1 ||
-      k > 0x7fffffffLL || s < 1 || wv < 1)
+      k > 0x7fffffffLL || s < 1 || wv < 1 || s * wv * 4 + 32 > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -281,29 +490,10 @@ extern "C" int pilosa_groupby_reduce(const GbDim* dims, int ndims, const void* f
   a.counts = static_cast<int32_t*>(counts);
   a.plane_counts = static_cast<int32_t*>(plane_counts);
 
-  // groups per block: 8 (one warp each) when K allows, else fewer groups
-  // with several warps splitting each group's words
-  int gpb = kWarps;
-  while (gpb > 1 && k < gpb) gpb >>= 1;
-  a.groups_per_block = gpb;
-  a.warps_per_group = kWarps / gpb;
-  const long long group_blocks = (k + gpb - 1) / gpb;
-  // split the word axis until about 8 blocks per SM are in flight, keeping
-  // at least 4 steps of 32 vectors per warp
-  const long long per_warp_min = (long long)a.warps_per_group * 32 * 4;
-  long long max_splits = (a.nv + per_warp_min - 1) / per_warp_min;
-  if (max_splits > 65535) max_splits = 65535;
-  long long splits = ((long long)sms * 8 + group_blocks - 1) / group_blocks;
-  if (splits > max_splits) splits = max_splits;
-  if (splits < 1) splits = 1;
-  a.split_vecs = (a.nv + splits - 1) / splits;
-  splits = (a.nv + a.split_vecs - 1) / a.split_vecs;
-  if (group_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)group_blocks, (unsigned)splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nplanes == 0) return (int)launch<0>(a, grid, st);
-  if (nplanes <= 8) return (int)launch<8>(a, grid, st);
-  if (nplanes <= 16) return (int)launch<16>(a, grid, st);
-  if (nplanes <= 32) return (int)launch<32>(a, grid, st);
-  return (int)launch<64>(a, grid, st);
+  if (nplanes == 0) return (int)launch<0>(a, sms, st);
+  if (nplanes <= 8) return (int)launch<8>(a, sms, st);
+  if (nplanes <= 16) return (int)launch<16>(a, sms, st);
+  if (nplanes <= 32) return (int)launch<32>(a, sms, st);
+  return (int)launch<64>(a, sms, st);
 }

@@ -31,7 +31,11 @@ def _words(rng, shape, dev, ones_rows=1):
     return ops.words_from_numpy(a, dev)
 
 
-@pytest.mark.parametrize("q,r,w", [(1, 5, 4096), (3, 130, 4096), (8, 64, 32768), (33, 17, 1024)])
+@pytest.mark.parametrize(
+    "q,r,w",
+    [(1, 5, 4096), (3, 130, 4096), (8, 64, 32768), (33, 17, 1024),
+     (9, 40, 1028), (32, 33, 2052), (1, 17, 516), (4, 16, 4), (65, 3, 260)],
+)
 def test_dense_scores_matches_plain(dev, q, r, w):
     rng = np.random.default_rng(q * 1000 + r)
     srcs = _words(rng, (q, w), dev)
@@ -44,6 +48,34 @@ def test_dense_scores_matches_plain(dev, q, r, w):
     assert torch.equal(got, want)
     # the public wrapper routes CUDA tensors to the kernel
     assert torch.equal(ops.intersection_counts_matrix(srcs[0], mat), want[0])
+
+
+def _sparse(rng, shape, dev, ands=5):
+    """Words whose bits are set with probability 2^-(ands + 1)."""
+    a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    for _ in range(ands):
+        a &= rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return ops.words_from_numpy(a, dev)
+
+
+@pytest.mark.parametrize("q", [1, 3, 8, 9, 32, 33])
+@pytest.mark.parametrize("r,w", [(37, 1540), (16, 8192)])
+def test_dense_scores_sparse_zero_and_full_sources(dev, q, r, w):
+    """Sources at the dense workload's density (1/64), one all-zero and
+    one all-ones, against a sparse matrix: R not a multiple of the 16-row
+    tile, W not a multiple of the word tile."""
+    rng = np.random.default_rng(q * 7 + r + w)
+    srcs = _sparse(rng, (q, w), dev)
+    srcs[0] = 0
+    srcs[-1] = -1
+    mat = _sparse(rng, (r, w), dev)
+    mat[r // 2] = -1
+    got = ops.cuda.dense_scores(srcs, mat)
+    want = ops.intersection_counts_matrix_plain(srcs, mat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if q > 1:
+        assert int(got[0].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("q,s,with_shard", [(1, 1, False), (1, 3, True), (5, 3, True), (40, 2, True)])
@@ -216,6 +248,64 @@ def test_groupby_reduce_matches_plain(dev, rows, p, s, with_filter, w):
     torch.cuda.synchronize()
     assert ops.cuda.GROUPBY_REDUCE.launches == before + 1
     want = ops.groupby_reduce_plain(dims, filt, planes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _dense38(rng, shape, dev):
+    """Set-field rows where a column sits in about 3 of every 8 rows."""
+    a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    a &= rng.integers(0, 2**32, size=shape, dtype=np.uint32) | rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return ops.words_from_numpy(a, dev)
+
+
+# name: (rows per dimension, planes, shards, words per shard, filter, dense rows)
+WALK_CASES = {
+    "nonexclusive": ((8, 8), 25, 3, 1024, "sparse", True),
+    "dense_count_only": ((5, 5), 0, 2, 4096, None, True),
+    "dense_count_only_64_groups": ((4, 4, 4), 0, 3, 1036, None, True),
+    "dense_count_only_65_groups": ((5, 13), 0, 2, 1024, None, True),
+    "dense_count_only_17_rows": ((14, 3), 0, 2, 1024, None, True),
+    "dense_planes_no_filter": ((8, 8), 25, 2, 1024, None, True),
+    "dense_31_planes": ((4, 4), 31, 2, 1036, None, True),
+    "dense_32_planes": ((3, 3), 32, 1, 512, None, True),
+    "past_shared_histogram": ((100, 40), 25, 1, 256, "sparse", True),
+    "k1_filter": ((), 25, 3, 2048, "sparse", False),
+    "k1_no_filter": ((), 25, 3, 2048, None, False),
+    "k1_one_row_dims": ((1, 1), 7, 2, 1024, "sparse", True),
+    "p0": ((6, 7), 0, 2, 1024, "sparse", True),
+    "p64": ((3, 4), 64, 2, 1024, "sparse", True),
+    "one_dim": ((50,), 9, 2, 2048, "sparse", False),
+    "eight_dims": ((2, 2, 2, 2, 2, 2, 2, 3), 3, 2, 1024, None, True),
+    "filter_all_zero": ((4, 3), 5, 2, 512, "zero", True),
+    "ragged_words": ((3, 5), 11, 3, 36, "dense", True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_groupby_reduce_walk_cases(dev, case):
+    """The enumerating kernel (K >= 2), the streaming one (K = 1) and the
+    count-only ring (no filter, no planes, K <= 64, 16 rows) at the shapes
+    that stress each: columns in several rows of one dimension, a dense
+    cross product with no filter, a histogram too big for shared
+    memory (4,000 groups x 26 counts), P = 0 and P = 64, 1 and 8
+    dimensions, an all-zero filter, shards of 36 words."""
+    rows, p, s, w, filt_kind, dense_rows = WALK_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + p)
+    dims = [(_dense38 if dense_rows else _sparse)(rng, (r, s, w), dev) for r in rows]
+    if dims and dims[0].shape[0] > 1:
+        dims[0][1] |= dims[0][0]  # a column in two rows of one dimension
+    filt = None
+    if filt_kind == "sparse":
+        filt = _sparse(rng, (s, w), dev, ands=3)
+        filt[0, :8] = -1
+    elif filt_kind == "zero":
+        filt = torch.zeros((s, w), dtype=torch.int32, device=dev)
+    elif filt_kind == "dense":
+        filt = _words(rng, (s, w), dev)
+    planes = _words(rng, (s, p, w), dev) if p else torch.empty((s, 0, w), dtype=torch.int32, device=dev)
+    got = ops.cuda.groupby_reduce(dims, filt, planes)
+    want = ops.groupby_reduce_plain(dims, filt, planes)
+    torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

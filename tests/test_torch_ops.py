@@ -8,6 +8,8 @@ Inputs include all-ones words (0xFFFFFFFF), which catch sign bugs in the
 port's int32 view of the u32 words.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -292,3 +294,114 @@ def test_kernel_program_matches_tree(name):
     assert len(prog.kernel_code) <= len(prog.code)
     if name in ("intersect_of_unions", "difference_of_union", "single_leaf"):
         assert prog.spill <= 1
+
+
+# -- the bound's counts (chip_smoke.py): what a launch's inputs need ----------------
+
+
+def _smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sparse_u32(rng, shape, ands=3):
+    a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    for _ in range(ands):
+        a &= rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return a
+
+
+def _need_brute(dims, filt, planes):
+    """Non-zero group words (every group of the cross product, first
+    dimension slowest) and the 8-word sectors where the filter is set."""
+    s, _, w = planes.shape
+    flat = [d.reshape(d.shape[0], s * w) for d in dims]
+    f = np.full(s * w, 0xFFFFFFFF, dtype=np.uint32) if filt is None else filt.reshape(-1)
+    words = 0
+    for rows in itertools.product(*[range(d.shape[0]) for d in flat]):
+        g = f.copy()
+        for d, r in zip(flat, rows):
+            g &= d[r]
+        words += int(np.count_nonzero(g))
+    sectors = sum(1 for i in range(0, s * w, 8) if np.any(f[i : i + 8]))
+    return words, sectors
+
+
+@pytest.mark.parametrize(
+    "rows,p,s,w,with_filter,ones",
+    [((3, 2), 3, 2, 36, True, False), ((3, 2), 3, 2, 36, False, False), ((4,), 0, 3, 20, True, False),
+     ((2, 2, 3), 5, 1, 64, True, True), ((5,), 0, 2, 12, False, True), ((), 2, 2, 16, True, False)],
+)
+def test_groupby_need_matches_brute_force(rows, p, s, w, with_filter, ones):
+    """chip_smoke.groupby_need counts every group a column is in, with a
+    non-exclusive dimension (a column in two rows of one), with and
+    without a filter, P = 0, and all-ones words."""
+    smoke = _smoke()
+    rng = np.random.default_rng(sum(rows) * 100 + p * 10 + s + w)
+    dims = [_sparse_u32(rng, (r, s, w), ands=1) for r in rows]
+    if dims:
+        # row 1 of the first dimension holds every column of row 0 too
+        dims[0][min(1, rows[0] - 1)] |= dims[0][0]
+        if ones:
+            dims[0][0, 0, :4] = 0xFFFFFFFF
+    filt = _sparse_u32(rng, (s, w)) if with_filter else None
+    if ones and filt is not None:
+        filt[0, :4] = 0xFFFFFFFF
+    planes = _u32(rng, (s, p, w)) if p else np.zeros((s, 0, w), dtype=np.uint32)
+    got = smoke.groupby_need(
+        [_t(d) for d in dims], None if filt is None else _t(filt), _t(planes)
+    )
+    words, sectors = _need_brute(dims, filt, planes)
+    assert got["group_words"] == words
+    assert got["sectors"] == sectors
+    assert got["all_sectors"] == -(-s * w // 8)
+    k = 1
+    for r in rows:
+        k *= r
+    assert got["groups"] == k
+
+
+@pytest.mark.parametrize("q,w,ones", [(1, 64, False), (5, 40, True), (3, 8, False)])
+def test_dense_need_matches_numpy(q, w, ones):
+    smoke = _smoke()
+    rng = np.random.default_rng(q * w)
+    srcs = _sparse_u32(rng, (q, w))
+    if ones:
+        srcs[0] = 0xFFFFFFFF
+    srcs[-1, : w // 2] = 0
+    assert smoke.dense_need(_t(srcs)) == int(np.count_nonzero(srcs))
+
+
+@pytest.mark.parametrize(
+    "rows,p,with_filter",
+    [((5, 5), 0, False), ((14, 3), 0, False), ((8, 8), 25, False), ((4, 4), 31, False),
+     ((3, 3), 32, False), ((5, 13), 0, False), ((8, 8), 25, True), ((), 25, False)],
+)
+def test_bound_popcount_floor_by_kernel(rows, p, with_filter):
+    """Every GroupBy launch counts on the CUDA cores, so its popcounts are
+    a floor of its bound on any panel, filtered or dense; the dense
+    scorer counts on the tensor cores, whose single-bit rate is not
+    published, so its popcounts are reported but its bound is its bytes."""
+    import types
+
+    smoke = _smoke()
+    rng = np.random.default_rng(sum(rows) + p)
+    s, w = 1, 64
+    dims = [_t(_sparse_u32(rng, (r, s, w), ands=0)) for r in rows]
+    filt = _t(_sparse_u32(rng, (s, w))) if with_filter else None
+    planes = _t(_u32(rng, (s, p, w))) if p else _t(np.zeros((s, 0, w), dtype=np.uint32))
+    # a card slow enough that every popcount term passes the bytes term
+    card = types.SimpleNamespace(sms=1, sm_clock_hz=1.0)
+    b = smoke.bound("groupby_reduce", (dims, filt, planes), card)
+    assert b["popcount_ms"] > 0
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(b["popcount_ms"])
+    if p:
+        d = smoke.bound("dense_scores", (planes[0], planes[0]), card)
+        assert d["popcount_ms"] > 0 and d["bound_by"] == "bytes"
