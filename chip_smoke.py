@@ -37,10 +37,11 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          query shapes over dense, the dense TopN sources, the tall
          Count(chain) queries). A write bumps its fragment's generation;
          the next read refreshes each staged entry with one word-delta
-         scatter (kernel word_delta) instead of restaging it. First a
-         seeded sequence, every read held against the CPU leg right after
-         it; then 8 concurrent clients, every read checked again once
-         they are done.
+         scatter (kernel word_delta) instead of restaging it: in place
+         when no reader holds the entry, into a copy when one does (the
+         refreshes are counted by route). First a seeded sequence, every
+         read held against the CPU leg right after it; then 8 concurrent
+         clients, every read checked again once they are done.
   tiered the shape of bench.py's tiering probe (_tiering_oversub_probe)
          at 4,096 rows of one shard, the working set 512 MiB: rows of
          array, run and bitmap containers. Zipf(1.3) Count(Row) traffic
@@ -68,7 +69,11 @@ of its largest main-path launch and must equal its plain PyTorch version
 run on the card on the same inputs (integers: the bar is ==). Both are
 timed with CUDA events, the L2 cache flushed (by a read, leaving clean
 lines) before every launch and the host's enqueue kept out of the
-window. The tree count is also checked and timed at
+window. The word-delta kernel is checked and timed on both routes, at
+the largest in-place patch and at the largest copy; the expansion kernel
+against the unbinned function, at the largest tiered launch with each
+input kind, and once more on the widest launch's payloads shuffled,
+binned on the card. The tree count is also checked and timed at
 its most launched shape, a one-leaf count of one shard row; the dense
 scorer at the widest batch (Q) of the dense phases; the GroupBy kernel
 at the count-only ssb panel and at a dense, non-exclusive shape (no
@@ -734,6 +739,7 @@ def run_writes(dev, cpu) -> dict:
     st = dev.stager
     pools = writes_reads()
     m0, forms0 = _counters(metrics, *names), dict(st.delta_by_form)
+    routes0 = dict(st.delta_routes)
     out = {}
 
     reads, writes = [], []
@@ -751,12 +757,14 @@ def run_writes(dev, cpu) -> dict:
         cpu_s += time.perf_counter() - t0
         if ans != want:
             raise AssertionError(f"writes: {index}: {q} answered {ans}, CPU leg {want}")
+    routes1 = dict(st.delta_routes)
     out["sequential"] = {
         "reads": len(reads),
         "writes": len(writes),
         "read_qps": len(reads) / sum(reads),
         "read_p50_ms": statistics.median(reads) * 1e3,
         "write_p50_ms": statistics.median(writes) * 1e3,
+        "refreshes_by_route": _diff(routes1, routes0),
     }
 
     lat: list[list] = [[] for _ in range(CLIENTS)]
@@ -791,6 +799,7 @@ def run_writes(dev, cpu) -> dict:
         "read_qps": len(reads) / wall,
         "read_p50_ms": statistics.median(reads) * 1e3,
         "write_p50_ms": statistics.median(writes) * 1e3 if writes else None,
+        "refreshes_by_route": _diff(dict(st.delta_routes), routes1),
     }
     # quiesced: every read once more against the CPU leg
     checked = 0
@@ -814,10 +823,13 @@ def run_writes(dev, cpu) -> dict:
     out["restaged_bytes"] = counters.get(metrics.STAGER_RESTAGED_BYTES, 0)
     out["misses_cold"] = counters.get(metrics.STAGER_MISSES_COLD, 0)
     out["misses_invalidation"] = counters.get(metrics.STAGER_MISSES_INVALIDATION, 0)
+    out["refreshes_by_route"] = _diff(dict(st.delta_routes), routes0)
     by_form = out["delta_applied_by_form"]
     for form in ("row", "rows_p2", "row_stack"):
         if by_form.get(form, 0) <= 0:
             raise AssertionError(f"writes: no delta applied on the {form} form: {by_form}")
+    if out["refreshes_by_route"].get("in_place", 0) <= 0:
+        raise AssertionError(f"writes: no refresh patched in place: {out['refreshes_by_route']}")
     return out
 
 
@@ -1019,10 +1031,33 @@ def run_tiered(holder, cpu, device) -> dict:
 # -- kernels against their plain versions ----------------------------------------------
 
 
+def _keep(args):
+    """A copy of a launch's arguments that holds no staged tensor: a held
+    one would turn the stager's next refresh of it from a patch in place
+    into a copy, and a patch in place would change what was kept. Tensors
+    with one storage and shape share their copy, so a launch reads each
+    distinct leaf once, as the recorded one did."""
+    import torch
+
+    memo: dict = {}
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            key = (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+            if key not in memo:
+                memo[key] = x.clone()
+            return memo[key]
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+
+    return copy(args)
+
+
 class Recorder:
-    """Wraps the kernel wrappers of ``ops.cuda`` to keep, per kernel, the
-    arguments of its largest launch over the run (by input bytes, or
-    popcounts for the GroupBy kernel) and the path it came from
+    """Wraps the kernel wrappers of ``ops.cuda`` to keep, per kernel, a
+    copy of the arguments of its largest launch over the run (by input
+    bytes, or popcounts for the GroupBy kernel) and the path it came from
     (``path`` is the path running now). The wrappers' own launch counts
     are untouched."""
 
@@ -1050,18 +1085,21 @@ class Recorder:
         # a one-leaf tree count of one shard row (32,768 words), the
         # tree count's most launched shape
         self.tree_one_leaf = None
-        for name, size in (
-            ("dense_scores", self._dense_bytes),
-            ("sparse_stacked_scores", self._sparse_bytes),
-            ("tree_count", self._tree_bytes),
-            ("groupby_reduce", self._groupby_work),
-            ("bsi_range", self._range_bytes),
-            ("expand_blocks", self._expand_bytes),
-            ("word_delta", self._delta_bytes),
-            ("bsi_minmax", self._minmax_bytes),
+        # (wrapper, record key, size): the word-delta kernel's two routes
+        # are recorded apart, the in-place one under the kernel's name
+        for attr, name, size in (
+            ("dense_scores", "dense_scores", self._dense_bytes),
+            ("sparse_stacked_scores", "sparse_stacked_scores", self._sparse_bytes),
+            ("tree_count", "tree_count", self._tree_bytes),
+            ("groupby_reduce", "groupby_reduce", self._groupby_work),
+            ("bsi_range", "bsi_range", self._range_bytes),
+            ("expand_blocks", "expand_blocks", self._expand_bytes),
+            ("word_delta_", "word_delta", self._patch_bytes),
+            ("word_delta", COPY_ROUTE, self._delta_bytes),
+            ("bsi_minmax", "bsi_minmax", self._minmax_bytes),
         ):
-            self.kernel_fn[name] = getattr(cuda_mod, name)
-            setattr(cuda_mod, name, self._wrap(name, self.kernel_fn[name], size))
+            self.kernel_fn[name] = getattr(cuda_mod, attr)
+            setattr(cuda_mod, attr, self._wrap(name, self.kernel_fn[name], size))
 
     def _wrap(self, name, fn, size):
         def wrapped(*args):
@@ -1069,16 +1107,16 @@ class Recorder:
             with self._mu:
                 if n > self._size.get(name, -1):
                     self._size[name] = n
-                    self.args[name] = args
+                    self.args[name] = _keep(args)
                     self.where[name] = self.path
             return fn(*args)
 
         return wrapped
 
-    def _expand_bytes(self, positions, starts, ends, dense, dword, num_words):
+    def _expand_bytes(self, positions, starts, ends, dense, dword, num_words, offsets):
         n = num_words * 4 + (positions.numel() + 2 * starts.numel() + dense.numel() + dword.numel()) * 4
         if self.path == "tiered":
-            args = (positions, starts, ends, dense, dword, num_words)
+            args = (positions, starts, ends, dense, dword, num_words, offsets)
             with self._mu:
                 self.expand_widest = max(self.expand_widest, num_words)
                 for kind, t in (("positions", positions), ("runs", starts), ("dense", dense)):
@@ -1086,19 +1124,23 @@ class Recorder:
                         self.expand_kinds[kind] += 1
                         if n > self._kind_size.get(kind, -1):
                             self._kind_size[kind] = n
-                            self.expand_kind_args[kind] = args
+                            self.expand_kind_args[kind] = _keep(args)
         return n
 
     @staticmethod
     def _delta_bytes(words, shard_idx, word_idx, or_mask, andnot_mask):
         return words.numel() * 4 + word_idx.numel() * 16
 
+    @staticmethod
+    def _patch_bytes(words, shard_idx, word_idx, or_mask, andnot_mask):
+        return word_idx.numel() * 16
+
     def _dense_bytes(self, srcs, mat):
         if self.path == "dense_tall":
             with self._mu:
                 cur = self.dense_widest_q
                 if cur is None or (srcs.shape[0], mat.numel()) > (cur[0].shape[0], cur[1].numel()):
-                    self.dense_widest_q = (srcs, mat)
+                    self.dense_widest_q = _keep((srcs, mat))
         return (srcs.numel() + mat.numel()) * 4
 
     @staticmethod
@@ -1108,7 +1150,7 @@ class Recorder:
     def _tree_bytes(self, leaves_by_query, program):
         if self.tree_one_leaf is None and program.nleaves == 1 and len(leaves_by_query) == 1:
             if leaves_by_query[0][0].numel() == SW // 32:
-                self.tree_one_leaf = (leaves_by_query, program)
+                self.tree_one_leaf = _keep((leaves_by_query, program))
         # each distinct leaf once, as the kernel reads them
         return sum({t.data_ptr(): t.numel() * 4 for leaves in leaves_by_query for t in leaves}.values())
 
@@ -1127,12 +1169,64 @@ class Recorder:
             with self._mu:
                 if k > self._count_only_k:
                     self._count_only_k = k
-                    self.groupby_count_only = (dims, filt, planes)
+                    self.groupby_count_only = _keep((dims, filt, planes))
         return k * planes.shape[0] * planes.shape[2] * (planes.shape[1] + 1)
 
     @staticmethod
     def _range_bytes(planes, code, out_sel):
         return planes.shape[0] * planes.shape[2] * 4 * (1 + sum(1 for c in code if c))
+
+
+class OpsRecorder:
+    """The device functions of the ssb path that still run as PyTorch ops,
+    not hand-written kernels (Distinct's presence map, Percentile's
+    bit-sliced search): calls on the ssb path and the arguments of the
+    largest call (by plane words). Wraps the executor's timed entries."""
+
+    ENTRIES = {"bsi_distinct_presence": "_timed_distinct", "bsi_percentile_batched": "_timed_percentile"}
+
+    def __init__(self, ex_mod) -> None:
+        self.calls = {name: 0 for name in self.ENTRIES}
+        self.args: dict[str, tuple] = {}
+        self.counting = False
+        self._size: dict[str, int] = {}
+        for name, entry in self.ENTRIES.items():
+            setattr(ex_mod, entry, self._wrap(name, getattr(ex_mod, entry)))
+
+    def _wrap(self, name, fn):
+        def wrapped(planes, *args, **kw):
+            if self.counting:
+                self.calls[name] += 1
+                if planes.numel() > self._size.get(name, -1):
+                    self._size[name] = planes.numel()
+                    self.args[name] = (_keep((planes,) + args), kw)
+            return fn(planes, *args, **kw)
+
+        return wrapped
+
+
+def time_torch_ops(rec: OpsRecorder, flush) -> dict:
+    """Each recorded function once more at its largest ssb call, timed
+    (median of 5, as ``time_ms``), with the bytes bound of what it reads:
+    the [S, D+1, W] planes and the filter once."""
+    from pilosa_tpu_torch import ops
+
+    out = {}
+    for name, calls in rec.calls.items():
+        if name not in rec.args:
+            raise AssertionError(f"{name} never ran on the ssb path")
+        args, kw = rec.args[name]
+        fn = getattr(ops, name)
+        planes, filt = args[0], args[1]
+        nbytes = (planes.numel() + (filt.numel() if kw["has_filter"] else 0)) * 4
+        out[name] = {
+            "calls": calls,
+            "shape": {"planes": list(planes.shape), "filter": bool(kw["has_filter"])},
+            "ms": time_ms(lambda: fn(*args, **kw), 5, flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+        }
+    return out
 
 
 class Card:
@@ -1297,10 +1391,12 @@ def bound(name: str, args, card: Card) -> dict:
         nibbles = sum((c & 15 != 0) + (c >> 4 != 0) for c in code)
         ops_s = 3 * nibbles * s * w / (card.sms * INT32_PER_CLOCK_PER_SM * card.sm_clock_hz)
     elif name == "expand_blocks":
-        positions, starts, ends, dense, dword, num_words = args
+        positions, starts, ends, dense, dword, num_words, _offsets = args
         # every payload read once, every output word written once
         nbytes = (positions.numel() + 2 * starts.numel() + dense.numel() + dword.numel() + num_words) * 4
     elif name == "word_delta":
+        nbytes = _patch_bound_bytes(*args)
+    elif name == COPY_ROUTE:
         nbytes = _delta_bound_bytes(*args)
     elif name == "bsi_minmax":
         planes, filt, is_min = args
@@ -1327,10 +1423,28 @@ def _update_bytes(shard_idx, word_idx, or_mask, andnot_mask) -> int:
 
 
 def _delta_bound_bytes(words, shard_idx, word_idx, or_mask, andnot_mask) -> int:
-    """The word-delta function returns a new tensor: the block read once
+    """The word-delta copy route returns a new tensor: the block read once
     and written once, plus the updates."""
     return 2 * words.numel() * 4 + _update_bytes(shard_idx, word_idx, or_mask, andnot_mask)
 
+
+def _patch_bound_bytes(words, shard_idx, word_idx, or_mask, andnot_mask) -> int:
+    """The word-delta patch in place: the updates, plus each 32-byte
+    sector that holds a touched word read once and written once (touched
+    words that share a sector share its bytes)."""
+    import torch
+
+    s, m = words.shape
+    w = word_idx.long()
+    sh = shard_idx.long() if shard_idx is not None else torch.zeros_like(w)
+    valid = (w >= 0) & (w < m) & (sh >= 0) & (sh < s)
+    sectors = torch.unique((sh * m + w)[valid] // (SECTOR_BYTES // 4)).numel()
+    return _update_bytes(shard_idx, word_idx, or_mask, andnot_mask) + 2 * SECTOR_BYTES * sectors
+
+
+# the record key of the word-delta kernel's copy route (a reader held the
+# snapshot): the whole block copied, then patched
+COPY_ROUTE = "word_delta_copied"
 
 # a device spin before each timed launch, longer than any wrapper's host
 # work, so the launch is queued before the start event fires
@@ -1437,8 +1551,10 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
         "tree_count": packed.tree_count_plain,
         "groupby_reduce": packed.groupby_reduce_plain,
         "bsi_range": bsi.bsi_range_plain,
-        "expand_blocks": packed.expand_blocks_plain,
-        "word_delta": delta.apply_word_updates_2d_plain,
+        # the unbinned function: a binning fault shows as a difference
+        "expand_blocks": lambda *a: packed.expand_blocks_plain(*a[:6]),
+        # in place, as the kernel's route on the path
+        "word_delta": delta.patch_words_2d_plain_,
         "bsi_minmax": bsi.bsi_minmax_plain,
     }
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
@@ -1446,8 +1562,9 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
     for name, plain_fn in plain.items():
         kernel_fn = rec.kernel_fn[name]
         args = rec.args[name]
+        # the in-place patch: the plain version first, on a copy of the words
+        want = _as_tuple(plain_fn(*((args[0].clone(),) + args[1:] if name == "word_delta" else args)))
         got = _as_tuple(kernel_fn(*args))
-        want = _as_tuple(plain_fn(*args))
         torch.cuda.synchronize()
         err = 0
         for g, w in zip(got, want):
@@ -1482,20 +1599,17 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
         )
         rows[-1]["timed_launch_path"] = rec.where[name]
         if name == "expand_blocks":
-            # also == at the largest tiered launch with each input kind
-            for kind, kargs in rec.expand_kind_args.items():
-                if not torch.equal(kernel_fn(*kargs), plain_fn(*kargs)):
-                    raise AssertionError(f"expand_blocks differs from its plain version ({kind} launch)")
-            rows[-1]["tiered_launches_checked"] = {
-                kind: _shape(name, kargs) for kind, kargs in rec.expand_kind_args.items()
+            # also == and timed at the largest tiered launch with each
+            # input kind, and on the widest input unbinned and shuffled
+            rows[-1]["share_of_bound"] = b["bound_ms"] / ms
+            rows[-1]["by_input_kind"] = {
+                kind: _held(name, kernel_fn, plain_fn, kargs, flush, card)
+                for kind, kargs in rec.expand_kind_args.items()
             }
+            rows[-1]["unbinned_shuffled"] = _expand_unbinned(args, plain_fn, flush)
         if name == "word_delta":
-            # the patch alone, into a copy made beforehand
-            words, sh, wi, om, am = args
-            out = words.clone()
-            rows[-1]["patch_ms"] = time_ms(lambda: cuda.word_delta_patch(words, out, sh, wi, om, am), 20, flush)
-            patch_bytes = _update_bytes(sh, wi, om, am) + 8 * wi.numel()
-            rows[-1]["patch_bound_ms"] = patch_bytes / HBM_BYTES_PER_S * 1e3
+            rows[-1]["share_of_bound"] = b["bound_ms"] / ms
+            rows[-1]["copy_route"] = _delta_copy_route(rec, flush, card)
         if name in ("dense_scores", "groupby_reduce"):
             rows[-1]["share_of_bound"] = b["bound_ms"] / ms
             rows[-1]["bound_dense_work_ms"] = bound_dense_work(name, args, card)
@@ -1516,6 +1630,54 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             rows[-1]["one_leaf_32768"] = _tree_one_leaf(rec, kernel_fn, plain_fn, flush, card)
         log(f"{name}: == plain; {ms:.3f} ms (bound {b['bound_ms']:.3f} by {b['bound_by']}, plain {plain_ms:.3f})")
     return rows
+
+
+def _expand_unbinned(args, plain_fn, flush) -> dict:
+    """K6 through ``ops.expand_blocks`` without offsets, on ``args``'
+    payloads in a seeded shuffled order: binned on the device, then one
+    launch; == the plain version, and timed with the binning."""
+    import torch
+
+    from pilosa_tpu_torch import ops
+
+    positions, starts, ends, dense, dword, num_words, _ = args
+    g = torch.Generator(device=dense.device).manual_seed(7)
+    p = torch.randperm(positions.numel(), generator=g, device=dense.device)
+    r = torch.randperm(starts.numel(), generator=g, device=dense.device)
+    d = torch.randperm(dword.numel(), generator=g, device=dense.device)
+    shuffled = (positions[p], starts[r], ends[r], dense[d].contiguous(), dword[d], num_words)
+    if not torch.equal(ops.expand_blocks(*shuffled), plain_fn(*shuffled)):
+        raise AssertionError("expand_blocks differs from its plain version on shuffled, unbinned input")
+    return {"ms": time_ms(lambda: ops.expand_blocks(*shuffled), 20, flush), "binned_on_device": True}
+
+
+def _delta_copy_route(rec, flush, card) -> dict | None:
+    """The word-delta kernel's copy route (a reader held the snapshot) at
+    its largest launch: == the plain new-tensor version, its time and
+    bound (the block copied), and the patch alone into a copy made
+    beforehand. None if no refresh took that route."""
+    import torch
+
+    from pilosa_tpu_torch.ops import cuda, delta
+
+    if COPY_ROUTE not in rec.args:
+        return None
+    args = rec.args[COPY_ROUTE]
+    kernel_fn, plain_fn = rec.kernel_fn[COPY_ROUTE], delta.apply_word_updates_2d_plain
+    if not torch.equal(kernel_fn(*args), plain_fn(*args)):
+        raise AssertionError(f"word_delta (copy route) differs from its plain version at {_shape('word_delta', args)}")
+    words, sh, wi, om, am = args
+    out = words.clone()
+    b = bound(COPY_ROUTE, args, card)
+    return {
+        "shape": _shape("word_delta", args),
+        "timed_launch_path": rec.where[COPY_ROUTE],
+        "ms": time_ms(lambda: kernel_fn(*args), 20, flush),
+        "plain_ms": time_ms(lambda: plain_fn(*args), 3, flush),
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "patch_ms": time_ms(lambda: cuda.word_delta_patch(words, out, sh, wi, om, am), 20, flush),
+    }
 
 
 def _kernels_per_call(fn, calls: int):
@@ -1579,7 +1741,7 @@ def _shape(name: str, args) -> dict:
         planes, code, out_sel = args
         return {"S": planes.shape[0], "depth": len(code), "planes_read": 1 + sum(1 for c in code if c)}
     if name == "expand_blocks":
-        positions, starts, ends, dense, dword, num_words = args
+        positions, starts, ends, dense, dword, num_words, _offsets = args
         return {"positions": positions.numel(), "runs": starts.numel(), "dense": dense.shape[0], "num_words": num_words}
     if name == "word_delta":
         words, sh, wi, om, am = args
@@ -1741,6 +1903,9 @@ def main() -> int:
 
         # 4. each path, counts set to 0 just before it and read just after
         rec = Recorder(cuda)
+        from pilosa_tpu_torch.executor import executor as ex_mod
+
+        ops_rec = OpsRecorder(ex_mod)
         launches: dict = {}
         batched: dict = {}
         path_s: dict = {}
@@ -1759,7 +1924,9 @@ def main() -> int:
             return out
 
         phases = run_path("dense_tall", lambda: main_path(dev, dense_qs, tall_topn, tall_chains, oracle))
+        ops_rec.counting = True
         phases["ssb"] = run_path("ssb", lambda: run_ssb(dev, ssb))
+        ops_rec.counting = False
         phases["ssb"]["data_build_s"] = built["ssb_build_s"]
         phases["writes"] = run_path("writes", lambda: run_writes(dev, cpu))
         t0 = time.monotonic()
@@ -1797,9 +1964,18 @@ def main() -> int:
         own = {name: launches[path][name] for name, path in PATH_OF.items()}
         own_batched = {name: batched[path][name] for name, path in PATH_OF.items()}
         kernels = check_kernels(rec, own, own_batched, device, card_info)
+        torch_ops = time_torch_ops(ops_rec, torch.zeros(64 << 20, dtype=torch.int32, device=device))
+        log(f"torch ops on the ssb path: {torch_ops}")
         for row in kernels:
             row["path"] = PATH_OF[row["name"]]
             row["launches_by_path"] = {path: launches[path][row["name"]] for path in launches}
+            if row["name"] == "word_delta":
+                row["launches_by_route"] = phases["writes"]["refreshes_by_route"]
+                copy = row["copy_route"]
+                phases["writes"]["word_delta_ms_by_route"] = {
+                    "in_place": row["ms"],
+                    "copied": copy["ms"] if copy is not None else None,
+                }
 
         n_dense = len(dense_qs) * (2 + CLIENTS * CONCURRENT_PASSES)
         n_tall = 2 * len(tall_topn) + (2 + CLIENTS) * len(tall_chains)
@@ -1858,6 +2034,7 @@ def main() -> int:
             for part, r in stats.items()
         }}), flush=True)
         print(json.dumps({"phases": phases}), flush=True)
+        print(json.dumps({"torch_ops": torch_ops}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         for ex in (dev, cpu):

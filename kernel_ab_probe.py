@@ -33,7 +33,23 @@ wrappers on the same seeded inputs, drawn once by this process:
                also holds: two set-field dimensions of 8 rows, each bit
                set with probability 3/8 (a column in about 3 rows of each),
                lo_revenue's 25 planes, no filter, 58 shards: every group
-               set at nearly every word.
+               set at nearly every word;
+  expand_widest the expansion (K6) of the tiered phase's widest launch:
+               the container payloads of the tier index's first 128 rows
+               (``chip_smoke.tier_bits``: array, run and bitmap
+               containers) into 4,194,304 words; expand_positions /
+               expand_runs / expand_dense the same rows' payloads of one
+               kind alone. A checkout whose kernel takes binned input
+               gets it binned (``ops.bin_expand_inputs``) before the
+               timing, as the stager ships it;
+  delta_refresh the word-delta kernel (K7) as the stager runs it on a
+               refresh of the dense 4096 x 32768-word chunk with 64
+               updated words: in place where the checkout has that route
+               (``cuda.word_delta_``), else a copy and the patch;
+  delta_copy   the copy route (``cuda.word_delta``) on the same input;
+  fill_16mib   a yardstick, not a kernel of the port: PyTorch's
+               ``zero_`` of a 4,194,304-word tensor, the stores alone of
+               expand_widest's output.
 The ssb columns are drawn as ``chip_smoke.py`` draws them
 (``ssb_columns``) and packed to words with numpy.
 
@@ -71,8 +87,12 @@ DENSE_SHAPE = (4096, 32768)
 DENSE_QS = (1, 4, 8, 32)
 # AND of this many uniform words: each bit set with probability 1/64
 DENSE_AND = 6
+EXPAND_ROWS = 128
+EXPAND_KINDS = ("widest", "positions", "runs", "dense")
+DELTA_WORDS = 64
 CASES = ("chain", "one") + tuple(f"dense_q{q}" for q in DENSE_QS) + (
-    "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive")
+    "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive") + tuple(
+    f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib")
 
 
 def _smoke():
@@ -149,6 +169,69 @@ def _nonexclusive(smoke, planes) -> dict:
     }
 
 
+def _tier_payloads(smoke):
+    """The tier index's first EXPAND_ROWS rows as the stager ships them
+    (flat bit space row * SW + column, container order): array positions
+    u32[P], runs u32[N, 2] split at container edges, bitmap containers
+    u32[D, 2048] at word offsets i32[D]; and by numpy the words each
+    case expands to (``ex_words_<kind>``, int32 views)."""
+    rows, cols = smoke.tier_bits()
+    sw = smoke.SW
+    keep = rows < EXPAND_ROWS
+    rows, cols = rows[keep].astype(np.int64), cols[keep].astype(np.int64)
+    pos, runs, dense, dword = [], [], [], []
+    words = {k: np.zeros(EXPAND_ROWS * sw // 32, dtype=np.uint32) for k in EXPAND_KINDS}
+    for r in range(EXPAND_ROWS):
+        c = np.unique(cols[rows == r]) + r * sw
+        kind = "positions" if r % 8 < 6 else ("runs" if r % 8 == 6 else "dense")
+        for k in (kind, "widest"):
+            np.bitwise_or.at(words[k], c >> 5, (np.uint32(1) << (c & 31).astype(np.uint32)))
+        if kind == "positions":
+            pos.append(c)
+        elif kind == "runs":
+            for slot in np.unique(c >> 16):
+                part = c[(c >> 16) == slot]
+                runs.append((part[0], part[-1]))
+        else:
+            first = int(c[0] >> 16) * 2048
+            dense.append(words["dense"][first : first + 2048].copy())
+            dword.append(first)
+    out = {
+        "ex_pos": np.concatenate(pos).astype(np.uint32),
+        "ex_runs": np.array(runs, dtype=np.uint32),
+        "ex_dense": np.stack(dense),
+        "ex_dword": np.array(dword, dtype=np.int32),
+    }
+    out.update({f"ex_words_{k}": w.view("<i4") for k, w in words.items()})
+    return out
+
+
+def _expand_case(ops, dev, arrays, kind: str):
+    """(launch, expected words) of one expand case on this checkout's
+    kernel wrapper, binned beforehand where it takes binned input."""
+    import inspect
+
+    import torch
+
+    pos, runs, dense, dword = (arrays[k] for k in ("ex_pos", "ex_runs", "ex_dense", "ex_dword"))
+    num_words = EXPAND_ROWS * 32768
+    none = np.zeros(0, np.uint32)
+    if kind != "widest":
+        pos = pos if kind == "positions" else none
+        runs = runs if kind == "runs" else np.zeros((0, 2), np.uint32)
+        dense, dword = (dense, dword) if kind == "dense" else (np.zeros((0, 2048), np.uint32), np.zeros(0, np.int32))
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view("<i4").copy()).to(dev)
+
+    args = [up(pos), up(runs[:, 0]), up(runs[:, 1]), up(dense).view(-1, 2048), up(dword)]
+    want = arrays[f"ex_words_{kind}"]
+    if "offsets" in inspect.signature(ops.cuda.expand_blocks).parameters:
+        *binned, offsets = ops.bin_expand_inputs(*args, num_words)
+        return (lambda: ops.cuda.expand_blocks(*binned, num_words, offsets)), want
+    return (lambda: ops.cuda.expand_blocks(*args, num_words)), want
+
+
 def draw_inputs(smoke, out_dir: str) -> None:
     """Every input and expected answer of the dense and GroupBy cases,
     saved as .npy files in ``out_dir``."""
@@ -192,6 +275,7 @@ def draw_inputs(smoke, out_dir: str) -> None:
     arrays["sum_plane_counts"] = np.array([int(b.sum()) for b in bits], dtype=np.int64)
     del c, bits, rev, sel
     arrays.update(_nonexclusive(smoke, arrays["planes"]))
+    arrays.update(_tier_payloads(smoke))
     for name, a in arrays.items():
         np.save(os.path.join(out_dir, name + ".npy"), a)
 
@@ -239,6 +323,28 @@ def run_arm(checkout: str, data: str) -> int:
     for q in DENSE_QS:
         s = srcs[:q].contiguous()
         cases[f"dense_q{q}"] = (lambda s=s: cuda.dense_scores(s, mat), [dense_want[:q]])
+    ex = {k: load(k) for k in ("ex_pos", "ex_runs", "ex_dense", "ex_dword")}
+    for kind in EXPAND_KINDS:
+        ex[f"ex_words_{kind}"] = load(f"ex_words_{kind}")
+        fn, want = _expand_case(ops, dev, ex, kind)
+        cases[f"expand_{kind}"] = (fn, [want])
+    # K7: 64 words of the dense chunk, each set and cleared in part; the
+    # masks are idempotent, so repeated in-place launches agree
+    rng = np.random.default_rng(61)
+    wi = np.sort(rng.choice(mat.numel(), size=DELTA_WORDS, replace=False)).astype(np.int32)
+    om = rng.integers(0, 2**32, size=DELTA_WORDS, dtype=np.uint32)
+    am = rng.integers(0, 2**32, size=DELTA_WORDS, dtype=np.uint32) & ~om
+    flat = mat.view(1, -1)
+    upd = [ops.words_from_numpy(a, dev) for a in (wi, om, am)]
+    patched = mat.cpu().numpy().view("<u4").reshape(-1).copy()
+    patched[wi] = (patched[wi] | om) & ~am
+    in_place = getattr(cuda, "word_delta_", None)
+    refresh = in_place if in_place is not None else cuda.word_delta
+    work = flat.clone()
+    cases["delta_refresh"] = (lambda: refresh(work, None, *upd), [patched.view("<i4").reshape(1, -1)])
+    cases["delta_copy"] = (lambda: cuda.word_delta(flat, None, *upd), [patched.view("<i4").reshape(1, -1)])
+    fill = torch.empty(EXPAND_ROWS * 32768, dtype=torch.int32, device=dev)
+    cases["fill_16mib"] = (lambda: fill.zero_(), [np.zeros(fill.numel(), np.int32)])
     torch.cuda.synchronize()
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
     out = {"arm": checkout}

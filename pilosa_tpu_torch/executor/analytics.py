@@ -118,10 +118,11 @@ def nearest_rank(nth_bp: int, count: int) -> int:
 
 def resolve_dims(holder, index: str, plan: GroupByPlan, shards, max_groups: int):
     """Materialize each dimension's row-id list: explicit ``ids`` as
-    given, otherwise the ascending union of row ids present in the
-    queried shards' fragments. Raises when the cross-product exceeds
-    ``max_groups`` — an unbounded panel must fail loudly before staging
-    K row stacks into HBM."""
+    given with repeats dropped (the first occurrence keeps its rank),
+    otherwise the ascending union of row ids present in the queried
+    shards' fragments. Raises when the cross-product of distinct groups
+    exceeds ``max_groups`` — an unbounded panel must fail loudly before
+    staging K row stacks into HBM."""
     resolved = []
     k = 1
     for field, ids in plan.dims:
@@ -134,7 +135,8 @@ def resolve_dims(holder, index: str, plan: GroupByPlan, shards, max_groups: int)
                 if frag is not None:
                     seen.update(frag.row_ids())
             ids = sorted(seen)
-        resolved.append((field, list(ids)))
+        ids = list(dict.fromkeys(ids))
+        resolved.append((field, ids))
         k *= len(ids)
     if k > max_groups:
         raise ValueError(
@@ -167,13 +169,13 @@ def merge_group_lists(a: list, b: list) -> list:
 
 def finalize_groups(plan: GroupByPlan, merged: list) -> list:
     """Coordinator-side ordering + limit. Ranks come from the PLAN:
-    explicit ids rank by their position in the given list, discovered
+    explicit ids rank by their first position in the given list, discovered
     dimensions rank by row id — so the order is identical whether the
     counts arrived as one device K-vector or a per-shard merge."""
     ranks = []
     for _, ids in plan.dims:
         if ids is not None:
-            pos = {rid: i for i, rid in enumerate(ids)}
+            pos = {rid: i for i, rid in enumerate(dict.fromkeys(ids))}
             ranks.append(lambda r, pos=pos: pos.get(r, len(pos)))
         else:
             ranks.append(lambda r: r)

@@ -13,9 +13,17 @@ tensor with one word-delta scatter (ops/delta.py, kernel K7), and
 restages in full only when the log cannot prove continuity (bulk
 imports, truncation) or the batch touches more than ``delta_max_ratio``
 of the entry's words. A reader never accepts an entry older than the
-generation it observed. Every delta apply produces a NEW tensor: the
-batcher coalesces on the staged tensor's identity (same object ⇔ same
-snapshot), so queries after a write key on the fresh object.
+generation it observed.
+
+IN PLACE UNLESS HELD: when no reader holds the stale snapshot (the cache
+entry holds the only reference to its tensor and no view shares its
+storage), the scatter patches it in place; otherwise it patches a copy
+and the reader keeps its snapshot. The batcher coalesces on the staged
+tensor's identity (same live object ⇔ same snapshot), and a pending
+batch holds its tensor, so a patch in place never mixes generations in
+one launch. Every reader enqueues on PyTorch's current stream, the
+default stream of each thread (the port sets no other), so kernels it
+launched before the patch read the words before it.
 
 Staged forms and their delta paths:
   * row                 — i32[W]           scatter into the one row
@@ -52,6 +60,7 @@ by byte budget, always keeping the entry just built.
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from collections import OrderedDict
@@ -152,13 +161,30 @@ class _InFlight:
         self.gen = None  # generation token the published value reflects
 
 
+def _storage_uses(t: torch.Tensor) -> int:
+    """The tensors (views included) that hold ``t``'s storage, plus the
+    one storage object this call makes."""
+    return torch._C._storage_Use_Count(t.untyped_storage()._cdata)
+
+
 class _Entry:
-    __slots__ = ("value", "nbytes", "gen")
+    __slots__ = ("value", "nbytes", "gen", "uses")
 
     def __init__(self, value, nbytes: int, gen) -> None:
         self.value = value
         self.nbytes = nbytes
         self.gen = gen  # int, or tuple of per-fragment ints for stacks
+        # the storage's holders while only the cache holds the value (a
+        # view keeps its base tensor too); None for the tuple forms
+        self.uses = _storage_uses(value) if isinstance(value, torch.Tensor) else None
+
+    def unheld(self) -> bool:
+        """No reader holds this snapshot: the entry holds the only
+        reference to its tensor, and no other tensor shares its storage.
+        A Python refcount alone would miss the views readers make."""
+        v = self.value
+        # references to v: the entry's slot, ``v``, getrefcount's argument
+        return self.uses is not None and sys.getrefcount(v) == 3 and _storage_uses(v) == self.uses
 
 
 def _gen_fresh(have, want) -> bool:
@@ -218,6 +244,9 @@ class DeviceStager:
         # delta applies by staged form (the key's kind: row, rows_p2,
         # row_stack, ...)
         self.delta_by_form: dict[str, int] = {}
+        # delta applies that patched words, by route: in place, or into
+        # a copy because a reader held the snapshot
+        self.delta_routes = {"in_place": 0, "copied": 0}
         # keys dropped under capacity pressure: a later cold miss on one
         # is a RE-ENTRY, bytes an earlier stage already paid to upload
         self._evicted_keys: set = set()
@@ -258,9 +287,10 @@ class DeviceStager:
         caller-observed generation token ``gen``.
 
         builder() -> (value, nbytes, built_gen) runs when no usable
-        entry exists. delta_fn(old_value, old_gen) -> (value, built_gen,
-        n_updates) or None runs when an entry exists at an older
-        generation; None falls back to builder() (full restage). Both
+        entry exists. delta_fn(old_value, old_gen, in_place) ->
+        (value, built_gen, n_updates) or None runs when an entry exists
+        at an older generation, patching ``old_value`` itself when
+        ``in_place``; None falls back to builder() (full restage). Both
         capture built_gen BEFORE reading fragment state, so the recorded
         generation never overstates the content."""
         while True:
@@ -278,6 +308,21 @@ class DeviceStager:
                     self._inflight[key] = fl
                     building = True
                     stale = ent
+                    in_place = (
+                        stale is not None
+                        and delta_fn is not None
+                        and self.delta_enabled
+                        and stale.unheld()
+                    )
+                    if in_place:
+                        # Race-free: the hit path above hands out entries
+                        # only under _mu, so a reference taken before this
+                        # point shows in unheld(), and none can be taken
+                        # after it: the entry leaves the cache until the
+                        # patched one is published, and readers of the key
+                        # wait on ``fl`` meanwhile.
+                        del self._cache[key]
+                        self._bytes -= stale.nbytes
                 else:
                     building = False
             if not building:
@@ -295,10 +340,10 @@ class DeviceStager:
                     t0 = time.monotonic()
                     sp = trace.current()
                     if sp is None:
-                        res = delta_fn(stale.value, stale.gen)
+                        res = delta_fn(stale.value, stale.gen, in_place)
                     else:
                         with sp.child(metrics.STAGE_DELTA) as ssp:
-                            res = delta_fn(stale.value, stale.gen)
+                            res = delta_fn(stale.value, stale.gen, in_place)
                             if res is not None:
                                 ssp.annotate(nupdates=res[2])
                     if res is not None:
@@ -308,6 +353,8 @@ class DeviceStager:
                         with self._mu:
                             self.delta_applies += 1
                             self.delta_by_form[key[1]] = self.delta_by_form.get(key[1], 0) + 1
+                            if _n:
+                                self.delta_routes["in_place" if in_place else "copied"] += 1
                         metrics.count(metrics.STAGER_DELTA_APPLIED)
                         metrics.observe(metrics.STAGER_DELTA_APPLY_SECONDS, dt)
                         trace.attrib_add(trace.WF_STAGER, dt)
@@ -414,10 +461,23 @@ class DeviceStager:
         """Ship container payloads and expand them on the device: each
         entry's bits become coordinates in the block's flat bit space
         (row_index * SHARD_WIDTH + slot * 2^16 + local), bitmap
-        containers their words at their word offset. One pinned upload
-        carries every array, sliced on the device; nothing is padded
-        (the kernel builds nothing per shape)."""
+        containers their words at their word offset. One container is
+        one of K6's spans, so payloads in container order are binned by
+        span; their offsets cross with them. One pinned upload carries
+        every array, sliced on the device; nothing is padded (the kernel
+        builds nothing per shape)."""
+        span = np.fromiter((i * 16 + slot for i, slot, _, _ in entries), np.int64, len(entries))
+        if np.any(span[1:] < span[:-1]):
+            entries = [entries[k] for k in np.argsort(span, kind="stable")]
         pos, runs, dense_w, dword_a = _split_entries(entries)
+        edges = np.arange(-(-num_words // ops.CONTAINER_WORDS) + 1)
+        offsets = np.stack(
+            [
+                np.searchsorted(pos >> 16, edges),
+                np.searchsorted(runs[:, 0] >> 16, edges),
+                np.searchsorted(dword_a // ops.CONTAINER_WORDS, edges),
+            ]
+        )
         # dense words first: the buffer's base is aligned for the kernel
         parts = [
             dense_w.reshape(-1),
@@ -425,15 +485,22 @@ class DeviceStager:
             runs[:, 0].astype(np.uint32),
             runs[:, 1].astype(np.uint32),
             dword_a.astype(np.uint32),
+            offsets.reshape(-1).astype(np.uint32),
         ]
         buf = self._to_device(np.concatenate(parts))
         views, off = [], 0
         for p in parts:
             views.append(buf[off : off + p.size])
             off += p.size
-        dense, positions, starts, ends, dword = views
+        dense, positions, starts, ends, dword, offs = views
         out = ops.expand_blocks(
-            positions, starts, ends, dense.view(dense_w.shape[0], 2048), dword, num_words
+            positions,
+            starts,
+            ends,
+            dense.view(dense_w.shape[0], 2048),
+            dword,
+            num_words,
+            offs.view(offsets.shape),
         )
         metrics.count(metrics.TIERING_COMPRESSED_UPLOADS)
         metrics.count(metrics.TIERING_UPLOAD_BYTES_SAVED, max(0, num_words * 4 - buf.numel() * 4))
@@ -464,16 +531,19 @@ class DeviceStager:
         local = (pos % np.uint64(SHARD_WIDTH)).astype(np.int64)
         return rows, local >> 5, (local & 31), is_set, gen
 
-    def _scatter(self, dev, word_idx, bit_idx, is_set, gen, n_slots_words):
+    def _scatter(self, dev, word_idx, bit_idx, is_set, gen, n_slots_words, in_place: bool):
         """Coalesce and run the delta scatter over a flat word space of
-        ``n_slots_words`` words; returns (new tensor, gen, K), or None
-        when the batch is too large to beat a restage."""
+        ``n_slots_words`` words, into ``dev`` itself when ``in_place``
+        and into a copy otherwise; returns (tensor, gen, K), or None when
+        the batch is too large to beat a restage."""
         if word_idx.size == 0:
             return dev, gen, 0
         idx, om, am = ops.coalesce_bit_updates(word_idx, bit_idx, is_set)
         if idx.size > int(self.delta_max_ratio * n_slots_words):
             self._fallback("ratio")
             return None
+        if in_place:
+            return ops.apply_word_updates_(dev, idx, om, am), gen, int(idx.size)
         return ops.apply_word_updates(dev, idx, om, am), gen, int(idx.size)
 
     def _delta_for_slots(self, frag, row_ids, n_rows_staged: int):
@@ -481,7 +551,7 @@ class DeviceStager:
         row_ids[k] is block row k. Deltas on other rows don't touch the
         block and are dropped."""
 
-        def delta(old, old_gen):
+        def delta(old, old_gen, in_place):
             d = self._deltas(frag, old_gen)
             if d is None:
                 return None
@@ -492,7 +562,7 @@ class DeviceStager:
                 widx = slots[keep] * _W32 + widx[keep]
                 bidx = bidx[keep]
                 is_set = is_set[keep]
-            return self._scatter(old, widx, bidx, is_set, gen, n_rows_staged * _W32)
+            return self._scatter(old, widx, bidx, is_set, gen, n_rows_staged * _W32, in_place)
 
         return delta
 
@@ -501,7 +571,7 @@ class DeviceStager:
         generation change (a write can occupy a container the form did
         not stage). ``form`` names the layout in the fallback metric."""
 
-        def fallback(old, old_gen):
+        def fallback(old, old_gen, in_place):
             self._fallback("sparse_form", form=form)
             return None
 
@@ -613,7 +683,7 @@ class DeviceStager:
         word, where ``slots_of(rows)`` gives each delta row's slot (-1
         drops it); one combined scatter over the ``total`` words."""
 
-        def delta(old, old_gens):
+        def delta(old, old_gens, in_place):
             all_w, all_b, all_s = [], [], []
             new_gens = list(old_gens)
             for i, f in enumerate(frags):
@@ -649,6 +719,7 @@ class DeviceStager:
                 np.concatenate(all_s),
                 gen_t,
                 total,
+                in_place,
             )
 
         return delta

@@ -86,9 +86,9 @@ _SIGNATURES = {
     ),
     "expand_blocks": (
         "pilosa_expand_blocks",
-        # positions, np, starts, ends, nr, dense, dense_word, nd, out,
-        # num_words, device, stream
-        [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _LL, _I, _P],
+        # positions, np, starts, ends, nr, dense, dense_word, nd,
+        # offsets, out, num_words, device, stream
+        [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _P, _LL, _I, _P],
     ),
     "word_delta": (
         "pilosa_word_delta",

@@ -427,15 +427,19 @@ def bsi_range(planes: torch.Tensor, code, out_sel: int) -> torch.Tensor:
 # Words one expand_blocks launch writes: a 0xFFFFFFFF position pad must
 # land past the last word after >> 5.
 EXPAND_MAX_WORDS = (1 << 27) - 1
+# Output words one expand_blocks CTA owns: one 2^16-bit container.
+EXPAND_SPAN_WORDS = 2048
 
 
-def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words: int):
-    """K6: roaring payloads -> i32[num_words] packed words. positions
-    i32[P] (global bit offsets, 0xFFFFFFFF = padding), run_starts /
-    run_ends i32[N] (inclusive global endpoints, start > end unsigned =
-    padding), dense i32[D, 2048] bitmap words at word offsets dense_word
-    i32[D] (a word past num_words is dropped). Everything is ORed into
-    zeros. One launch: a memset and the scatter."""
+def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words: int, offsets):
+    """K6: roaring payloads binned by span -> i32[num_words] packed words.
+    A span is EXPAND_SPAN_WORDS output words; ``offsets`` i32[3, spans +
+    1] gives each span's slice of positions i32[P] (global bit offsets),
+    of run_starts / run_ends i32[N] (inclusive global endpoints, each run
+    inside its span) and of dense i32[D, 2048] (bitmap words whose
+    dense_word i32[D] is their span's first word). Everything is ORed
+    into zeros; an element outside the span its slice names is dropped.
+    ``ops.expand_blocks`` bins unbinned inputs. One launch, no memset."""
     for t, what in (
         (positions, "positions"),
         (run_starts, "run_starts"),
@@ -443,15 +447,19 @@ def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words:
         (dense_word, "dense_word"),
     ):
         _check_i32(t, what)
-    _check_i32(dense, "dense", dim=2)
+    _check_words(dense, "dense")
     device = dense.device
-    _same_device(device, positions, run_starts, run_ends, dense_word)
+    _same_device(device, positions, run_starts, run_ends, dense_word, offsets)
     if run_starts.shape != run_ends.shape:
         raise ValueError(f"run_starts {tuple(run_starts.shape)} vs run_ends {tuple(run_ends.shape)}")
-    if dense.shape[1] != 2048 or dense_word.shape[0] != dense.shape[0]:
+    if dense.dim() != 2 or dense.shape[1] != 2048 or dense_word.shape[0] != dense.shape[0]:
         raise ValueError(f"dense must be i32[D, 2048] with i32[D] offsets: {tuple(dense.shape)}")
     if not 0 <= num_words <= EXPAND_MAX_WORDS:
         raise ValueError(f"num_words {num_words} outside [0, {EXPAND_MAX_WORDS}]")
+    spans = -(-num_words // EXPAND_SPAN_WORDS)
+    _check_i32(offsets, "offsets", dim=2)
+    if tuple(offsets.shape) != (3, spans + 1):
+        raise ValueError(f"offsets must be i32[3, {spans + 1}], got {tuple(offsets.shape)}")
     out = torch.empty(num_words, dtype=torch.int32, device=device)
     if num_words == 0:
         return out
@@ -459,7 +467,7 @@ def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words:
     err = lib.pilosa_expand_blocks(
         positions.data_ptr(), positions.shape[0],
         run_starts.data_ptr(), run_ends.data_ptr(), run_starts.shape[0],
-        dense.data_ptr(), dense_word.data_ptr(), dense.shape[0],
+        dense.data_ptr(), dense_word.data_ptr(), dense.shape[0], offsets.data_ptr(),
         out.data_ptr(), num_words, device.index, _stream(device),
     )
     _raise_on(err, "expand_blocks")
@@ -468,9 +476,9 @@ def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words:
 
 
 def word_delta_patch(src, out, shard_idx, word_idx, or_mask, andnot_mask) -> None:
-    """K7's patch alone: out[s, m] = (src[s, m] | or) & ~andnot at each
-    valid update, out of range dropped; ``out`` may be ``src``. Counts
-    nothing: ``word_delta`` is the function."""
+    """K7's patch: out[s, m] = (src[s, m] | or) & ~andnot at each valid
+    update, out of range dropped; ``out`` may be ``src``. Counts
+    nothing: ``word_delta`` and ``word_delta_`` are the function."""
     _check_i32(src, "words", dim=2)
     _check_i32(out, "out", dim=2)
     if out.shape != src.shape:
@@ -493,10 +501,11 @@ def word_delta_patch(src, out, shard_idx, word_idx, or_mask, andnot_mask) -> Non
 
 
 def word_delta(words, shard_idx, word_idx, or_mask, andnot_mask) -> torch.Tensor:
-    """K7: a NEW i32[S, M] equal to ``words`` with the per-word masks
-    applied at (shard_idx, word_idx) (shard_idx None = shard 0); an
-    update outside [0, S) x [0, M) is dropped. The wrapper copies the
-    block device to device, then the kernel patches the K words."""
+    """K7 on the copy route: a NEW i32[S, M] equal to ``words`` with the
+    per-word masks applied at (shard_idx, word_idx) (shard_idx None =
+    shard 0); an update outside [0, S) x [0, M) is dropped. The wrapper
+    copies the block device to device, then the kernel patches the K
+    words."""
     _check_i32(words, "words", dim=2)
     out = torch.empty_like(words)
     out.copy_(words)
@@ -505,6 +514,16 @@ def word_delta(words, shard_idx, word_idx, or_mask, andnot_mask) -> torch.Tensor
     word_delta_patch(words, out, shard_idx, word_idx, or_mask, andnot_mask)
     WORD_DELTA.note_launch(1)
     return out
+
+
+def word_delta_(words, shard_idx, word_idx, or_mask, andnot_mask) -> torch.Tensor:
+    """K7 in place: ``words`` i32[S, M] patched at (shard_idx, word_idx)
+    and returned. Kernels enqueued earlier on this stream read the words
+    before the patch."""
+    if word_idx.shape[0]:
+        word_delta_patch(words, words, shard_idx, word_idx, or_mask, andnot_mask)
+        WORD_DELTA.note_launch(1)
+    return words
 
 
 # Widest shard one bsi_minmax launch takes: a CTA keeps three slices of

@@ -7,12 +7,12 @@ K-word patch, not a 128 KiB row (or a 190 MB plane stack).
 
 Host side (numpy, copied): an ordered bit-delta stream collapses to
 per-word OR / AND-NOT masks (``coalesce_bit_updates`` — the last op per
-bit wins). Device side: ``apply_word_updates`` returns a NEW tensor with
-``flat[idx[k]] = (flat[idx[k]] | or[k]) & ~andnot[k]``. The result is
-never the input patched in place: the batcher coalesces launches on the
-staged tensor's identity (same object ⇔ same snapshot), so a patch in
-place could mix queries that observed different generations in one
-launch.
+bit wins). Device side: ``flat[idx[k]] = (flat[idx[k]] | or[k]) &
+~andnot[k]``, in two forms. ``apply_word_updates(_2d)`` return a NEW
+tensor, as the JAX package's functions return a new array.
+``apply_word_updates_`` patches the tensor in place; the stager calls it
+only when no reader holds the staged snapshot (executor/stager.py), so
+the batcher's rule "same live object ⇔ same snapshot" still holds.
 
 Each device function has a plain PyTorch version (``*_plain``) and, for
 a CUDA tensor, the hand-written kernel K7 (``ops/kernels/word_delta.cu``,
@@ -90,8 +90,8 @@ def _updates(device, *arrays) -> list:
     return [None if a is None else next(views) for a in arrays]
 
 
-def apply_word_updates_2d_plain(words, shard_idx, word_idx, or_mask, andnot_mask):
-    """New i32[S, M] equal to ``words`` with
+def patch_words_2d_plain_(words, shard_idx, word_idx, or_mask, andnot_mask):
+    """``words`` i32[S, M] patched in place:
     ``w[s, m] = (w[s, m] | or) & ~andnot`` at each valid (shard, word);
     an update whose shard or word lies outside [0, S) x [0, M) is
     dropped. ``shard_idx`` None means shard 0 of a one-shard [1, M]."""
@@ -102,11 +102,15 @@ def apply_word_updates_2d_plain(words, shard_idx, word_idx, or_mask, andnot_mask
     )
     valid = (shard >= 0) & (shard < s) & (word_idx >= 0) & (word_idx < m)
     flat_idx = (shard * m + word_idx)[valid]
-    out = words.clone()
-    flat = out.view(-1)
+    flat = words.view(-1)
     cur = flat[flat_idx]
     flat[flat_idx] = (cur | or_mask[valid]) & ~andnot_mask[valid]
-    return out
+    return words
+
+
+def apply_word_updates_2d_plain(words, shard_idx, word_idx, or_mask, andnot_mask):
+    """New i32[S, M]: ``patch_words_2d_plain_`` on a copy of ``words``."""
+    return patch_words_2d_plain_(words.clone(), shard_idx, word_idx, or_mask, andnot_mask)
 
 
 def apply_word_updates_plain(words, idx, or_mask, andnot_mask):
@@ -137,6 +141,21 @@ def apply_word_updates(words: torch.Tensor, idx, or_mask, andnot_mask):
     if _on_cuda(words):
         return cuda.word_delta(flat, None, word_t, om, am).view(words.shape)
     return apply_word_updates_2d_plain(flat, None, word_t, om, am).view(words.shape)
+
+
+def apply_word_updates_(words: torch.Tensor, idx, or_mask, andnot_mask) -> torch.Tensor:
+    """``apply_word_updates`` in place: patches the K words of the
+    contiguous ``words`` and returns it. The caller must know that no
+    reader holds ``words``' storage."""
+    if not words.is_contiguous():
+        raise ValueError("an in-place patch needs a contiguous tensor")
+    word_t, om, am = _updates(words.device, idx, or_mask, andnot_mask)
+    flat = words.view(1, -1)
+    if _on_cuda(words):
+        cuda.word_delta_(flat, None, word_t, om, am)
+    else:
+        patch_words_2d_plain_(flat, None, word_t, om, am)
+    return words
 
 
 # -- parity shims ----------------------------------------------------------

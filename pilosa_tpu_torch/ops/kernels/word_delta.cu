@@ -7,14 +7,17 @@
 // indexes are unique (ops/delta.py coalesce_bit_updates), so no two threads
 // write one word.
 //
-// Bound: bytes. The function returns a new tensor, so the wrapper's
-// device-to-device copy of the whole block (read once, written once)
-// dominates: 16 MiB for a 128-row chunk. The patch itself moves 16 bytes of
-// updates per word plus the word read and written.
+// Bound: bytes. The stager patches a staged tensor in place when no reader
+// holds it (executor/stager.py), so the work is the patch: 12 bytes of
+// updates per word (16 with a shard index) plus the 32-byte sector of each touched word read and
+// written. When a reader holds the snapshot the wrapper first copies the
+// whole block device to device (read once, written once), and that copy
+// dominates: 512 MiB for the dense 4096-row chunk.
 //
-// Design: one thread per update in a grid-stride loop; the word is read from
-// the source and written to the copy, so the patch does not depend on the
-// copy's order. The copy is the wrapper's (one cudaMemcpyAsync).
+// Design: one thread per update in a grid-stride loop. Each thread reads its
+// word from the source and writes it to the output, which may be the same
+// buffer (the updates are unique, so no word is read after another thread
+// wrote it). On the copy route the copy is the wrapper's one cudaMemcpyAsync.
 
 #include "common.cuh"
 

@@ -558,6 +558,9 @@ def groupby_sum_reduce(dims, filt, planes):
 # compressed uploads (ops/kernels/expand_blocks.cu). Coordinates are the
 # int32 views of u32 global bit offsets of one flat bit space (row_index *
 # SHARD_WIDTH + slot * 2^16 + local); the stager keeps them below 2^31.
+# The kernel takes its inputs binned by span (one container's 2048 output
+# words, ``cuda.EXPAND_SPAN_WORDS``): ``bin_expand_inputs`` bins on the
+# device, the stager on the host.
 
 
 def _as_u32(t: torch.Tensor) -> torch.Tensor:
@@ -582,13 +585,21 @@ def _scatter_or(out: torch.Tensor, idx: torch.Tensor, masks: torch.Tensor) -> to
     return out
 
 
-def expand_blocks_plain(positions, run_starts, run_ends, dense, dense_word, num_words: int):
+def expand_blocks_plain(
+    positions, run_starts, run_ends, dense, dense_word, num_words: int, offsets=None
+):
     """The function of ``pilosa_tpu/ops/packed.py`` expand_blocks (and,
     with no positions and no dense blocks, of the Pallas
     expand_runs_pallas) -> i32[num_words]: array positions (0xFFFFFFFF =
     padding), inclusive RLE runs (start > end = padding) and dense
     [D, 2048] blocks at word offsets dense_word, ORed into zeros; words
-    past num_words drop."""
+    past num_words drop. With ``offsets`` (K6's binned form), what the
+    kernel reads: each element outside the span its offsets name is
+    dropped first."""
+    if offsets is not None:
+        positions, run_starts, run_ends, dense, dense_word = _in_their_spans(
+            positions, run_starts, run_ends, dense, dense_word, offsets
+        )
     device = dense.device
     out = torch.zeros(num_words, dtype=torch.int64, device=device)
     idx_parts, mask_parts = [], []
@@ -640,9 +651,95 @@ def expand_runs_plain(run_starts, run_ends, num_words: int):
     )
 
 
-def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words: int):
-    """Expand compressed roaring payloads to packed words: the kernel for
-    CUDA tensors, the plain version for CPU ones."""
+def _bins(offsets: torch.Tensor, n: int) -> torch.Tensor:
+    """The span each of n elements lies in by non-decreasing ``offsets``
+    i64[spans + 1] (-1 outside every span)."""
+    idx = torch.arange(n, dtype=torch.int64, device=offsets.device)
+    span = torch.searchsorted(offsets, idx, right=True) - 1
+    return torch.where(idx < offsets[-1], span, -1)
+
+
+def _in_their_spans(positions, run_starts, run_ends, dense, dense_word, offsets):
+    """The binned inputs without the elements that lie outside the span
+    ``offsets`` names for them, as K6 drops them."""
+    off = offsets.to(torch.int64)
+    p = _as_u32(positions)
+    s, e = _as_u32(run_starts), _as_u32(run_ends)
+    dw = dense_word.to(torch.int64)
+    keep_p = (p >> 16) == _bins(off[0], p.numel())
+    span_r = _bins(off[1], s.numel())
+    keep_r = ((s >> 16) == span_r) & ((e >> 16) == span_r)
+    span_d = _bins(off[2], dw.numel())
+    keep_d = (span_d >= 0) & (dw == span_d * cuda.EXPAND_SPAN_WORDS)
+    return positions[keep_p], run_starts[keep_r], run_ends[keep_r], dense[keep_d], dense_word[keep_d]
+
+
+def bin_expand_inputs(positions, run_starts, run_ends, dense, dense_word, num_words: int):
+    """K6's binning, on the inputs' device: the expand_blocks contract's
+    inputs (any order, padding, runs and dense blocks at any offset) as
+    the same function's inputs binned by span, with their offsets:
+    (positions, run_starts, run_ends, dense, dense_word, offsets i32[3,
+    spans + 1]). Positions sort by value; a run splits at span edges; a
+    dense block is cut into the (at most two) spans it overlaps, each
+    piece a span-aligned block with zeros outside it."""
+    device = dense.device
+    span_words = cuda.EXPAND_SPAN_WORDS
+    spans = -(-num_words // span_words)
+    nbits = num_words * 32
+    first_bit = torch.arange(spans + 1, dtype=torch.int64, device=device) << 16
+
+    p = _as_u32(positions)
+    p = torch.sort(p[p < nbits]).values
+    pos_off = torch.searchsorted(p, first_bit)
+
+    s, e = _as_u32(run_starts), _as_u32(run_ends)
+    keep = (s <= e) & (s < nbits)
+    s, e = s[keep], torch.clamp(e[keep], max=nbits - 1)
+    pieces = (e >> 16) - (s >> 16) + 1
+    run = torch.repeat_interleave(torch.arange(s.numel(), device=device), pieces)
+    nth = torch.arange(run.numel(), device=device) - (torch.cumsum(pieces, 0) - pieces)[run]
+    span = (s[run] >> 16) + nth
+    span, order = torch.sort(span)
+    run = run[order]
+    starts = torch.maximum(s[run], span << 16)
+    ends = torch.minimum(e[run], (span << 16) | 0xFFFF)
+    run_off = torch.searchsorted(span, first_bit >> 16)
+
+    dw = dense_word.to(torch.int64)
+    lo = torch.div(dw, span_words, rounding_mode="floor")
+    block = torch.arange(dw.numel(), device=device).repeat_interleave(2)
+    dspan = torch.stack([lo, lo + 1], 1).reshape(-1)
+    shift = dspan * span_words - dw[block]  # source word of the span's word 0
+    keep = (dspan >= 0) & (dspan < spans) & (shift > -span_words) & (shift < span_words)
+    dspan, order = torch.sort(dspan[keep])
+    block, shift = block[keep][order], shift[keep][order]
+    src = shift[:, None] + torch.arange(span_words, device=device)
+    inside = (src >= 0) & (src < span_words)
+    words = dense[block[:, None], src.clamp(0, span_words - 1)]
+    dense_off = torch.searchsorted(dspan, first_bit >> 16)
+    return (
+        _to_i32(p),
+        _to_i32(starts),
+        _to_i32(ends),
+        torch.where(inside, words, torch.zeros_like(words)).contiguous(),
+        (dspan * span_words).to(torch.int32),
+        torch.stack([pos_off, run_off, dense_off]).to(torch.int32),
+    )
+
+
+def expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words: int, offsets=None):
+    """Expand compressed roaring payloads to packed words: K6 for CUDA
+    tensors (binned first by ``bin_expand_inputs`` unless ``offsets``
+    come with them), the plain version for CPU ones."""
     if _on_cuda(dense):
-        return cuda.expand_blocks(positions, run_starts, run_ends, dense, dense_word, num_words)
-    return expand_blocks_plain(positions, run_starts, run_ends, dense, dense_word, num_words)
+        if offsets is None:
+            *binned, offsets = bin_expand_inputs(
+                positions, run_starts, run_ends, dense, dense_word, num_words
+            )
+            positions, run_starts, run_ends, dense, dense_word = binned
+        return cuda.expand_blocks(
+            positions, run_starts, run_ends, dense, dense_word, num_words, offsets
+        )
+    return expand_blocks_plain(
+        positions, run_starts, run_ends, dense, dense_word, num_words, offsets
+    )

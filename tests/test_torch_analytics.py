@@ -21,6 +21,7 @@ from pilosa_tpu.core import Holder as JaxHolder
 from pilosa_tpu.executor import Executor as JaxExecutor
 
 import pilosa_tpu_torch
+from pilosa_tpu_torch.executor import analytics
 from pilosa_tpu_torch.ops import bsi, packed
 from pilosa_tpu_torch.utils import metrics
 
@@ -359,6 +360,68 @@ def test_deep_field_predicates(deep, q):
     assert got[1] == got[0] == got[2]
     if "==" in q:
         assert got[0] == [5]
+
+
+@pytest.fixture(scope="module", params=[1, 3], ids=["1shard", "3shards"])
+def dup_ids(request, tmp_path_factory):
+    """ROADMAP C2's smallest input: one set field ``seg`` whose row 1
+    holds column 7 of each of 1 or 3 shards, and row 2 column 9 of the
+    first. Yields (JAX always leg, the port's legs, seg's rows as numpy
+    column sets)."""
+    shards = request.param
+    d = tmp_path_factory.mktemp(f"dup{shards}")
+    h = JaxHolder(str(d))
+    h.open()
+    seg = h.create_index("c").create_field("seg")
+    rows = {1: np.array([s * SW + 7 for s in range(shards)]), 2: np.array([9])}
+    for r, cols in rows.items():
+        seg.import_bits([r] * cols.size, cols.tolist())
+    h.close()
+    jh = JaxHolder(str(d))
+    jh.open()
+    th = pilosa_tpu_torch.holder_from_dir(str(d))
+    jax_dev = JaxExecutor(jh, device_policy="always")
+    port = [pilosa_tpu_torch.Executor(th, device="cpu", device_policy=p) for p in ("always", "never")]
+    yield jax_dev, port, rows
+    for ex in [jax_dev, *port]:
+        ex.close()
+    jh.close()
+    th.close()
+
+
+def _groupby_oracle(rows, ids, limit=None) -> list:
+    """numpy: one group per distinct id in first-occurrence order, its
+    column count, empty groups dropped, then ``limit``."""
+    out = [
+        {"group": [{"field": "seg", "rowID": r}], "count": int(np.unique(rows.get(r, [])).size)}
+        for r in dict.fromkeys(ids)
+    ]
+    out = [g for g in out if g["count"]]
+    return out[:limit] if limit else out
+
+
+@pytest.mark.parametrize(
+    "ids,limit",
+    [([1, 1], None), ([2, 1, 2, 1], None), ([1, 2, 1], 1), ([1], None), ([2, 1], None)],
+)
+def test_groupby_repeated_ids_count_distinct_groups(dup_ids, ids, limit):
+    """ROADMAP C2: repeated explicit ids make one group, ranked by their
+    first position, on every leg of the port (1 shard: the ``always`` leg
+    runs on the CPU path; 3 shards: on the GroupBy kernel's plain
+    version). With distinct ids the port also equals the JAX package,
+    whose legs disagree with each other on repeats (its fault)."""
+    jax_dev, port, rows = dup_ids
+    q = f"GroupBy(Rows(seg, ids=[{', '.join(map(str, ids))}])" + (f", limit={limit}" if limit else "") + ")"
+    want = [_groupby_oracle(rows, ids, limit)]
+    for ex in port:
+        # analytics-max-groups bounds the distinct groups
+        ex.analytics_max_groups = len(set(ids))
+        try:
+            assert ex.execute("c", q) == want, q
+        finally:
+            ex.analytics_max_groups = analytics.DEFAULT_MAX_GROUPS
+    if len(set(ids)) == len(ids):
+        assert jax_dev.execute("c", q) == want, q
 
 
 MM_MIN, MM_MAX = -1000, 1000

@@ -11,6 +11,10 @@ JAX package's, on the CPU (the kernel K7's plain version).
   ``row_stack``, ``planes_stack`` (and the port's ``rows_stack``)
   forms: each absorbs writes as deltas, and the fallbacks ``ratio``,
   ``log`` and ``sparse_form`` restage.
+* In place unless held: an unheld entry is patched in its own storage,
+  one whose view a reader holds is refreshed into a copy (the row and
+  the shard-stack forms), and a reader meeting an in-place refresh
+  waits for it.
 * An executor gauntlet: JAX ``Executor(device_policy="always")``, the
   port's device leg on the CPU and its CPU roaring leg on interleaved
   ``Set``/``Clear``/``SetValue`` and reads.
@@ -334,6 +338,85 @@ def test_delta_refresh_keeps_bytes_and_makes_new_tensor(pair):
     assert ts._bytes == b0
     # the entry a reader already holds is untouched by later writes
     assert torch.equal(first, keep)
+
+
+# -- in place, or a copy when a reader holds the snapshot --------------------------------
+
+
+@pytest.mark.parametrize("form", ["row", "row_stack"])
+@pytest.mark.parametrize("held", [False, True])
+def test_refresh_in_place_unless_held(pair, form, held):
+    """An entry no reader holds is patched in place (same storage); one
+    whose view a reader holds across the write is refreshed into a copy,
+    and the reader's view keeps the old snapshot. Either way the new
+    words equal the JAX package's apply_word_updates on the old ones.
+    ``row_stack`` refreshes through the stack delta (_delta_for_stack)."""
+    _, tfr = pair.frags()
+    ts = DeviceStager("cpu")
+
+    def stage():
+        return ts.row(tfr[1], 3) if form == "row" else ts.row_stack(tfr, 3)
+
+    first = stage()
+    ptr, old = first.data_ptr(), _np(first).copy()
+    view = first.view(-1)[:64] if held else None
+    del first
+    rng = np.random.default_rng(held)
+    cols = rng.choice(SW, size=12, replace=False)
+    shards = np.arange(cols.size) % 2 if form == "row_stack" else np.ones(cols.size, np.int64)
+    is_set = np.arange(cols.size) % 3 != 0
+    f = pair.th.field("d", "f")
+    for c, sh, st in zip(cols, shards, is_set):
+        (f.set_bit if st else f.clear_bit)(3, int(sh) * SW + int(c))
+    # the staged block's flat bit positions of the writes
+    flat = cols if form == "row" else shards * SW + cols
+    want = np.asarray(jdelta.apply_position_wave(old, flat, is_set))
+    got = stage()
+    assert np.array_equal(_np(got).reshape(-1), want.reshape(-1))
+    assert (got.data_ptr() == ptr) is not held
+    assert ts.delta_routes == {"in_place": int(not held), "copied": int(held)}
+    assert ts.misses == 1 and ts.delta_applies == 1
+    if held:
+        assert np.array_equal(_np(view), old.reshape(-1)[:64])
+
+
+def test_refresh_waits_while_entry_is_patched_in_place(pair, monkeypatch):
+    """During an in-place refresh the entry is out of the cache: a reader
+    of the key that arrives meanwhile waits for the patched snapshot and
+    receives it, never the stale one."""
+    import threading
+
+    _, tfr = pair.frags()
+    ts = DeviceStager("cpu")
+    ts.row(tfr[0], 5)
+    pair.th.field("d", "f").set_bit(5, 777)
+    entered, release = threading.Event(), threading.Event()
+    real = ops.apply_word_updates_
+
+    def slow_patch(*args):
+        entered.set()
+        release.wait(10)
+        return real(*args)
+
+    got = {}
+    monkeypatch.setattr(ops, "apply_word_updates_", slow_patch)
+    try:
+        refresher = threading.Thread(target=lambda: got.setdefault("a", ts.row(tfr[0], 5)))
+        refresher.start()
+        assert entered.wait(10)
+        reader = threading.Thread(target=lambda: got.setdefault("b", ts.row(tfr[0], 5)))
+        reader.start()
+        reader.join(0.2)
+        assert reader.is_alive()  # waiting on the refresh, not served the stale entry
+        release.set()
+        refresher.join(10)
+        reader.join(10)
+        assert not refresher.is_alive() and not reader.is_alive()
+    finally:
+        release.set()
+    assert got["a"] is got["b"]
+    assert np.array_equal(_np(got["b"]), tfr[0].row_words(5).view("<u4"))
+    assert ts.delta_routes["in_place"] == 1
 
 
 # -- the executor gauntlet ----------------------------------------------------------------

@@ -482,12 +482,52 @@ def test_expand_blocks_single_kinds_and_empty(dev):
         (none, none, none, np.zeros((0, 2048), np.uint32), np.zeros(0, np.int32)),
     ):
         args = [_on(dev, a) for a in case]
-        assert torch.equal(ops.cuda.expand_blocks(*args, num_words), ops.expand_blocks_plain(*args, num_words))
+        assert torch.equal(ops.expand_blocks(*args, num_words), ops.expand_blocks_plain(*args, num_words))
     # runs alone are the Pallas kernel's function
     st, en = _on(dev, starts), _on(dev, ends)
     none_t = _on(dev, none)
-    got = ops.cuda.expand_blocks(none_t, st, en, _on(dev, np.zeros((0, 2048), np.uint32)), none_t, num_words)
+    got = ops.expand_blocks(none_t, st, en, _on(dev, np.zeros((0, 2048), np.uint32)), none_t, num_words)
     assert torch.equal(got, ops.expand_runs_plain(st, en, num_words))
+
+
+@pytest.mark.parametrize("num_words", [2048, 5000, 3 * W32, 3 * W32 + 100])
+def test_expand_blocks_binned_shuffled_and_misbinned(dev, num_words):
+    """Unbinned input in any order (runs across spans, bitmap blocks off
+    their spans, words past the end) through the binning, and binned
+    input with offsets that misname spans: the kernel equals the plain
+    version over the same bins, and over the unbinned input."""
+    rng = np.random.default_rng(num_words)
+    nbits = num_words * 32
+    pos = rng.integers(0, nbits + 4096, size=3000).astype(np.uint32)
+    pos[:5] = 0xFFFFFFFF
+    starts = rng.integers(0, nbits, size=40)
+    ends = starts + rng.integers(-5, 3 * 65536, size=40)
+    starts, ends = starts.astype(np.uint32), np.minimum(ends, 2**32 - 1).astype(np.uint32)
+    dense = rng.integers(0, 2**32, size=(5, 2048), dtype=np.uint32)
+    dword = rng.integers(-1000, num_words + 500, size=5).astype(np.int32)
+    dword[0] = 0
+    args = [_on(dev, a) for a in (pos, starts, ends, dense, dword)]
+    want = ops.expand_blocks_plain(*args, num_words)
+    before = ops.cuda.EXPAND_BLOCKS.launches
+    got = ops.expand_blocks(*args, num_words)
+    torch.cuda.synchronize()
+    assert ops.cuda.EXPAND_BLOCKS.launches == before + 1
+    assert torch.equal(got, want)
+    *binned, offsets = ops.bin_expand_inputs(*args, num_words)
+    assert torch.equal(ops.cuda.expand_blocks(*binned, num_words, offsets), want)
+    wrong = offsets.clone()
+    wrong[:, 1:-1] = offsets[:, 2:].clone()
+    got = ops.cuda.expand_blocks(*binned, num_words, wrong)
+    assert torch.equal(got, ops.expand_blocks_plain(*binned, num_words, wrong))
+
+
+def test_expand_blocks_rejects_missing_or_misshaped_offsets(dev):
+    none = _on(dev, np.zeros(0, np.uint32))
+    dense = _on(dev, np.zeros((0, 2048), np.uint32))
+    with pytest.raises(TypeError):
+        ops.cuda.expand_blocks(none, none, none, dense, none, 4096)
+    with pytest.raises(ValueError):
+        ops.cuda.expand_blocks(none, none, none, dense, none, 4096, _on(dev, np.zeros((3, 2), np.int32)))
 
 
 @pytest.mark.parametrize("shape,n", [((W32,), 1), ((3, 32768), 300), ((64, W32), 5000), ((2, 5, 2048), 77)])
@@ -511,6 +551,24 @@ def test_word_delta_matches_plain(dev, shape, n, padded):
     assert torch.equal(got, want)
     # a new tensor; the staged input is untouched
     assert got.data_ptr() != words.data_ptr() and torch.equal(words, keep)
+
+
+@pytest.mark.parametrize("shape,n", [((W32,), 1), ((3, 32768), 300), ((4096, W32), 5000)])
+def test_word_delta_in_place_matches_plain(dev, shape, n):
+    """The stager's in-place route: the tensor's own storage patched, one
+    launch, the same words as the plain version's copy."""
+    rng = np.random.default_rng(n)
+    words = _words(rng, shape, dev)
+    wi = rng.integers(0, words.numel(), size=n)
+    idx, om, am = ops.coalesce_bit_updates(wi, rng.integers(0, 32, size=n), rng.random(n) < 0.7)
+    want = ops.apply_word_updates_plain(words, _on(dev, idx), _on(dev, om), _on(dev, am))
+    ptr = words.data_ptr()
+    before = ops.cuda.WORD_DELTA.launches
+    got = ops.apply_word_updates_(words, idx, om, am)
+    torch.cuda.synchronize()
+    assert ops.cuda.WORD_DELTA.launches == before + 1
+    assert got is words and words.data_ptr() == ptr
+    assert torch.equal(words, want)
 
 
 @pytest.mark.parametrize("s,m", [(1, 4096), (4, 2048), (64, W32)])

@@ -3,7 +3,10 @@
 * The expansion (kernel K6's plain version): ``expand_blocks_plain``
   against ``pilosa_tpu.ops.expand_blocks`` on array, run and bitmap
   payloads with the padding the contract names, and ``expand_runs_plain``
-  against ``expand_runs_pallas`` in interpret mode.
+  against ``expand_runs_pallas`` in interpret mode. K6's binned form:
+  ``bin_expand_inputs`` on shuffled payloads (runs across spans, bitmap
+  blocks off their spans) then the plain version over the bins, against
+  the JAX function; the stager's own bins from unsorted entries.
 * ``Tier1Cache``: admission, eviction by value, delta-log revalidation,
   with the same operation sequence giving the same stats as the JAX
   cache.
@@ -105,6 +108,41 @@ def test_expand_blocks_plain_single_kinds():
         want = np.asarray(jops.expand_blocks(*case, num_words=num_words))
         got = ops.expand_blocks_plain(*[_t(a) for a in case], num_words)
         assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("padded", [False, True])
+def test_binned_expand_matches_jax(rows, padded):
+    """The contract's inputs in any order, binned by span, expand as the
+    JAX function expands them unbinned."""
+    pos, starts, ends, dense, dword, num_words = _payloads(rows + 10, rows, padded)
+    rng = np.random.default_rng(rows)
+    # a bitmap block across two spans, in slots 13-14 of the last row
+    off = (rows - 1) * W32 + (13 << 11) + 777
+    dense = np.concatenate([dense, rng.integers(0, 1 << 32, size=(1, 2048), dtype=np.uint32)])
+    dword = np.concatenate([dword, np.array([off], np.int32)])
+    p, r, d = rng.permutation(pos.size), rng.permutation(starts.size), rng.permutation(dword.size)
+    pos, starts, ends, dense, dword = pos[p], starts[r], ends[r], dense[d], dword[d]
+    want = np.asarray(jops.expand_blocks(pos, starts, ends, dense, dword, num_words=num_words))
+    *binned, offsets = ops.bin_expand_inputs(*[_t(a) for a in (pos, starts, ends, dense, dword)], num_words)
+    spans = -(-num_words // 2048)
+    assert tuple(offsets.shape) == (3, spans + 1)
+    assert bool((offsets[:, 1:] >= offsets[:, :-1]).all())
+    assert int(offsets[1, -1]) > starts.size - 2 * padded  # the long runs split at span edges
+    assert np.array_equal(_np(ops.expand_blocks_plain(*binned, num_words, offsets)), want)
+
+
+def test_binned_plain_drops_elements_outside_their_span():
+    """What K6 reads of a binned input: an element whose offsets put it
+    in another span than its own is dropped."""
+    pos, starts, ends, dense, dword, num_words = _payloads(3, 2, False)
+    *binned, offsets = ops.bin_expand_inputs(*[_t(a) for a in (pos, starts, ends, dense, dword)], num_words)
+    full = ops.expand_blocks_plain(*binned, num_words, offsets)
+    shifted = offsets.clone()
+    shifted[0, 1:-1] = offsets[0, 2:]  # each span named with the next span's positions
+    got = ops.expand_blocks_plain(*binned, num_words, shifted)
+    assert int(ops.count_bits(got)) < int(ops.count_bits(full))
+    assert torch.equal(got & ~full, torch.zeros_like(got))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -276,6 +314,23 @@ def test_compressed_path_matches_untiered_and_jax(pair):
     tiered.clear()
     assert tiered.tier1.stats()["entries"] == 0
     assert np.array_equal(_np(tiered.row(frag, 3)), frag.row_words(3).view("<u4"))
+
+
+def test_compressed_upload_bins_unsorted_entries(pair):
+    """Container payloads out of container order: the stager sorts them
+    into K6's spans before it ships their offsets."""
+    from pilosa_tpu_torch.executor.stager import _assemble
+
+    _, th = pair
+    frag = th.fragment("ti", "f", "standard", 0)
+    ids = list(range(8))
+    entries, _ = frag.container_blocks(ids)
+    num_words = len(ids) * W32
+    want = _assemble(entries, num_words)
+    st = DeviceStager("cpu")
+    shuffled = [entries[k] for k in np.random.default_rng(5).permutation(len(entries))]
+    assert np.array_equal(_np(st._compressed_upload(shuffled, num_words)), want)
+    assert np.array_equal(_np(st._compressed_upload(entries, num_words)), want)
 
 
 def test_host_assembly_matches_untiered(pair):
