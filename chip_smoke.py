@@ -54,17 +54,33 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          128-row TopN chunk is its full-width launch. One 16-mutation
          write lands in the middle of the 3x arm.
 
+  server the port's server (``pilosa_tpu_torch.server.Server``, the
+         default Config on ``cuda``) over the same directory, run after
+         ssb and before writes (the in-process holder closes first and
+         reopens after): every dense, tall and ssb query over HTTP, a
+         cold pass, then each family sequentially and from 8 clients
+         (HTTP p50 and qps beside the in-process p50 of this run);
+         Set/Clear PQL and one protobuf import, each read back, then
+         cleared again; an allocation failure on the card under the
+         executor's OomRecovery (relief, one retry, the CPU cooldown,
+         then the device path again) and a relief-plus-retry that
+         succeeds; a restart; and ``python -m pilosa_tpu_torch server``
+         as a subprocess, /status, one TopN, SIGINT. It must launch K1,
+         K2, K3, K4, K5, K7 and K8 and show no degrade, device-down
+         fallback or gate trip outside the allocation failure.
+
 The device executors stage with the port's defaults, which are the
 server's: 8 GiB budget, delta refresh on at a 0.25 ratio, a 256 MiB
 tier 1 and compressed uploads at a dense/payload ratio of 4.0 (the
 tiered arms change only the budget).
 
-Every dense, tall, writes and tiered answer must equal the port's CPU
-roaring leg (device_policy="never"); every ssb answer must equal a plain
-numpy computation over the generated columns (int64, exact). Each path
-(dense and tall; ssb; writes; tiered) runs with the kernels' launch
+Every dense, tall, writes, tiered and server answer must equal the
+port's CPU roaring leg (device_policy="never"); every ssb answer (in
+process and over HTTP) must equal a plain numpy computation over the
+generated columns (int64, exact). Each path (dense and tall; ssb;
+server; writes; tiered) runs with the kernels' launch
 counts set to 0 just before it and read just after; each kernel must
-have launched on its path. Then each kernel runs again at the arguments
+have launched on its path (the server's kernels on the server path). Then each kernel runs again at the arguments
 of its largest main-path launch and must equal its plain PyTorch version
 run on the card on the same inputs (integers: the bar is ==). Both are
 timed with CUDA events, the L2 cache flushed (by a read, leaving clean
@@ -87,8 +103,8 @@ The fragments are written by a pool of worker processes, stopped before
 the card is used.
 
 Output: progress on stderr; on stdout the card's name and power limit
-(nvidia-smi), a ``phases`` line (qps and p50 on the card), a
-``kernels`` line, and as the last line
+(nvidia-smi), a ``phases.server`` line, a ``phases`` line (qps and p50
+on the card), a ``kernels`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before the last line. Without CUDA, or outside a checkout, it exits 2
 and prints no result.
@@ -175,10 +191,10 @@ SET_FRAC = 0.8
 # bounds how many reads the run can check.
 READ_SHARES = (0.4, 0.1, 0.5)
 # the sequence checked read by read stays short (a filtered dense TopN
-# costs the CPU leg seconds); the concurrent clients serve ~160 write
+# costs the CPU leg seconds); the concurrent clients serve ~80 write
 # batches, their reads checked once quiesced
 WRITES_SEQUENTIAL_OPS = 40
-WRITES_CLIENT_OPS = 200
+WRITES_CLIENT_OPS = 100
 
 # tiered: bench.py's tiering probe (bench.py:1154-1240) at 4096 rows
 TIER_ROWS = 4096
@@ -1058,8 +1074,8 @@ class Recorder:
     """Wraps the kernel wrappers of ``ops.cuda`` to keep, per kernel, a
     copy of the arguments of its largest launch over the run (by input
     bytes, or popcounts for the GroupBy kernel) and the path it came from
-    (``path`` is the path running now). The wrappers' own launch counts
-    are untouched."""
+    (``path`` is the path running now), the server's among them. The
+    wrappers' own launch counts are untouched."""
 
     def __init__(self, cuda_mod) -> None:
         self.args: dict[str, tuple] = {}
@@ -1818,6 +1834,512 @@ def run_ssb(dev, oracle: SsbOracle) -> dict:
     return out
 
 
+# -- the server: the same data and queries over HTTP -------------------------------
+
+# kernels the server phase must launch (K6 may launch too, under tier
+# 1's compressed uploads; nothing requires it)
+SERVER_KERNELS = (
+    "dense_scores",
+    "sparse_stacked_scores",
+    "tree_count",
+    "groupby_reduce",
+    "bsi_range",
+    "word_delta",
+    "bsi_minmax",
+)
+# the OOM check's post-degrade CPU cooldown, cut from the default 30 s
+# (PILOSA_OOM_CPU_COOLDOWN_S) so the phase sees the device path return
+OOM_COOLDOWN_S = 10.0
+# the server phase's families and, for each, the in-process phase and
+# key that measured the same queries earlier in this run
+SERVER_IN_PROCESS = {
+    "dense_topn": ("dense_sequential",),
+    "tall_topn": ("tall_topn",),
+    "tall_chain": ("tall_chain",),
+    **{"ssb_" + family: ("ssb", family) for family in SSB_FAMILIES},
+}
+
+
+def wire(results) -> list:
+    """Executor results in the HTTP API's JSON shapes."""
+    from pilosa_tpu_torch.server import encode_result
+
+    return json.loads(json.dumps([encode_result(r) for r in results]))
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection to the server."""
+
+    def __init__(self, host: str, port: int, timeout: float = 600.0) -> None:
+        import http.client
+
+        self.conn = http.client.HTTPConnection(host, port, timeout=timeout)
+
+    def request(self, method: str, path: str, body=None, headers=None):
+        self.conn.request(method, path, body=body, headers=headers or {})
+        resp = self.conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+
+    def query(self, index: str, q: str, want, cold: bool = False) -> float:
+        """POST one query; returns its latency (s). Raises on any status
+        but 200 and on an answer other than ``want``. A ``cold`` query
+        (its data not staged yet) asks for a 600 s deadline instead of
+        the server's default (analytics-timeout is 10 s)."""
+        path = f"/index/{index}/query" + ("?timeout=600" if cold else "")
+        t0 = time.perf_counter()
+        st, _, body = self.request("POST", path, q.encode())
+        dt = time.perf_counter() - t0
+        if st != 200:
+            raise AssertionError(f"server: {index}: {q}: HTTP {st}: {body[:300]!r}")
+        got = json.loads(body)["results"]
+        if got != want:
+            raise AssertionError(f"server: {index}: {q} answered {str(got)[:300]}, oracle {str(want)[:300]}")
+        return dt
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def recalculate_caches(addr) -> None:
+    c = HttpClient(*addr)
+    try:
+        st, _, body = c.request("POST", "/recalculate-caches")
+        if st != 200:
+            raise AssertionError(f"server: /recalculate-caches: HTTP {st}: {body[:300]!r}")
+    finally:
+        c.close()
+
+
+def http_sequential(addr, items, answers, cold: bool = False) -> list[float]:
+    c = HttpClient(*addr)
+    try:
+        return [c.query(index, q, answers[(index, q)], cold) for index, q in items]
+    finally:
+        c.close()
+
+
+def rotating_streams(items, clients: int) -> list[list]:
+    """``clients`` streams, each every item once from its own offset:
+    clients often send the same query at once, and the pipeline's
+    singleflight shares one answer between them."""
+    return [[items[(ci + j) % len(items)] for j in range(len(items))] for ci in range(clients)]
+
+
+def distinct_streams(items, clients: int) -> list[list]:
+    """min(clients, len(items)) streams of len(items) queries each, item
+    i only in stream i mod n: no two clients ever send the same query,
+    so every answer is an execution of its own."""
+    n = min(clients, len(items))
+    return [[items[ci::n][j % len(items[ci::n])] for j in range(len(items))] for ci in range(n)]
+
+
+def http_concurrent(addr, streams, answers) -> tuple[list[float], float]:
+    """One thread per stream, each on its own connection, sending its
+    stream in order. Returns (latencies, wall seconds)."""
+    clients = len(streams)
+    lat: list[list[float]] = [[] for _ in range(clients)]
+    errors: list[BaseException] = []
+    start = threading.Barrier(clients)
+
+    def client(ci: int) -> None:
+        c = HttpClient(*addr)
+        try:
+            start.wait()
+            for index, q in streams[ci]:
+                lat[ci].append(c.query(index, q, answers[(index, q)]))
+        except BaseException as e:  # re-raised below, after every thread joined
+            errors.append(e)
+            start.abort()
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return [x for per in lat for x in per], wall
+
+
+def _http_rate(lat: list[float], wall: float) -> dict:
+    return {"queries": len(lat), "qps": len(lat) / wall, "p50_ms": statistics.median(lat) * 1e3}
+
+
+def server_families(dense_qs, tall_topn, tall_chains, ssb) -> dict:
+    fam = {
+        "dense_topn": [("dense", q) for q in dense_qs],
+        "tall_topn": [("tall", q) for q in tall_topn],
+        "tall_chain": [("tall", q) for q in tall_chains],
+    }
+    for family in SSB_FAMILIES:
+        fam["ssb_" + family] = [("ssb", q) for f, q in ssb.queries if f == family]
+    return fam
+
+
+# the counters that move when a read leaves the card: device errors an
+# executor's OomRecovery saw, its degrades, gate trips, CPU fallbacks
+LEFT_THE_CARD = ("DEVICE_OOM", "DEVICE_OOM_CPU_DEGRADES", "DEVICEHEALTH_TRIPS", "EXECUTOR_DEVICE_DOWN_FALLBACK")
+
+
+def fallback_counts(metrics) -> dict:
+    snap = metrics.snapshot()
+    out = {}
+    for attr in LEFT_THE_CARD:
+        name = getattr(metrics, attr)
+        out[name] = sum(v for k, v in snap.items() if k == name or k.startswith(name + ";"))
+    return out
+
+
+def require_on_card(metrics, base: dict, path: str) -> None:
+    """An in-process path ran with no device error, degrade, trip or
+    CPU fallback: its answers and times are the card's."""
+    moved = {k: v - base[k] for k, v in fallback_counts(metrics).items() if v != base[k]}
+    if moved:
+        raise AssertionError(f"{path}: reads left the card: {moved}")
+
+
+def _device_counters(server, metrics) -> dict:
+    ex = server.executor
+    return {
+        "degraded": ex._oom.stats()["degraded"],
+        "fallbacks": metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0),
+        "trips": ex.health.trips,
+    }
+
+
+def _require_clean(server, metrics, base: dict, when: str) -> None:
+    """0 degrades, 0 device-down fallbacks and 0 gate trips since
+    ``base`` (this server's own count of degrades and trips)."""
+    now = _device_counters(server, metrics)
+    moved = {k: now[k] - base.get(k, 0) for k in now if now[k] != base.get(k, 0)}
+    if moved or not server.executor.health.healthy:
+        raise AssertionError(f"server ({when}): degrades/fallbacks/trips moved: {moved}, healthy {server.executor.health.healthy}")
+
+
+def _unset_columns(frag, row: int, n: int, lo: int) -> list[int]:
+    """``n`` columns from ``lo`` up (absolute ids) that ``row`` of
+    ``frag`` does not hold."""
+    have = set(int(c) for c in frag.row(row).columns())
+    out, c = [], lo
+    while len(out) < n:
+        if c not in have:
+            out.append(c)
+        c += 97
+    return out
+
+
+def server_writes(server, addr, cpu) -> dict:
+    """Set/Clear PQL on dense and tall, and one protobuf import on dense,
+    each followed by reads that must see it: exact counts, and a TopN or
+    the chains over the written row against the CPU leg. Every write is
+    cleared again, so the data (and the phase's oracle) end as they
+    began."""
+    from pilosa_tpu_torch.utils import publicproto
+
+    c = HttpClient(*addr)
+    h = server.holder
+    n = {"reads_checked": 0, "set_clear_requests": 0}
+
+    def expect(index, q, want=None):
+        c.query(index, q, wire(cpu.execute(index, q)) if want is None else want)
+        n["set_clear_requests" if q.startswith(("Set(", "Clear(")) else "reads_checked"] += 1
+
+    def count(index, row):
+        st, _, body = c.request("POST", f"/index/{index}/query", f"Count(Row(f={row}))".encode())
+        assert st == 200, body
+        return json.loads(body)["results"][0]
+
+    try:
+        dense_qs = dense_queries(DENSE_ROWS)
+        r0 = int(dense_qs[0].split("Row(f=")[1].split(")")[0])
+        cols = _unset_columns(h.fragment("dense", "f", "standard", 0), r0, 3, 11)
+        n0 = count("dense", r0)
+        for col in cols:
+            expect("dense", f"Set({col}, f={r0})", [True])
+        expect("dense", f"Count(Row(f={r0}))", [n0 + len(cols)])
+        # a write reaches TopN's candidates when the rank cache next
+        # recalculates (debounced, as in the reference): recalculate, so
+        # the server's and the CPU leg's reads see one ranking
+        recalculate_caches(addr)
+        expect("dense", dense_qs[0])
+        expect("dense", "".join(f"Clear({col}, f={r0})" for col in cols), [True] * len(cols))
+        expect("dense", f"Count(Row(f={r0}))", [n0])
+        # tall: a hot row of one shard gains a bit; the chains over it see it
+        _, chains = tall_queries()
+        t0 = count("tall", 0)
+        shard = min(5, TALL_SHARDS - 1)
+        col = _unset_columns(h.fragment("tall", "f", "standard", shard), 0, 1, shard * SW + 3)[0]
+        expect("tall", f"Set({col}, f=0)", [True])
+        expect("tall", "Count(Row(f=0))", [t0 + 1])
+        for q in chains[:3]:
+            expect("tall", q)
+        expect("tall", f"Clear({col}, f=0)", [True])
+        expect("tall", "Count(Row(f=0))", [t0])
+        # one protobuf import of 64 bits into a dense TopN source row
+        r1 = int(dense_qs[1].split("Row(f=")[1].split(")")[0])
+        icols = _unset_columns(h.fragment("dense", "f", "standard", 0), r1, 64, 5)
+        n1 = count("dense", r1)
+        body = publicproto.encode_import_request(
+            "dense", "f", 0, row_ids=[r1] * len(icols), column_ids=icols, timestamps=None
+        )
+        st, _, resp = c.request(
+            "POST", "/index/dense/field/f/import", body, {"Content-Type": publicproto.CONTENT_TYPE}
+        )
+        if st != 200:
+            raise AssertionError(f"server: protobuf import: HTTP {st}: {resp[:300]!r}")
+        expect("dense", f"Count(Row(f={r1}))", [n1 + len(icols)])
+        recalculate_caches(addr)
+        expect("dense", dense_qs[1])
+        expect("dense", "".join(f"Clear({col}, f={r1})" for col in icols), [True] * len(icols))
+        expect("dense", f"Count(Row(f={r1}))", [n1])
+    finally:
+        c.close()
+    return {**n, "import_bits": len(icols)}
+
+
+def oom_check(server, addr, metrics, answers, probe_items) -> dict:
+    """``OomRecovery`` on the card's own allocation failure, then relief
+    plus a retry that succeeds, without ``torch.cuda.empty_cache``."""
+    import torch
+
+    from pilosa_tpu_torch.executor.hbm import DeviceOom, OomRecovery, classify_device_error
+    from pilosa_tpu_torch.ops import cuda
+
+    ex = server.executor
+    gov = ex.governor
+    out: dict = {"cooldown_s": OOM_COOLDOWN_S}
+    ex.oom_cpu_cooldown_s = OOM_COOLDOWN_S
+    staged0 = gov.used("stager")
+    evictions0 = sum(v for k, v in metrics.snapshot().items() if k.startswith(metrics.HBM_GOVERNOR_EVICTIONS))
+    try:
+        ex._oom.run(lambda: torch.empty(1 << 40, dtype=torch.uint8, device="cuda"), kind="oom_check")
+    except DeviceOom as e:
+        cls = classify_device_error(e.__cause__)
+        out["cause"] = type(e.__cause__).__name__
+    else:
+        raise AssertionError("server: a 1 TiB allocation did not fail")
+    if cls != "alloc":
+        raise AssertionError(f"server: the card's OOM classified {cls!r}, not 'alloc'")
+    relieved = sum(v for k, v in metrics.snapshot().items() if k.startswith(metrics.HBM_GOVERNOR_EVICTIONS)) - evictions0
+    st = ex._oom.stats()
+    out.update(stats=st, staged_before=staged0, staged_after_relief=gov.used("stager"), relief_evictions=relieved)
+    if (st["ooms"], st["recovered"], st["degraded"]) != (1, 0, 1):
+        raise AssertionError(f"server: OomRecovery stats after the OOM check: {st}")
+    if relieved <= 0 or gov.used("stager") >= staged0:
+        raise AssertionError(f"server: relief did not run: {out}")
+    if ex.health.trips != 0 or not ex.health.healthy:
+        raise AssertionError("server: one OOM tripped the gate (trip_after = 2)")
+    # the cooldown: reads are CPU-forced, launch nothing, stay exact
+    if not ex._cpu_forced():
+        raise AssertionError("server: no CPU cooldown after the degrade")
+    launched = sum(k.launches for k in cuda.KERNELS)
+    fb = metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0)
+    http_sequential(addr, probe_items[:1], answers)
+    if not ex._cpu_forced():
+        raise AssertionError(f"server: the cooldown query outlasted the {OOM_COOLDOWN_S} s cooldown")
+    out["cooldown_kernel_launches"] = sum(k.launches for k in cuda.KERNELS) - launched
+    if out["cooldown_kernel_launches"]:
+        raise AssertionError(f"server: {out['cooldown_kernel_launches']} launches during the CPU cooldown")
+    # the cooldown's one read call is served on the CPU leg, and counted
+    out["cooldown_fallbacks"] = metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0) - fb
+    if out["cooldown_fallbacks"] != 1:
+        raise AssertionError(f"server: {out['cooldown_fallbacks']} fallbacks counted for the cooldown's one read")
+    # after it: the device path again, restaging what relief evicted
+    time.sleep(max(0.0, ex._oom_cpu_until - time.monotonic()) + 0.1)
+    misses0, launched = ex.stager.misses, sum(k.launches for k in cuda.KERNELS)
+    http_sequential(addr, probe_items, answers, cold=True)
+    out["restaged_entries"] = ex.stager.misses - misses0
+    out["kernel_launches_after_cooldown"] = sum(k.launches for k in cuda.KERNELS) - launched
+    if out["restaged_entries"] <= 0 or out["kernel_launches_after_cooldown"] <= 0:
+        raise AssertionError(f"server: the device path did not return after the cooldown: {out}")
+    # relief plus one retry succeeds: ask for more than the card has free
+    # (the allocator's cached blocks included) but less than relief frees
+    torch.cuda.synchronize()
+    free, _ = torch.cuda.mem_get_info()
+    cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    with ex.stager._mu:
+        sizes = [e.nbytes for e in ex.stager._cache.values()]
+    need = (sum(sizes) - max(sizes)) // 2
+    ask = free + cached + need
+    probe = OomRecovery(governor=gov)
+    held = probe.run(lambda: torch.empty(ask, dtype=torch.uint8, device="cuda"), kind="oom_retry_probe")
+    del held
+    out["retry_probe"] = {**probe.stats(), "asked_bytes": ask, "free_bytes": free, "cached_bytes": cached, "relief_need_bytes": need}
+    if (probe.stats()["ooms"], probe.stats()["recovered"]) != (1, 1):
+        raise AssertionError(f"server: relief plus retry did not succeed: {out['retry_probe']}")
+    http_sequential(addr, probe_items, answers, cold=True)
+    return out
+
+
+def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, card: str) -> dict:
+    """The port's server over the run's data directory: the in-process
+    phases' queries over HTTP, sequentially and from CLIENTS clients,
+    writes, the OOM check, a restart, and the CLI."""
+    import signal
+    import socket
+
+    import torch
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server import Config, Server
+    from pilosa_tpu_torch.utils import metrics
+
+    cfg = Config(data_dir=root, bind="127.0.0.1:0", device="cuda")
+    out: dict = {"card": card, "config": {"device": cfg.device, "device_policy": cfg.device_policy,
+                 "stager_budget_bytes": cfg.stager_budget_bytes, "tier1_max_bytes": cfg.tier1_max_bytes}}
+    t0 = time.monotonic()
+    server = Server(cfg)
+    server.open()
+    out["open_s"] = time.monotonic() - t0
+    addr = server.address()
+    base = _device_counters(server, metrics)
+    fb0 = base["fallbacks"]
+    try:
+        # the rank caches recalculate on a debounce (reference cache.go:
+        # 233-241); TopN candidates are their rankings, so every check of
+        # TopN answers starts from recalculated caches, as the answers'
+        # CPU leg did
+        recalculate_caches(addr)
+        cold = {}
+        for family, items in families.items():
+            cold[family] = sum(http_sequential(addr, items, cpu_answers, cold=True))
+        out["first_pass_s"] = cold
+        log(f"server: first pass (staging) {sum(cold.values()):.1f} s")
+        rates = {}
+
+        def hits() -> int:
+            return server.pipeline.stats()["coalesce_hits"]
+
+        for family, items in families.items():
+            seq = http_sequential(addr, items, cpu_answers)
+            h0 = hits()
+            lat, wall = http_concurrent(addr, rotating_streams(items, CLIENTS), cpu_answers)
+            h1 = hits()
+            streams = distinct_streams(items, CLIENTS)
+            dlat, dwall = http_concurrent(addr, streams, cpu_answers)
+            h2 = hits()
+            if h2 != h1:
+                raise AssertionError(f"server: {family}: {h2 - h1} coalesced answers with no query shared by two clients")
+            src = in_process
+            for k in SERVER_IN_PROCESS[family]:
+                src = src[k]
+            rates[family] = {
+                "sequential": _http_rate(seq, sum(seq)),
+                # the same queries from every client: part of the answers
+                # are shared by singleflight coalescing, not executed
+                f"concurrent_c{CLIENTS}": {**_http_rate(lat, wall), "coalesce_hits": h1 - h0},
+                # each query from one client only: every answer executed
+                "concurrent_distinct": {**_http_rate(dlat, dwall), "clients": len(streams), "coalesce_hits": 0},
+                "in_process_p50_ms": src["p50_ms"],
+            }
+        out["families"] = rates
+        log("server: " + ", ".join(
+            f"{f} p50 {r['sequential']['p50_ms']:.2f} ms ({r['in_process_p50_ms']:.2f} in process), "
+            f"{r[f'concurrent_c{CLIENTS}']['qps']:.1f} qps from {CLIENTS} "
+            f"({r[f'concurrent_c{CLIENTS}']['coalesce_hits']} coalesced), "
+            f"{r['concurrent_distinct']['qps']:.1f} qps from {r['concurrent_distinct']['clients']} distinct"
+            for f, r in rates.items()))
+        _require_clean(server, metrics, base, "reads")
+        # writes, each followed by reads that see it; then the answers the
+        # rest of the phase holds the server to are the CPU leg's anew
+        cpu = Executor(server.holder, device=torch.device("cuda"), device_policy="never")
+        try:
+            out["writes"] = server_writes(server, addr, cpu)
+        finally:
+            cpu.close()
+        recalculate_caches(addr)
+        _require_clean(server, metrics, base, "writes")
+        log(f"server: writes {out['writes']}")
+        # the cooldown's one query first: its CPU leg is fast
+        probe_items = families["tall_chain"][:6] + families["dense_topn"][:4] + families["ssb_groupby"] + families["ssb_range_count"][:4]
+        out["oom"] = oom_check(server, addr, metrics, cpu_answers, probe_items)
+        after_oom = _device_counters(server, metrics)
+        log(f"server: OOM check {out['oom']}")
+        ps = server.pipeline.stats()
+        out["pipeline"] = {c: {"admitted": v["admitted"], "sheds": v["sheds"]} for c, v in ps["classes"].items()}
+        out["pipeline"]["coalesce_hits"] = ps["coalesce_hits"]
+        out["pipeline"]["batched_entries"] = ps["batched_entries"]
+        out["health"] = {"healthy": server.executor.health.healthy, "trips": server.executor.health.trips}
+        out["governor"] = server.executor.governor.stats()
+        out["oom_recovery"] = server.executor._oom.stats()
+        # nothing but the OOM check's own degrade: the reads after it ran clean
+        _require_clean(server, metrics, after_oom, "after the OOM check")
+    finally:
+        server.close()
+    # restart: a new server over the same directory answers the same
+    t0 = time.monotonic()
+    server = Server(cfg)
+    server.open()
+    try:
+        addr = server.address()
+        base = _device_counters(server, metrics)
+        recalculate_caches(addr)
+        restart_q = 0
+        for items in families.values():
+            http_sequential(addr, items, cpu_answers, cold=True)
+            restart_q += len(items)
+        out["restart"] = {"queries": restart_q, "seconds": time.monotonic() - t0}
+        log(f"server: restart {out['restart']}")
+        _require_clean(server, metrics, base, "restart")
+    finally:
+        server.close()
+    # every fallback of the phase is the OOM check's cooldown read
+    out["device_down_fallbacks"] = metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0) - fb0
+    if out["device_down_fallbacks"] != out["oom"]["cooldown_fallbacks"]:
+        raise AssertionError(f"server: {out['device_down_fallbacks']} device-down fallbacks, "
+                             f"{out['oom']['cooldown_fallbacks']} of them in the OOM check's cooldown")
+    # the CLI: python -m pilosa_tpu_torch server, /status, one TopN, SIGINT
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.monotonic()
+    errlog = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch", "server", "--device", "cuda",
+         "-b", f"127.0.0.1:{port}", "-d", root],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.DEVNULL, stderr=errlog,
+    )
+
+    def stderr_tail() -> str:
+        errlog.seek(0)
+        return errlog.read()[-2000:]
+
+    try:
+        while True:
+            try:
+                c = HttpClient("127.0.0.1", port, timeout=60)
+                st, _, body = c.request("GET", "/status")
+                break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() - t0 > 300:
+                    raise AssertionError(f"server (CLI): never answered: {stderr_tail()!r}")
+                time.sleep(0.25)
+        status = json.loads(body)
+        if st != 200 or status["device"]["type"] != "cuda" or not status["device"]["healthy"]:
+            raise AssertionError(f"server (CLI): /status {st} {status}")
+        index, q = families["dense_topn"][0]
+        c.query(index, q, cpu_answers[(index, q)])
+        c.close()
+        out["cli"] = {"status": status, "ready_s": time.monotonic() - t0}
+        log(f"server: CLI ready and answered in {out['cli']['ready_s']:.1f} s")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("server (CLI): did not exit within 120 s of SIGINT")
+    if rc != 0:
+        raise AssertionError(f"server (CLI): exit code {rc} after SIGINT: {stderr_tail()!r}")
+    out["cli"]["exit_code"] = rc
+    return out
+
+
 PATH_OF = {
     "dense_scores": "dense_tall",
     "sparse_stacked_scores": "dense_tall",
@@ -1904,6 +2426,7 @@ def main() -> int:
         # 4. each path, counts set to 0 just before it and read just after
         rec = Recorder(cuda)
         from pilosa_tpu_torch.executor import executor as ex_mod
+        from pilosa_tpu_torch.utils import metrics
 
         ops_rec = OpsRecorder(ex_mod)
         launches: dict = {}
@@ -1913,9 +2436,12 @@ def main() -> int:
         def run_path(path: str, fn):
             rec.path = path
             cuda.reset_launches()
+            fb0 = fallback_counts(metrics)
             t0 = time.monotonic()
             out = fn()
             torch.cuda.synchronize()
+            if path != "server":  # its OOM check degrades once, on purpose
+                require_on_card(metrics, fb0, path)
             launches[path] = {k.name: k.launches for k in cuda.KERNELS}
             batched[path] = {k.name: k.batched_launches for k in cuda.KERNELS}
             rec.path = None
@@ -1928,6 +2454,38 @@ def main() -> int:
         phases["ssb"] = run_path("ssb", lambda: run_ssb(dev, ssb))
         ops_rec.counting = False
         phases["ssb"]["data_build_s"] = built["ssb_build_s"]
+
+        # the server over the same directory, before any write changes
+        # dense or tall, so the CPU leg's answers (oracle) and numpy's
+        # hold for it; the server's own writes are cleared again. The
+        # in-process executors and holder close first, and reopen after.
+        families = server_families(dense_qs, tall_topn, tall_chains, ssb)
+        server_answers = {
+            (index, q): wire(ssb.answers[q] if index == "ssb" else oracle[q])
+            for items in families.values()
+            for index, q in items
+        }
+        dev.stager.clear()
+        for ex in (dev, cpu):
+            ex.close()
+        holder.close()
+        dev = cpu = holder = None
+        phases["server"] = run_path("server", lambda: run_server(root, server_answers, families, phases, card))
+        for name in SERVER_KERNELS:
+            if launches["server"][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the server path")
+        holder = pilosa_tpu_torch.holder_from_dir(root)
+        for index in ("dense", "tall"):
+            for frag in holder.view(index, "f", "standard").fragments.values():
+                frag.ensure_open()
+        dev = pilosa_tpu_torch.Executor(holder, device=device, device_policy="always")
+        cpu = pilosa_tpu_torch.Executor(holder, device_policy="never")
+        # stage dense and tall again before the writes phase, as the
+        # phases before the server left them
+        rec.path = "restage"
+        run_sequential(dev, "dense", dense_qs, oracle)
+        run_sequential(dev, "tall", tall_topn + tall_chains, oracle)
+        rec.path = None
         phases["writes"] = run_path("writes", lambda: run_writes(dev, cpu))
         t0 = time.monotonic()
         tier_data = build_tier(holder)
@@ -2024,6 +2582,7 @@ def main() -> int:
                     "writes_path": path_s["writes"],
                     "tier_build": tier_build_s,
                     "tiered_path": path_s["tiered"],
+                    "server_path": path_s["server"],
                     **built,
                 },
             }
@@ -2032,6 +2591,18 @@ def main() -> int:
         print(json.dumps({"ssb_stats": {
             part: {"p50_ms": r["p50_ms"], "qps": r["qps"], "launches": r["launches"]}
             for part, r in stats.items()
+        }}), flush=True)
+        srv = phases["server"]
+        print(json.dumps({"phases.server": {
+            "card": srv["card"],
+            "families": srv["families"],
+            "pipeline": srv["pipeline"],
+            "health": srv["health"],
+            "governor": srv["governor"],
+            "oom_recovery": srv["oom_recovery"],
+            "oom_check": srv["oom"],
+            "device_down_fallbacks": srv["device_down_fallbacks"],
+            "launches": launches["server"],
         }}), flush=True)
         print(json.dumps({"phases": phases}), flush=True)
         print(json.dumps({"torch_ops": torch_ops}), flush=True)

@@ -6,8 +6,11 @@ the same; only the device data plane differs:
   L0 roaring/   — CPU source-of-truth bitmap engine + file format (copied)
   L0 ops/       — packed-word PyTorch ops + hand-written CUDA kernels
   L1 core/      — holder → index → field → view → fragment (copied)
-  L3 pql/       — PQL parser/AST (copied)
-  L4 executor/  — PQL call tree → staged words → kernels + map/reduce
+  L3 pql/       — PQL parser/AST (copied); plan/ canonical signatures
+  L4 executor/  — PQL call tree → staged words → kernels + map/reduce,
+                  behind the device health gate and the HBM governor
+  L6 server/    — API, HTTP handler, pipeline, ingest, tenancy (one node)
+  L7/L8         — server/server.py and cli/ (``python -m pilosa_tpu_torch``)
 
 Device words are ``int32`` views of the same little-endian ``u32`` bits
 the JAX package stages. Entry points run on ``cuda`` unless the caller

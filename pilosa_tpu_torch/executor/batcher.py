@@ -130,6 +130,9 @@ class BatchedScorer:
         # pow2 padding zeros, cached per (shape, dtype, device): kernels
         # only read them, so one allocation serves every launch
         self._pad_zeros: dict = {}
+        # process-wide HBM governor (executor/hbm.py): the pad zeros
+        # live on the device, so the "batcher" tenant counts their bytes
+        self.governor = None
         self._lock = threading.Lock()  # protects _pending/_dispatching
         # key -> (staged operand, waiting slots); the operand rides with
         # the queue because the dispatching leader may not be the thread
@@ -252,6 +255,17 @@ class BatchedScorer:
                 fetch(launched_all)
             raise
 
+    def set_governor(self, governor) -> None:
+        """Count the pad zeros in ``governor``'s ledger: an
+        accounting-only tenant, never worth an eviction tier."""
+        self.governor = governor
+        if governor is None:
+            return
+        governor.register("batcher", share_bytes=0, evict_fn=None, tier=99)
+        held = sum(z.nbytes for z in list(self._pad_zeros.values()))
+        if held:
+            governor.reserve("batcher", held)
+
     def _launch(self, batch: list[_Slot], mat) -> list[tuple[list[_Slot], object]]:
         """Launch kernels for every chunk of ``batch`` asynchronously;
         returns [(chunk, device_scores)] for _finish to fetch. On error,
@@ -283,6 +297,8 @@ class BatchedScorer:
                         zero = self._pad_zeros.get(zkey)
                         if zero is None:
                             zero = self._pad_zeros[zkey] = torch.zeros_like(proto)
+                            if self.governor is not None:
+                                self.governor.reserve("batcher", zero.nbytes)
                         srcs = srcs + [zero] * (q - len(chunk))
                 dev = self._batch_fn(srcs, mat)
                 # pad query lanes never reach the host, and when every

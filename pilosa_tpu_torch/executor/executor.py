@@ -28,14 +28,22 @@ caller asks for ``"cpu"``, where the same legs run the kernels' plain
 versions (the tests do). Without CUDA and without an explicit device
 the constructor raises; it never quietly runs on the CPU.
 
+Serving executors pass the device health gate (``health``, executor/
+devicehealth.py) and the HBM governor (``governor``, executor/hbm.py):
+read calls then run under the gate, an allocation failure relieves the
+governor's tiers and retries once before the call degrades to the CPU
+leg, and a tripped gate or the post-degrade cooldown routes every read
+to the CPU leg until the device answers again. Writes skip the guard.
+
 Attributes (``SetRowAttrs``/``SetColumnAttrs``, TopN attribute filters)
-raise ``NotImplementedError`` naming ROADMAP A16. The cluster, mesh,
-fusion, plan cache and dispatch engine of the JAX executor are not here
-(A10, A11, A14).
+and keyed indexes raise ``NotImplementedError`` naming ROADMAP A9. The
+cluster, mesh, fusion, plan cache and dispatch engine of the JAX
+executor are not here (A5, A6, A8).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -53,8 +61,16 @@ from pilosa_tpu_torch.core.fragment import DEFAULT_MIN_THRESHOLD, FragmentQuaran
 from pilosa_tpu_torch.core.timequantum import TIME_FORMAT, views_by_time_range
 from pilosa_tpu_torch.executor import analytics
 from pilosa_tpu_torch.executor.batcher import BatchedScorer
+from pilosa_tpu_torch.executor.devicehealth import DeviceDown
+from pilosa_tpu_torch.executor.hbm import (
+    DeviceOom,
+    HbmGovernor,
+    OomRecovery,
+    classify_device_error,
+)
 from pilosa_tpu_torch.executor.stager import DeviceStager
 from pilosa_tpu_torch.pql import BETWEEN, NEQ, Call, Condition, parse
+from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.roaring import Bitmap
 from pilosa_tpu_torch.utils import heat, metrics, trace
 from pilosa_tpu_torch.utils.errors import NotFoundError
@@ -64,14 +80,32 @@ _W32 = SHARD_WIDTH // 32
 # Minimum touched containers across a query's fragments before "auto"
 # picks the device path (tiny fragments are faster in roaring on host).
 AUTO_DEVICE_MIN_CONTAINERS = 64
+# post-OOM-degrade cooldown: after a device call degrades to CPU, the
+# device predicates stay CPU-forced this long so the immediate re-run
+# (and the next queries) don't launch straight back into the same OOM
+OOM_CPU_COOLDOWN_S = 30.0
 # Widest coalesced launch of the stacked TopN and chain-count scorers.
 MAX_BATCH = 32
 
 # Calls not ported yet -> the ROADMAP item that ports them.
 _UNPORTED = {
-    "SetRowAttrs": "A16 (attributes and keys)",
-    "SetColumnAttrs": "A16 (attributes and keys)",
+    "SetRowAttrs": "A9 (attributes and keys)",
+    "SetColumnAttrs": "A9 (attributes and keys)",
 }
+
+
+_deadline_mod = None
+
+
+def _deadline():
+    """The request-deadline module (server/deadline.py), imported on
+    first use: the server package imports the executor."""
+    global _deadline_mod
+    if _deadline_mod is None:
+        from pilosa_tpu_torch.server import deadline as _m
+
+        _deadline_mod = _m
+    return _deadline_mod
 
 
 def _check_ported(c: Call) -> None:
@@ -86,15 +120,15 @@ def _check_ported(c: Call) -> None:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else
-    ``cuda`` — and an error when CUDA is absent, never a silent CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    ``cuda`` — and an error when CUDA is asked for (or nothing is) and
+    absent, never a silent CPU."""
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU"
         )
-    return torch.device("cuda")
+    return dev
 
 
 @dataclass
@@ -128,9 +162,16 @@ def pairs_add(a: list[tuple[int, int]], b: list[tuple[int, int]]) -> list[tuple[
 
 @dataclass
 class ExecOptions:
-    """reference execOptions (executor.go:1714), the fields this slice
-    reads."""
+    """reference execOptions (executor.go:1714). ``remote`` and
+    ``cache`` are carried for the HTTP API; the port has neither a
+    cluster nor a plan cache yet (ROADMAP A8, A5), so neither changes
+    execution."""
 
+    remote: bool = False
+    exclude_row_attrs: bool = False
+    exclude_columns: bool = False
+    # plan result cache participation (the `cache=false` query option)
+    cache: bool = True
     # run a multi-call query's calls serially instead of through the
     # read pool
     serial: bool = False
@@ -221,18 +262,30 @@ def _fence(out) -> None:
             return
 
 
-def _timed_kernel(kind: str, fn):
+def _timed_kernel(kind: str, fn, recovery=None):
     """Wrap a kernel call so every launch is observed as
     spmd.execute_seconds and lands as a spmd.kernel span when the caller
     is traced (the port compiles nothing per shape, so there is no
     first-launch compile to split off). The fence pins the measurement
     to device completion, so the time feeds the waterfall as
-    device.compute."""
+    device.compute.
+
+    With ``recovery`` (an executor's OomRecovery) the launch and its
+    fence are the OOM-recovery boundary: an allocation failure evicts
+    through the HBM governor and retries once before the call degrades
+    to the CPU leg (``DeviceOom``)."""
+
+    def attempt(*args, **kw):
+        out = fn(*args, **kw)
+        _fence(out)
+        return out
 
     def run(*args, **kw):
         t0 = time.monotonic()
-        out = fn(*args, **kw)
-        _fence(out)
+        if recovery is not None:
+            out = recovery.run(lambda: attempt(*args, **kw), kind=kind)
+        else:
+            out = attempt(*args, **kw)
         dt = time.monotonic() - t0
         metrics.observe(metrics.SPMD_EXECUTE_SECONDS, dt, kind=kind)
         trace.attrib_add(trace.WF_DEVICE_COMPUTE, dt)
@@ -244,7 +297,6 @@ def _timed_kernel(kind: str, fn):
     return run
 
 
-_timed_tree_count = _timed_kernel("tree_count", ops.tree_count)
 _timed_groupby = _timed_kernel("groupby_reduce", ops.groupby_reduce)
 _timed_plane_counts = _timed_kernel("groupby_reduce", ops.bsi_plane_counts)
 _timed_plane_counts_batched = _timed_kernel("groupby_reduce", ops.bsi_plane_counts_batched)
@@ -294,7 +346,17 @@ class Executor:
         stager: Optional[DeviceStager] = None,
         device_policy: str = "auto",
         max_writes_per_request: int = 5000,
+        health=None,
+        governor: Optional[HbmGovernor] = None,
+        analytics_max_groups: Optional[int] = None,
+        translate_store=None,
+        auto_min_containers: Optional[int] = None,
     ) -> None:
+        if translate_store is not None:
+            raise NotImplementedError(
+                "key translation is not ported to pilosa_tpu_torch yet "
+                "(ROADMAP A9 (attributes and keys))"
+            )
         self.holder = holder
         self.device = resolve_device(device)
         self.stager = stager or DeviceStager(self.device)
@@ -307,7 +369,18 @@ class Executor:
         self.device_policy = device_policy
         self.max_writes_per_request = max_writes_per_request
         # GroupBy cross products past this many groups fail before staging
-        self.analytics_max_groups = analytics.DEFAULT_MAX_GROUPS
+        self.analytics_max_groups = (
+            int(analytics_max_groups)
+            if analytics_max_groups is not None
+            else analytics.DEFAULT_MAX_GROUPS
+        )
+        # the auto policy's crossover, in estimated touched containers;
+        # the server passes its auto-device-min-containers knob
+        self.auto_min_containers = (
+            int(auto_min_containers)
+            if auto_min_containers is not None
+            else AUTO_DEVICE_MIN_CONTAINERS
+        )
         # coalesces concurrent TopN scoring against the same staged
         # matrix into one batched kernel launch (see batcher.py)
         self.scorer = BatchedScorer()
@@ -321,13 +394,40 @@ class Executor:
         self._tree_mu = threading.Lock()
         self._read_pool = None  # lazy; see _execute()
         self._read_pool_mu = threading.Lock()
+        # optional device health gate (executor/devicehealth.py):
+        # serving executors pass one so a wedged card degrades reads to
+        # the CPU roaring path instead of hanging them; bare executors
+        # (tests, benches) skip the per-call guard hop
+        self.health = health
+        if health is not None:
+            health.on_restore = self._on_device_restore
+        # one HBM byte ledger for every device-resident tenant
+        # (executor/hbm.py): the stager's entries and the batchers' pad
+        # zeros; the stager's budget becomes its share
+        self.governor = governor if governor is not None else HbmGovernor()
+        self.stager.set_governor(self.governor)
+        for sc in (self.scorer, self.stacked_scorer, self.chain_scorer):
+            sc.set_governor(self.governor)
+        # OOM recovery policy at the device-call boundaries: evict ->
+        # retry once -> degrade this call to the CPU leg; the health
+        # gate trips only on repeat unrecovered failures
+        self._oom_cpu_until = 0.0
+        self.oom_cpu_cooldown_s = float(
+            os.environ.get("PILOSA_OOM_CPU_COOLDOWN_S", OOM_CPU_COOLDOWN_S)
+        )
+        self._oom = OomRecovery(
+            governor=self.governor,
+            health=self.health,
+            on_degrade=self._on_oom_degrade,
+        )
+        self._timed_tree_count = _timed_kernel("tree_count", ops.tree_count, recovery=self._oom)
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
     # -- entry point (reference Execute, executor.go:83) ---------------------
 
-    # check: disable=dispatch-bypass (the port has no dispatch engine yet: ROADMAP A11)
+    # check: disable=dispatch-bypass (the port has no dispatch engine yet: ROADMAP A6)
     def execute(
         self,
         index_name: str,
@@ -351,6 +451,11 @@ class Executor:
         if isinstance(query, str):
             query = parse(query)
         opt = opt or ExecOptions()
+        # deadline boundary: a request whose deadline passed while it
+        # crossed the API layer is cancelled before any shard work
+        dl = _deadline().current()
+        if dl is not None:
+            dl.check(metrics.STAGE_EXECUTOR)
         idx = self.holder.index(index_name)
         if idx is None:
             raise NotFoundError(f"index not found: {index_name}")
@@ -360,6 +465,11 @@ class Executor:
         ):
             raise ValueError(
                 f"too many writes: {query.write_call_n()} > {self.max_writes_per_request}"
+            )
+        if idx.keys:
+            raise NotImplementedError(
+                f"index {index_name!r} has keys; key translation is not ported "
+                "to pilosa_tpu_torch yet (ROADMAP A9 (attributes and keys))"
             )
         for call in query.calls:
             _check_ported(call)
@@ -371,10 +481,11 @@ class Executor:
             # running the calls concurrently lets the BatchedScorer
             # coalesce their TopN scoring into batched kernel launches
             parent = trace.current()  # contextvars don't follow pool workers
-            attrib = trace.attrib_current()
+            attrib = trace.attrib_current()  # nor does the waterfall
+            pdl = dl  # nor the request deadline
 
             def run_call(call):
-                with trace.activate(parent), trace.attrib_activate(attrib):
+                with trace.activate(parent), _deadline().activate(pdl), trace.attrib_activate(attrib):
                     return self._execute_call(index_name, call, shards, opt)
 
             return list(self._pool().map(run_call, calls))
@@ -399,12 +510,116 @@ class Executor:
 
     # -- dispatch (reference executeCall, executor.go:165) -------------------
 
+    def _cpu_forced(self) -> bool:
+        """True while the device gate is tripped, or while the
+        post-OOM-degrade cooldown runs under the ``auto`` policy.
+        Checked by the device predicates, so it applies on EVERY thread
+        without per-thread state. Only a serving executor (one with a
+        health gate) ever moves reads to the CPU: a bare executor's
+        device errors propagate to its caller, and ``always`` keeps
+        every read on the device until the gate trips."""
+        if self.health is None:
+            return False
+        if not self.health.healthy:
+            return True
+        return self.device_policy != "always" and time.monotonic() < self._oom_cpu_until
+
+    def _on_oom_degrade(self) -> None:
+        """A device call degraded to CPU after failed OOM recovery:
+        force the CPU predicates for a cooldown so the immediate re-run
+        (and the next queries) don't launch straight back into the OOM."""
+        self._oom_cpu_until = time.monotonic() + self.oom_cpu_cooldown_s
+
+    def _on_device_restore(self) -> None:
+        """Replace machinery whose locks abandoned guard workers may
+        hold forever (a batch leader hung inside a dead launch keeps its
+        scorer's lock; a hung upload keeps the stager's). Fresh
+        instances start clean. A context lost to a sticky CUDA error
+        never gets here: its probe keeps failing, so the gate stays
+        tripped and reads stay on the CPU leg."""
+        self.scorer = BatchedScorer()
+        self.stacked_scorer = _make_stacked_scorer()
+        self.chain_scorer = _make_chain_scorer(self)
+        # the ledger forgets the old scorers' pad zeros with them
+        self.governor.reset("batcher")
+        for sc in (self.scorer, self.stacked_scorer, self.chain_scorer):
+            sc.set_governor(self.governor)
+        self._oom_cpu_until = 0.0
+        self.stager.reset_after_wedge()
+
     def _execute_call(self, index, c: Call, shards, opt) -> Any:
         metrics.count(metrics.EXECUTOR_CALLS, call=c.name)
         sp = trace.current()
         if sp is None:
-            return self._execute_call_inner(index, c, shards, opt)
+            return self._execute_call_guarded(index, c, shards, opt)
         with sp.child(metrics.STAGE_CALL, call=c.name):
+            return self._execute_call_guarded(index, c, shards, opt)
+
+    def _execute_call_guarded(self, index, c: Call, shards, opt) -> Any:
+        """Read calls run under the device health gate when one is
+        configured: a wedged card trips the gate and the same call
+        re-runs on the CPU roaring path (reads are pure, so safe to
+        re-run; the gate state itself forces the CPU predicates, so the
+        re-run is device-free on every thread). Writes never touch the
+        device and skip the guard. Every read served on the CPU leg
+        because the device is gated off or cooling down after an OOM is
+        counted (``executor.device_down_fallback``).
+
+        A bare executor (no health gate) has no fallback: its device
+        errors reach the caller. So do the port's own launch failures
+        (``ops.cuda.LaunchError``: a kernel refused its arguments), and
+        a degraded call under ``always``, which nothing moves off the
+        device.
+
+        The guard's pool threads select no stream or device: every
+        launch, from them, the read pool and the batchers alike, goes
+        to the default stream of the device the tensors live on."""
+        if self.health is None or c.name in WRITE_CALLS or self.device_policy == "never":
+            # a bare executor, a write (writes never touch the device)
+            # or the CPU policy: no guard, no fallback
+            return self._execute_call_inner(index, c, shards, opt)
+        if self._cpu_forced():
+            metrics.count(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK)
+            return self._execute_call_inner(index, c, shards, opt)
+        try:
+            # the guard pool is another thread: hand the span over
+            parent = trace.current()
+            attrib = trace.attrib_current()
+            dl = _deadline().current()
+            return self.health.guard(
+                lambda: self._execute_call_inner_on(parent, attrib, dl, index, c, shards, opt)
+            )
+        except DeviceOom:
+            # an unrecovered OOM degraded this call: the OOM cooldown
+            # forces the CPU predicates, unless the policy is "always"
+            if not self._cpu_forced():
+                raise
+        except DeviceDown:
+            # gate closed (the CPU predicates are forced), or a guard
+            # pool saturated on a live device (this call re-runs here,
+            # outside the guard)
+            pass
+        except Exception as e:
+            # a raw device fault that escaped the kernel boundaries
+            # (e.g. surfaced at a staging upload or a batcher fetch):
+            # apply the same recovery policy here — classify, journal,
+            # evict, set the CPU cooldown — then serve from the CPU leg
+            if classify_device_error(e) is None:
+                raise
+
+            def _reraise():
+                raise e
+
+            try:
+                self._oom.run(_reraise, kind="call")
+            except DeviceOom:
+                if not self._cpu_forced():
+                    raise
+        metrics.count(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK)
+        return self._execute_call_inner(index, c, shards, opt)
+
+    def _execute_call_inner_on(self, parent, attrib, dl, index, c, shards, opt) -> Any:
+        with trace.activate(parent), trace.attrib_activate(attrib), _deadline().activate(dl):
             return self._execute_call_inner(index, c, shards, opt)
 
     def _execute_call_inner(self, index, c: Call, shards, opt) -> Any:
@@ -446,6 +661,9 @@ class Executor:
         fragment rows that must never be mutated."""
         result = zero_factory() if zero_factory else None
         parent = trace.current()
+        # one contextvar read, then a monotonic compare per shard: expired
+        # work stops at the next shard boundary
+        dl = _deadline().current()
         attrib = trace.attrib_current()
         if heat.LEDGER.enabled:
             _heat_read = heat.LEDGER.record_read
@@ -457,6 +675,8 @@ class Executor:
             _heat_read = None
             _heat_field = ""
         for shard in shards:
+            if dl is not None:
+                dl.check(metrics.STAGE_MAP_SHARD)
             if _heat_read is not None:
                 _heat_read(index, _heat_field, shard)
             if parent is not None:
@@ -684,11 +904,11 @@ class Executor:
         return use
 
     def _use_device_decide(self, index, c: Call, shard: int) -> bool:
-        if self.device_policy == "never":
+        if self.device_policy == "never" or self._cpu_forced():
             return False
         if self.device_policy == "always":
             return True
-        return self._touched_containers(index, c, shard) >= AUTO_DEVICE_MIN_CONTAINERS
+        return self._touched_containers(index, c, shard) >= self.auto_min_containers
 
     def _touched_containers(self, index, c: Call, shard: int) -> int:
         """Estimated container blocks this call subtree READS in this
@@ -713,9 +933,35 @@ class Executor:
             total += self._time_range_containers(index, c, shard)
         elif c.name in ("GroupBy", "Distinct", "Percentile", "Rows"):
             total += self._analytics_containers(index, c, shard)
+        elif c.name == "TopN" and c.children:
+            total += self._topn_candidates(index, c, shard)
+        elif c.name in ("Sum", "Min", "Max"):
+            # the aggregate reads its field's whole plane stack; the JAX
+            # package counts only the filter, so under "auto" an
+            # unfiltered Sum/Min/Max took one launch per shard instead of
+            # the shard-batched one (58 a query on ssb; PERF.md)
+            fname, _ = c.string_arg("field")
+            if fname:
+                total += self._bsi_plane_containers(index, fname, shard)
         for child in c.children:
             total += self._touched_containers(index, child, shard)
         return total
+
+    def _topn_candidates(self, index, c: Call, shard: int) -> int:
+        """The candidate rows a filtered TopN's CPU walk intersects with
+        its source (``ids=``, else the rank cache's rows): at least one
+        container each. The JAX package's estimate counts only the
+        source's containers, so under "auto" a one-shard TopN whose
+        source is a single row always took the CPU walk, however many
+        rows it ranks: on the H100 the server's dense TopN (4096
+        candidates) answered in 2777 ms p50 on the CPU leg against 32 ms
+        on the card (PERF.md)."""
+        ids, _ = c.uint_slice_arg("ids")
+        if ids:
+            return len(ids)
+        field, _ = c.string_arg("_field")
+        frag = self.holder.fragment(index, field, VIEW_STANDARD, shard) if field else None
+        return len(frag.ensure_open().cache) if frag is not None else 0
 
     def _bsi_plane_containers(self, index, fname: str, shard: int) -> int:
         """Set containers of a BSI field's whole plane stack in one shard."""
@@ -861,12 +1107,12 @@ class Executor:
         return use
 
     def _use_device_batched_decide(self, index, c: Call, shards) -> bool:
-        if self.device_policy == "never" or len(shards) < 2:
+        if self.device_policy == "never" or len(shards) < 2 or self._cpu_forced():
             return False
         if self.device_policy == "always":
             return True
         total = sum(self._touched_containers(index, c, s) for s in shards)
-        return total >= AUTO_DEVICE_MIN_CONTAINERS
+        return total >= self.auto_min_containers
 
     def _tree_leaves(self, index, c: Call, batch):
         """Lower a bitmap call tree to (leaf device tensors, structure):
@@ -895,11 +1141,11 @@ class Executor:
         return prog
 
     def _chain_count_single(self, leaves, tree):
-        return _timed_tree_count([list(leaves)], self._tree_program(tree))
+        return self._timed_tree_count([list(leaves)], self._tree_program(tree))
 
     def _chain_count_batch(self, srcs, tree):
         prog = self._tree_program(tree)
-        return _timed_tree_count([list(leaves) for leaves in srcs], prog)
+        return self._timed_tree_count([list(leaves) for leaves in srcs], prog)
 
     def _device_bitmap_stack(self, index, c: Call, shards):
         """Lower a bitmap call subtree to i32[S, W] across shards."""
@@ -1024,7 +1270,8 @@ class Executor:
         the plane stack alone is past the auto threshold."""
         return self._use_device(index, c, frag.shard) or (
             self.device_policy != "never"
-            and frag.sparse_block_count(list(range(depth + 1))) >= AUTO_DEVICE_MIN_CONTAINERS
+            and not self._cpu_forced()
+            and frag.sparse_block_count(list(range(depth + 1))) >= self.auto_min_containers
         )
 
     def _execute_sum(self, index, c: Call, shards, opt) -> ValCount:
@@ -1334,7 +1581,7 @@ class Executor:
         if attr_name:
             raise NotImplementedError(
                 "TopN attribute filters are not ported to pilosa_tpu_torch yet "
-                "(ROADMAP A16 (attributes and keys))"
+                "(ROADMAP A9 (attributes and keys))"
             )
         # (shard, row_id) -> exact intersection count, filled by pass 1's
         # scoring launches and consulted by pass 2: on skewed data the

@@ -56,6 +56,14 @@ Uploads go host → pinned memory → device without blocking the host
 (``ops.words_from_numpy``). A cold key is staged ONCE: concurrent misses
 wait on the first builder and receive the same tensor. Eviction is LRU
 by byte budget, always keeping the entry just built.
+
+HBM GOVERNOR (executor/hbm.py): with one attached (``set_governor``),
+every staged byte is reserved in the process-wide ledger under the
+entry's index, the budget becomes the stager's share of it, and cold
+LRU entries are the governor's relief tier (``_evict_cold``). After a
+device wedge the health gate's restore calls ``reset_after_wedge``: the
+entries, their snapshot generations and the stager's ledger account go,
+and builds hung in dead device calls can no longer publish.
 """
 
 from __future__ import annotations
@@ -168,12 +176,15 @@ def _storage_uses(t: torch.Tensor) -> int:
 
 
 class _Entry:
-    __slots__ = ("value", "nbytes", "gen", "uses")
+    __slots__ = ("value", "nbytes", "gen", "uses", "tenant")
 
-    def __init__(self, value, nbytes: int, gen) -> None:
+    def __init__(self, value, nbytes: int, gen, tenant: str = "") -> None:
         self.value = value
         self.nbytes = nbytes
         self.gen = gen  # int, or tuple of per-fragment ints for stacks
+        # owning index: the governor's per-index accounting and its
+        # quota-preferring eviction; "" for untracked entries
+        self.tenant = tenant
         # the storage's holders while only the cache holds the value (a
         # view keeps its base tensor too); None for the tuple forms
         self.uses = _storage_uses(value) if isinstance(value, torch.Tensor) else None
@@ -250,8 +261,26 @@ class DeviceStager:
         # keys dropped under capacity pressure: a later cold miss on one
         # is a RE-ENTRY, bytes an earlier stage already paid to upload
         self._evicted_keys: set = set()
+        # process-wide HBM ledger (executor/hbm.py); None = standalone
+        self.governor = None
+        # bumped by reset_after_wedge: a build that started before the
+        # reset must not publish into the reset cache
+        self._epoch = 0
 
     # -- internal --
+
+    @staticmethod
+    def _tenant_of(frag) -> str:
+        """Owning index name for a fragment (or stack of fragments —
+        one field, one index); "" when untracked."""
+        if frag is None:
+            return ""
+        if isinstance(frag, (list, tuple)):
+            for f in frag:
+                if f is not None:
+                    return getattr(f, "index", "") or ""
+            return ""
+        return getattr(frag, "index", "") or ""
 
     def _key(self, frag, kind: str, extra=()) -> tuple:
         # no generation: entries persist across mutations and track
@@ -307,6 +336,7 @@ class DeviceStager:
                     fl = _InFlight()
                     self._inflight[key] = fl
                     building = True
+                    epoch = self._epoch
                     stale = ent
                     in_place = (
                         stale is not None
@@ -390,26 +420,57 @@ class DeviceStager:
                         metrics.count(metrics.STAGER_RESTAGED_BYTES, nbytes)
             except BaseException as e:
                 with self._mu:
+                    # identity check: a build from before a wedge reset
+                    # must not drop a later build's in-flight entry
                     if self._inflight.get(key) is fl:
                         self._inflight.pop(key, None)
+                    dropped = in_place and self._epoch == epoch
+                if dropped and self.governor is not None:
+                    # the entry left the cache for its patch and never came back
+                    self.governor.release("stager", stale.nbytes, index=stale.tenant)
                 fl.error = e
                 fl.event.set()
                 raise
+            # ledger first, insert second: reserve may run the governor's
+            # relief over other tenants, whose callbacks take their own
+            # locks, so it must not run under _mu. An entry patched in
+            # place never left the ledger.
+            tenant = self._tenant_of(frag)
+            gov = self.governor
+            if gov is not None and not in_place:
+                gov.reserve("stager", nbytes, index=tenant)
+            gov_return: dict[str, int] = {}
             with self._mu:
-                old = self._cache.pop(key, None)
-                if old is not None:
-                    self._bytes -= old.nbytes
-                self._cache[key] = _Entry(value, nbytes, built_gen)
-                self._bytes += nbytes
-                # evict LRU past the budget, always keeping the entry
-                # just built
-                while self._bytes > self.budget_bytes and len(self._cache) > 1:
-                    old_key, old_ent = self._cache.popitem(last=False)
-                    self._bytes -= old_ent.nbytes
-                    self._note_evicted_locked(old_key)
+                if self._epoch == epoch:
+                    old = self._cache.pop(key, None)
+                    if old is not None:
+                        self._bytes -= old.nbytes
+                        gov_return[old.tenant] = gov_return.get(old.tenant, 0) + old.nbytes
+                    self._cache[key] = _Entry(value, nbytes, built_gen, tenant)
+                    self._bytes += nbytes
+                    # evict LRU past the budget (and past the governor's
+                    # global budget), always keeping the entry just built
+                    returned = sum(gov_return.values())
+                    while (
+                        self._bytes > self.budget_bytes
+                        or (gov is not None and gov.over_budget() > returned)
+                    ) and len(self._cache) > 1:
+                        old_key, old_ent = self._cache.popitem(last=False)
+                        self._bytes -= old_ent.nbytes
+                        returned += old_ent.nbytes
+                        gov_return[old_ent.tenant] = gov_return.get(old_ent.tenant, 0) + old_ent.nbytes
+                        self._note_evicted_locked(old_key)
+                    metrics.gauge(metrics.STAGER_BYTES, self._bytes)
+                elif not in_place:
+                    # built before a wedge reset: the value never enters
+                    # the cache, so its reservation goes straight back
+                    # (an entry patched in place left the ledger with the reset)
+                    gov_return[tenant] = gov_return.get(tenant, 0) + nbytes
                 if self._inflight.get(key) is fl:
                     self._inflight.pop(key, None)
-                metrics.gauge(metrics.STAGER_BYTES, self._bytes)
+            if gov is not None:
+                for t, n in gov_return.items():
+                    gov.release("stager", n, index=t)
             fl.gen = built_gen
             fl.value = value
             fl.event.set()
@@ -854,6 +915,86 @@ class DeviceStager:
         with self._mu:
             return self._bytes, len(self._cache)
 
+    def set_governor(self, governor) -> None:
+        """Attach the process-wide HBM governor (executor/hbm.py): the
+        budget becomes this stager's tenant share, cold LRU entries its
+        relief tier (tier 1), and bytes already staged join the ledger.
+        Tier 1's host bytes join it as a host-domain tenant."""
+        self.governor = governor
+        if governor is None:
+            return
+        governor.register(
+            "stager",
+            share_bytes=self.budget_bytes,
+            evict_fn=self._evict_cold,
+            tier=1,
+        )
+        with self._mu:
+            by_tenant: dict[str, int] = {}
+            for ent in self._cache.values():
+                by_tenant[ent.tenant] = by_tenant.get(ent.tenant, 0) + ent.nbytes
+        for t, n in by_tenant.items():
+            governor.reserve("stager", n, index=t)
+        if self.tier1 is not None:
+            self.tier1.set_governor(governor)
+
+    def _evict_cold(self, need: int, prefer=None) -> int:
+        """Governor relief tier: drop cold (LRU) entries until ``need``
+        bytes are freed, always keeping the hottest entry. With
+        ``prefer`` (indexes over their quota) only those indexes'
+        entries go, coldest first. Called by the governor without its
+        lock held; the releases keep the ledger exact. A tensor a reader
+        still holds lives until the reader drops it; the caching
+        allocator reuses its block after that."""
+        freed = 0
+        freed_by: dict[str, int] = {}
+        with self._mu:
+            if prefer is not None:
+                wanted = set(prefer)
+                victims = [k for k, ent in self._cache.items() if ent.tenant in wanted]
+                for k in victims:
+                    if freed >= need or len(self._cache) <= 1:
+                        break
+                    ent = self._cache.pop(k)
+                    self._bytes -= ent.nbytes
+                    freed += ent.nbytes
+                    freed_by[ent.tenant] = freed_by.get(ent.tenant, 0) + ent.nbytes
+                    self._note_evicted_locked(k)
+            else:
+                while freed < need and len(self._cache) > 1:
+                    k, ent = self._cache.popitem(last=False)
+                    self._bytes -= ent.nbytes
+                    freed += ent.nbytes
+                    freed_by[ent.tenant] = freed_by.get(ent.tenant, 0) + ent.nbytes
+                    self._note_evicted_locked(k)
+            if freed:
+                metrics.gauge(metrics.STAGER_BYTES, self._bytes)
+        if freed and self.governor is not None:
+            for t, n in freed_by.items():
+                self.governor.release("stager", n, index=t)
+        return freed
+
+    def reset_after_wedge(self) -> None:
+        """Recover from a device wedge (the health gate's restore calls
+        it): drop every staged tensor, with its snapshot generation, so
+        no delta ever replays onto a dead context's tensor, and fail the
+        in-flight builds hung in dead device calls so new queries
+        rebuild instead of waiting on them forever. Safe because ``_mu``
+        is never held across a device call. Tier 1's host payloads stay
+        for the restage."""
+        with self._mu:
+            self._cache.clear()
+            self._bytes = 0
+            self._epoch += 1  # builds hung across the reset must not publish
+            self._evicted_keys.clear()  # a wedge is not capacity pressure
+            stale, self._inflight = self._inflight, {}
+        if self.governor is not None:
+            self.governor.reset("stager")
+        for fl in stale.values():
+            if not fl.event.is_set():
+                fl.error = RuntimeError("staging abandoned: device wedged")
+                fl.event.set()
+
     def clear(self) -> None:
         with self._mu:
             self._cache.clear()
@@ -863,6 +1004,8 @@ class DeviceStager:
             self._inflight.clear()
             # an explicit clear is not capacity pressure
             self._evicted_keys.clear()
+        if self.governor is not None:
+            self.governor.reset("stager")
         if self.tier1 is not None:
             # fragment identities may be recycled after a clear: host
             # payloads keyed by id() go too

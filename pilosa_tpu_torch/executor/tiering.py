@@ -26,9 +26,9 @@ packed words there.
 
 The plan-driven ``PrefetchScheduler`` of the JAX module is not here: its
 only caller is the dispatch engine's wave builder, which comes with
-ROADMAP A11. ``set_governor`` mirrors the tier's bytes into an HBM
-governor's host-domain tenant; it stays unused until the governor is
-ported (ROADMAP A5).
+ROADMAP A6. ``set_governor`` mirrors the tier's bytes into the HBM
+governor's host-domain tenant ``tier1`` (executor/hbm.py); the stager
+attaches it when the executor hands the stager its governor.
 """
 
 from __future__ import annotations
@@ -192,15 +192,18 @@ class Tier1Cache:
     def set_governor(self, governor) -> None:
         """Mirror the tier's byte ledger into a host-domain governor
         tenant (visible in the governor's stats, outside the device
-        budget). Nothing in the port attaches one until ROADMAP A5."""
+        budget); payloads already cached join it under their index."""
         self.governor = governor
         if governor is None:
             return
         governor.register("tier1", share_bytes=self.max_bytes, tier=9, domain="host")
         with self._mu:
-            current = self._bytes
-        if current:
-            governor.reserve("tier1", current)
+            by_index: dict = {}
+            for ent in self._cache.values():
+                t = ent.cell[0] if ent.cell else ""
+                by_index[t] = by_index.get(t, 0) + ent.nbytes
+        for t, n in by_index.items():
+            governor.reserve("tier1", n, index=t)
 
     def clear(self) -> None:
         with self._mu:

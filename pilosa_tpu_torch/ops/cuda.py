@@ -136,9 +136,15 @@ def _same_device(device, *ts) -> None:
             raise ValueError(f"tensors on different devices: {t.device} vs {device}")
 
 
+class LaunchError(RuntimeError):
+    """A kernel of the port's refused its launch (the runtime's error
+    right after it). Not a device fault to recover from: the executor
+    lets it reach the caller (``executor/hbm.py``)."""
+
+
 def _raise_on(err: int, name: str) -> None:
     if err:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise LaunchError(f"{name}: CUDA error {err} at launch")
 
 
 def _stream(device) -> int:

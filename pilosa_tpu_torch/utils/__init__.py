@@ -1,3 +1,5 @@
-"""Auxiliary components the storage and executor layers use: metrics,
-tracing, the event journal, the heat ledger, error types and the
-protobuf meta codec (copies of the ``pilosa_tpu`` modules)."""
+"""Auxiliary components the storage, executor and server layers use:
+metrics, tracing, the event journal, the heat ledger, error types, the
+protobuf codecs, logging, stats sinks, SLO monitoring and the
+performance-attribution profiler (copies of the ``pilosa_tpu``
+modules)."""

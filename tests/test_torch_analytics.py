@@ -267,7 +267,7 @@ def test_only_attribute_calls_stay_unported(sides):
     from pilosa_tpu_torch.executor.executor import _UNPORTED
 
     assert sorted(_UNPORTED) == ["SetColumnAttrs", "SetRowAttrs"]
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A9"):
         sides.dev.execute("i", "SetRowAttrs(seg, 1, x=1)")
 
 

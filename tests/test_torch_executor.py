@@ -278,3 +278,56 @@ def test_set_restages_and_answers_move(base, tmp_path):
         assert s.dev.stager.misses > misses
     finally:
         s.close()
+
+
+@pytest.mark.parametrize(
+    "q,call,shards,ref_routed,port_routed",
+    [
+        # a one-shard TopN ranks every candidate row: the JAX package
+        # counts only its source's containers and takes the CPU walk
+        ("TopN(f, Row(f=3), n=5)", "TopN", 1, 0, 2),
+        # an unfiltered Min reads the plane stack of every shard: the JAX
+        # package counts nothing, so each shard runs its own device leg
+        ("Min(field=v)", "Min", 3, 0, 1),
+        ("Sum(field=v)", "Sum", 3, 0, 1),
+    ],
+    ids=["topn_candidates", "min_planes", "sum_planes"],
+)
+def test_auto_policy_counts_what_the_call_reads(q, call, shards, ref_routed, port_routed):
+    """Under "auto", the port's estimate of a call's touched containers
+    includes what the call itself reads (TopN's candidate rows, an
+    aggregate's planes), so the shard-batched device leg is chosen where
+    the JAX package chose the CPU walk or per-shard launches. The
+    answers are the same."""
+    from pilosa_tpu.utils import metrics as ref_metrics
+    from pilosa_tpu_torch.core import Holder as PortHolder
+    from pilosa_tpu_torch.utils import metrics as port_metrics
+
+    rng = np.random.default_rng(21)
+    rows, cols = [], []
+    for r in range(100):
+        c = rng.choice(1 << 20, size=3000, replace=False) + (r % shards) * (1 << 20)
+        rows += [r] * len(c)
+        cols += c.tolist()
+    vcols = rng.choice(shards << 20, size=20000, replace=False).tolist()
+    vals = rng.integers(0, 1000, size=len(vcols)).tolist()
+    key = f"{port_metrics.EXECUTOR_ROUTE_DEVICE};call:{call}"
+    answers, routed = {}, {}
+    for name, holder_cls, make, metrics in (
+        ("ref", JaxHolder, lambda h: JaxExecutor(h, device_policy="auto", dispatch_enabled=False), ref_metrics),
+        ("port", PortHolder, lambda h: pilosa_tpu_torch.Executor(h, device="cpu", device_policy="auto"), port_metrics),
+    ):
+        h = holder_cls()
+        h.open()
+        idx = h.create_index("i")
+        idx.create_field("f").import_bits(rows, cols)
+        opts = (pilosa_tpu_torch.core if name == "port" else __import__("pilosa_tpu.core").core).FieldOptions
+        idx.create_field("v", opts(type="int", min=0, max=1000)).import_values(vcols, vals)
+        ex = make(h)
+        before = metrics.snapshot().get(key, 0)
+        answers[name] = repr(ex.execute("i", q)[0])
+        routed[name] = metrics.snapshot().get(key, 0) - before
+        ex.close()
+        h.close()
+    assert answers["ref"] == answers["port"]
+    assert routed == {"ref": ref_routed, "port": port_routed}

@@ -2,6 +2,7 @@
 without CUDA an entry point that was not asked for the CPU raises."""
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -119,3 +120,169 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda.dense_scores(w, w)
     assert cuda.DENSE_SCORES.launches == 0
+
+
+# -- the server and the CLI ---------------------------------------------------
+
+_SERVER_PROBE = r"""
+import sys, tempfile, urllib.request
+import pilosa_tpu_torch.server
+import pilosa_tpu_torch.cli.main
+from pilosa_tpu_torch.server import Config, Server
+s = Server(Config(data_dir=tempfile.mkdtemp(), bind="127.0.0.1:0", device="cpu"))
+s.open()
+urllib.request.urlopen(urllib.request.Request(s.uri + "/index/i", data=b"{}", method="POST")).read()
+urllib.request.urlopen(urllib.request.Request(s.uri + "/index/i/field/f", data=b"{}", method="POST")).read()
+urllib.request.urlopen(urllib.request.Request(s.uri + "/index/i/query", data=b"Set(3, f=1)", method="POST")).read()
+print(urllib.request.urlopen(urllib.request.Request(s.uri + "/index/i/query", data=b"Count(Row(f=1))", method="POST")).read().decode())
+s.close()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "pilosa_tpu" or m.startswith("pilosa_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def _run(args, timeout=120, **kw):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(args, cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout, **kw)
+
+
+def test_server_and_cli_pull_in_no_jax():
+    out = _run([sys.executable, "-c", _SERVER_PROBE])
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2] == '{"results": [1]}'
+    assert lines[-1] == "FOREIGN []"
+
+
+def test_module_help_imports_no_jax():
+    out = _run([sys.executable, "-X", "importtime", "-m", "pilosa_tpu_torch", "--help"])
+    assert out.returncode == 0, out.stderr
+    assert "server" in out.stdout and "generate-config" in out.stdout
+    imported = [ln.rsplit("|", 1)[-1].strip() for ln in out.stderr.splitlines() if "|" in ln]
+    assert "pilosa_tpu_torch.cli.main" in imported
+    foreign = [m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "pilosa_tpu")]
+    assert foreign == []
+
+
+def test_server_without_cuda_raises(monkeypatch, tmp_path):
+    from pilosa_tpu_torch.server import Config, Server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(Config(data_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(Config(data_dir=str(tmp_path), device="cuda:0"))
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without CUDA")
+def test_cli_server_without_device_cpu_exits_nonzero(tmp_path):
+    out = _run([sys.executable, "-m", "pilosa_tpu_torch", "server", "-d", str(tmp_path), "-b", "127.0.0.1:0"])
+    assert out.returncode == 2
+    assert "CUDA is not available" in out.stderr
+
+
+@pytest.mark.parametrize(
+    "flags,item",
+    [
+        (["--hosts", "a:1,b:2"], "A8"),
+        (["--coordinator"], "A8"),
+        (["--mesh-devices", "4"], "A8"),
+        (["--distributed"], "A8"),
+    ],
+)
+def test_cli_cluster_flags_exit_naming_their_item(tmp_path, flags, item, capsys):
+    from pilosa_tpu_torch.cli.main import main
+
+    assert main(["server", "--device", "cpu", "-d", str(tmp_path), *flags]) == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "key,value,item",
+    [
+        ("dispatch-enabled", True, "A6"),
+        ("prefetch-enabled", True, "A6"),
+        ("fusion-enabled", True, "A5"),
+        ("plan-cache-enabled", True, "A5"),
+        ("mesh-devices", 2, "A8"),
+        ("distributed-enabled", True, "A8"),
+        ("federation-leader", True, "A8"),
+        ("scrub-interval", 300.0, "A8"),
+        ("journal-max-bytes", 1 << 20, "A7"),
+        ("export-path", "/dev/null", "A7"),
+        ("device-faults", "oom_every=2", "A7"),
+        ("translate-primary-url", "http://x:1", "A9"),
+    ],
+)
+def test_enabling_an_unported_subsystem_raises(tmp_path, key, value, item):
+    from pilosa_tpu_torch.server import Config, Server
+
+    cfg = Config.from_dict({key: value, "data-dir": str(tmp_path), "device": "cpu"})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Server(cfg)
+
+
+def test_generate_config_prints_the_ports_defaults():
+    out = _run([sys.executable, "-m", "pilosa_tpu_torch", "generate-config"])
+    assert out.returncode == 0, out.stderr
+    toml = out.stdout
+    assert 'device = "cuda"' in toml
+    for key in ("dispatch-enabled", "prefetch-enabled", "fusion-enabled", "plan-cache-enabled"):
+        assert f"{key} = false" in toml
+    from pilosa_tpu.server.config import Config as RefConfig
+    from pilosa_tpu_torch.server.config import Config, tomllib
+
+    # the same keys as the JAX package's, plus the port's device
+    ref_keys = {ln.split(" = ")[0] for ln in RefConfig().to_toml().splitlines() if " = " in ln}
+    keys = {ln.split(" = ")[0] for ln in toml.splitlines() if " = " in ln}
+    assert keys == ref_keys | {"device"}
+    assert Config.from_dict(tomllib.loads(toml)) == Config()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_server_import_export_roundtrip(tmp_path):
+    import signal
+    import time
+    import urllib.request
+
+    port = _free_port()
+    host = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch", "server", "--device", "cpu",
+         "-b", f"127.0.0.1:{port}", "-d", str(tmp_path / "data")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(host + "/status", timeout=2) as r:
+                    assert json.loads(r.read())["device"]["type"] == "cpu"
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stderr.read()
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+        pairs = [(r, c) for r in range(3) for c in (r + 1, (1 << 20) + 7 * r + 2, 5 << 20)]
+        csv = tmp_path / "bits.csv"
+        csv.write_text("".join(f"{r},{c}\n" for r, c in pairs))
+        out = _run([sys.executable, "-m", "pilosa_tpu_torch", "import", "--host", host,
+                    "-i", "i", "-f", "f", "--create", str(csv)])
+        assert out.returncode == 0, out.stderr
+        out = _run([sys.executable, "-m", "pilosa_tpu_torch", "export", "--host", host, "-i", "i", "-f", "f"])
+        assert out.returncode == 0, out.stderr
+        got = sorted(tuple(map(int, ln.split(","))) for ln in out.stdout.splitlines())
+        assert got == sorted(pairs)
+    finally:
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    assert rc == 0

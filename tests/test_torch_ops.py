@@ -405,3 +405,22 @@ def test_bound_popcount_floor_by_kernel(rows, p, with_filter):
     if p:
         d = smoke.bound("dense_scores", (planes[0], planes[0]), card)
         assert d["popcount_ms"] > 0 and d["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("n_items", [1, 3, 5, 8, 16])
+def test_smoke_client_streams(n_items):
+    """chip_smoke's HTTP client streams: the rotating ones send every
+    item from every client; the distinct ones send each item from one
+    client only, so the pipeline can share no answer between them."""
+    smoke = _smoke()
+    items = [("i", f"Count(Row(f={k}))") for k in range(n_items)]
+    rot = smoke.rotating_streams(items, 8)
+    assert len(rot) == 8 and all(sorted(s) == sorted(items) for s in rot)
+    dist = smoke.distinct_streams(items, 8)
+    assert len(dist) == min(8, n_items)
+    assert all(len(s) == n_items for s in dist)
+    owner = {}
+    for ci, s in enumerate(dist):
+        for it in s:
+            assert owner.setdefault(it, ci) == ci
+    assert set(owner) == set(items)
