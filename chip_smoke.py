@@ -27,10 +27,21 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          (K = 280, 56, 150, 600 groups: the GroupBy kernel
          groupby_reduce), a count-only GroupBy, Min/Max (every shard's
          recurrence in one launch of bsi_minmax), Percentile (a tree
-         count per plane step), Distinct, and Count(Range) of every
-         operator alone and inside chains (the range kernel bsi_range), a
-         cold pass then a warm pass. dbgen is not in the repository: the columns are drawn
+         count per plane step), Distinct (the presence map
+         distinct_presence), and Count(Range) of every operator alone and
+         inside chains (the range kernel bsi_range), a cold pass then a
+         warm pass. dbgen is not in the repository: the columns are drawn
          uniformly with numpy from a seed.
+  fusion multi-call requests over the staged tall and ssb data:
+         bench_tall.py's three-chain request, three chains and a TopN,
+         each ssb family as one request and all 31 ssb queries as one,
+         each run warm with the executor's fuser set aside, then with
+         it, every answer against its oracle. Per request: p50, fused
+         launches, kernel launches, device-to-host copies (a
+         torch.profiler trace) and bypasses. Every fused enqueue runs
+         under torch.cuda.set_sync_debug_mode("error"), so a host wait
+         inside it fails the run, and each fused launch must make
+         exactly one fetch.
   writes the shape of bench.py's ingest probe (_ingest_sustained_probe)
          over dense and tall: 10 % of operations are one PQL request of
          16 Set/Clear calls (80 % sets), the rest reads (the probe's four
@@ -65,8 +76,14 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          executor's OomRecovery (relief, one retry, the CPU cooldown,
          then the device path again) and a relief-plus-retry that
          succeeds; a restart; and ``python -m pilosa_tpu_torch server``
-         as a subprocess, /status, one TopN, SIGINT. It must launch K1,
-         K2, K3, K4, K5, K7 and K8 and show no degrade, device-down
+         as a subprocess, /status, one TopN, SIGINT. The server runs
+         the reference's defaults (fusion and the plan cache on); every
+         timed row sends ``cache=false`` except a row per family that
+         times plan-cache hits, and bench.py's plan-cache probe runs over
+         HTTP on dense (Zipf 1.3 over 48 TopN/Intersect/Union queries,
+         uncached, cached, then cached with 1 % writes that must
+         invalidate; every read against the CPU leg). It must launch K1,
+         K2, K3, K4, K5, K7, K8 and K9 and show no degrade, device-down
          fallback or gate trip outside the allocation failure.
 
 The device executors stage with the port's defaults, which are the
@@ -78,7 +95,7 @@ Every dense, tall, writes, tiered and server answer must equal the
 port's CPU roaring leg (device_policy="never"); every ssb answer (in
 process and over HTTP) must equal a plain numpy computation over the
 generated columns (int64, exact). Each path (dense and tall; ssb;
-server; writes; tiered) runs with the kernels' launch
+fusion; server; writes; tiered) runs with the kernels' launch
 counts set to 0 just before it and read just after; each kernel must
 have launched on its path (the server's kernels on the server path). Then each kernel runs again at the arguments
 of its largest main-path launch and must equal its plain PyTorch version
@@ -103,8 +120,11 @@ The fragments are written by a pool of worker processes, stopped before
 the card is used.
 
 Output: progress on stderr; on stdout the card's name and power limit
-(nvidia-smi), a ``phases.server`` line, a ``phases`` line (qps and p50
-on the card), a ``kernels`` line, and as the last line
+(nvidia-smi), a ``phases.server`` line, a ``phases.fusion`` line (its
+table, the plan-cache probe and the fused TopN head,
+``sparse_intersection_counts_stacked_mat``, == plain and timed), a
+``phases`` line (qps and p50 on the card), a ``kernels`` line, and as
+the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before the last line. Without CUDA, or outside a checkout, it exits 2
 and prints no result.
@@ -1047,27 +1067,207 @@ def run_tiered(holder, cpu, device) -> dict:
 # -- kernels against their plain versions ----------------------------------------------
 
 
-def _keep(args):
-    """A copy of a launch's arguments that holds no staged tensor: a held
-    one would turn the stager's next refresh of it from a patch in place
-    into a copy, and a patch in place would change what was kept. Tensors
-    with one storage and shape share their copy, so a launch reads each
-    distinct leaf once, as the recorded one did."""
+def _copy_tensors(args, fn):
+    """``args`` with each tensor replaced by ``fn(tensor)``: tensors that
+    share one storage, offset, shape and strides share their copy, so a
+    launch reads each distinct leaf once, as the recorded one did."""
     import torch
 
     memo: dict = {}
 
     def copy(x):
         if isinstance(x, torch.Tensor):
-            key = (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+            key = (x.device, x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
             if key not in memo:
-                memo[key] = x.clone()
+                memo[key] = fn(x)
             return memo[key]
         if isinstance(x, (list, tuple)):
             return type(x)(copy(v) for v in x)
         return x
 
     return copy(args)
+
+
+# where ``_keep`` puts its copies: on the card (no host wait, so the
+# paths' timings and the fused enqueue's sync check hold) or, on the
+# server path, on the host, so no kept tensor sits among the server's
+# allocations, whose segments the OOM check's relief must return whole
+KEEP_ON_HOST = {"on": False}
+
+
+def _keep(args):
+    """A copy of a launch's arguments that holds no staged tensor: a held
+    one would turn the stager's next refresh of it from a patch in place
+    into a copy, and a patch in place would change what was kept. Copies
+    made on the card go to the host when their path ends (``_offload``)."""
+    if KEEP_ON_HOST["on"]:
+        return _copy_tensors(args, lambda x: x.cpu())
+    return _copy_tensors(args, lambda x: x.clone())
+
+
+def _offload(args):
+    """Kept arguments with every tensor on the host."""
+    return _copy_tensors(args, lambda x: x.cpu())
+
+
+def _on_card(args):
+    """Kept arguments back on the card, to launch them again."""
+    return _copy_tensors(args, lambda x: x.cuda())
+
+
+def _card_storages(*objs) -> dict:
+    """{data_ptr: bytes} of the distinct device storages that ``objs``
+    hold, through lists, tuples, dicts and objects' attributes."""
+    import torch
+
+    seen: dict = {}
+    stack, visited = list(objs), set()
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                st = x.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, (list, tuple, set)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif id(x) not in visited and (hasattr(x, "__dict__") or hasattr(x, "__slots__")):
+            visited.add(id(x))
+            if hasattr(x, "__dict__"):
+                stack.extend(vars(x).values())
+            for slot in getattr(type(x), "__slots__", ()):
+                stack.append(getattr(x, slot, None))
+    return seen
+
+
+# what the script itself holds on the card (kept launch arguments);
+# main registers its recorders here
+SMOKE_HELD: list = []
+
+
+def _describe_holders(t, skip: list, depth: int = 3) -> list:
+    """What holds tensor ``t``: each referrer's kind (an object's class
+    and attribute, a dict's or list's own holders, a frame's function and
+    line), ``depth`` levels up, leaving out the objects in ``skip``."""
+    import gc
+    import types
+
+    skip_ids = {id(x) for x in skip}
+
+    def name(r, child) -> str:
+        if isinstance(r, types.FrameType):
+            return f"frame {r.f_code.co_name} {os.path.basename(r.f_code.co_filename)}:{r.f_lineno}"
+        if isinstance(r, dict):
+            keys = [repr(k)[:40] for k, v in r.items() if v is child][:2]
+            return f"dict[{','.join(keys)}]"
+        if isinstance(r, (types.FunctionType, types.MethodType)):
+            return f"function {getattr(r, '__qualname__', '?')}"
+        if isinstance(r, types.TracebackType):
+            return f"traceback at {r.tb_frame.f_code.co_name}:{r.tb_lineno}"
+        if isinstance(r, BaseException):
+            return f"exception {type(r).__qualname__}: {str(r)[:80]}"
+        return type(r).__qualname__
+
+    own_frames = ("walk", "_describe_holders", "card_memory_by_owner")
+    skip_ids.add(id(skip))
+
+    def walk(x, level: int) -> list:
+        refs = gc.get_referrers(x)
+        skip_ids.add(id(refs))
+        out = []
+        for r in refs:
+            if id(r) in skip_ids or isinstance(r, types.FrameType) and r.f_code.co_name in own_frames:
+                continue
+            node = {"by": name(r, x)}
+            if level > 1 and not isinstance(r, types.ModuleType):
+                node["held_by"] = walk(r, level - 1)
+            out.append(node)
+            if len(out) >= 6:
+                break
+        return out
+
+    return walk(t, depth)
+
+
+def card_memory_by_owner(ex, holders: int = 0) -> dict:
+    """Where the card's allocated bytes are, by owner: the stager's and the
+    device plan cache's entries, the script's kept arguments, other live
+    tensors (by dtype and shape, largest first) and what no Python tensor
+    holds; with ``holders``, what holds that many of the largest other
+    tensors. Then the segments the allocator cannot return: those holding
+    free (inactive) blocks beside live ones, with the live bytes there by
+    owner."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    owner: dict = {}
+    with ex.stager._mu:
+        staged = [e.value for e in ex.stager._cache.values()]
+    for ptr in _card_storages(staged):
+        owner[ptr] = "stager"
+    dc = getattr(ex, "device_cache", None)
+    if dc is not None:
+        with dc._mu:
+            cached = [e.value for e in dc._entries.values()]
+        for ptr in _card_storages(cached):
+            owner.setdefault(ptr, "device_cache")
+    for ptr in _card_storages(SMOKE_HELD):
+        owner.setdefault(ptr, "smoke_kept")
+    desc: dict = {}
+    others: list = []
+    everything = gc.get_objects()
+    for o in everything:
+        if isinstance(o, torch.Tensor) and o.is_cuda and o.layout == torch.strided:
+            ptr, nbytes = o.untyped_storage().data_ptr(), o.untyped_storage().nbytes()
+            if ptr not in desc:
+                desc[ptr] = (nbytes, f"{o.dtype} {list(o.shape)}")
+                if holders and ptr not in owner:
+                    others.append((nbytes, o))
+    others.sort(key=lambda x: -x[0])
+    tops = [o for _, o in others[:holders]]
+    del others, o
+    held = [
+        {"tensor": desc[t.untyped_storage().data_ptr()][1], "holders": _describe_holders(t, [everything, tops])}
+        for t in tops
+    ]
+    del everything, tops
+    by_owner: dict = {}
+    other: dict = {}
+    for ptr, (nbytes, what) in desc.items():
+        who = owner.get(ptr, "other_tensors")
+        by_owner[who] = by_owner.get(who, 0) + nbytes
+        if who == "other_tensors":
+            other[what] = other.get(what, 0) + nbytes
+    allocated = torch.cuda.memory_allocated()
+    by_owner["no_python_tensor"] = allocated - sum(by_owner.values())
+    split = {"segments": 0, "inactive_bytes": 0, "active_bytes_by_owner": {}}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        live, free = [], 0
+        for b in seg["blocks"]:
+            b_addr = b.get("address", addr)
+            addr = b_addr + b["size"]
+            if b["state"] == "active_allocated":
+                live.append((b_addr, b["size"]))
+            elif b["state"] == "inactive":
+                free += b["size"]
+        if live and free:
+            split["segments"] += 1
+            split["inactive_bytes"] += free
+            for b_addr, size in live:
+                who = owner.get(b_addr) or ("other_tensors" if b_addr in desc else "no_python_tensor")
+                split["active_bytes_by_owner"][who] = split["active_bytes_by_owner"].get(who, 0) + size
+    return {
+        "allocated": allocated,
+        "reserved": torch.cuda.memory_reserved(),
+        "by_owner": by_owner,
+        "holders": held,
+        "other_tensors_largest": sorted(other.items(), key=lambda kv: -kv[1])[:8],
+        "split_segments": split,
+    }
 
 
 class Recorder:
@@ -1113,9 +1313,19 @@ class Recorder:
             ("word_delta_", "word_delta", self._patch_bytes),
             ("word_delta", COPY_ROUTE, self._delta_bytes),
             ("bsi_minmax", "bsi_minmax", self._minmax_bytes),
+            ("distinct_presence", "distinct_presence", self._minmax_bytes),
         ):
             self.kernel_fn[name] = getattr(cuda_mod, attr)
             setattr(cuda_mod, attr, self._wrap(name, self.kernel_fn[name], size))
+
+    def offload(self) -> None:
+        """Move what was kept on the card (under a sync-debug mode) to the host."""
+        with self._mu:
+            self.args = {k: _offload(v) for k, v in self.args.items()}
+            self.expand_kind_args = {k: _offload(v) for k, v in self.expand_kind_args.items()}
+            self.dense_widest_q = _offload(self.dense_widest_q)
+            self.tree_one_leaf = _offload(self.tree_one_leaf)
+            self.groupby_count_only = _offload(self.groupby_count_only)
 
     def _wrap(self, name, fn, size):
         def wrapped(*args):
@@ -1171,7 +1381,7 @@ class Recorder:
         return sum({t.data_ptr(): t.numel() * 4 for leaves in leaves_by_query for t in leaves}.values())
 
     @staticmethod
-    def _minmax_bytes(planes, filt, is_min):
+    def _minmax_bytes(planes, filt, _flag):
         return (planes.numel() + (filt.numel() if filt is not None else 0)) * 4
 
     def _groupby_work(self, dims, filt, planes):
@@ -1194,20 +1404,27 @@ class Recorder:
 
 
 class OpsRecorder:
-    """The device functions of the ssb path that still run as PyTorch ops,
-    not hand-written kernels (Distinct's presence map, Percentile's
-    bit-sliced search): calls on the ssb path and the arguments of the
-    largest call (by plane words). Wraps the executor's timed entries."""
+    """The device function of the ssb path that still runs as PyTorch ops,
+    not a hand-written kernel (Percentile's bit-sliced search): calls on
+    the ssb path and the arguments of the largest call (by plane words).
+    Wraps the executor's timed entry and the function the fused launch
+    calls."""
 
-    ENTRIES = {"bsi_distinct_presence": "_timed_distinct", "bsi_percentile_batched": "_timed_percentile"}
+    ENTRIES = {"bsi_percentile_batched": "_timed_percentile"}
 
     def __init__(self, ex_mod) -> None:
+        from pilosa_tpu_torch import ops
+
         self.calls = {name: 0 for name in self.ENTRIES}
         self.args: dict[str, tuple] = {}
         self.counting = False
         self._size: dict[str, int] = {}
         for name, entry in self.ENTRIES.items():
             setattr(ex_mod, entry, self._wrap(name, getattr(ex_mod, entry)))
+            setattr(ops, name, self._wrap(name, getattr(ops, name)))
+
+    def offload(self) -> None:
+        self.args = {k: (_offload(a), kw) for k, (a, kw) in self.args.items()}
 
     def _wrap(self, name, fn):
         def wrapped(planes, *args, **kw):
@@ -1232,6 +1449,7 @@ def time_torch_ops(rec: OpsRecorder, flush) -> dict:
         if name not in rec.args:
             raise AssertionError(f"{name} never ran on the ssb path")
         args, kw = rec.args[name]
+        args = _on_card(args)
         fn = getattr(ops, name)
         planes, filt = args[0], args[1]
         nbytes = (planes.numel() + (filt.numel() if kw["has_filter"] else 0)) * 4
@@ -1421,6 +1639,17 @@ def bound(name: str, args, card: Card) -> dict:
         nbytes = (d1 + (filt is not None)) * s * w * 4 + s * (d1 - 1) + s * 4
         # one popcount per word per plane step, and one for the final count
         ops_s = d1 * s * w / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
+    elif name == "distinct_presence":
+        planes, filt, depth = args
+        s, _, w = planes.shape
+        considered = planes[:, depth] if filt is None else planes[:, depth] & filt
+        words = int(torch.count_nonzero(considered))
+        # not-null and filter whole, the planes only at words that hold a
+        # considered column, the presence words out. The bytes alone: the
+        # kernel's extract-and-OR per plane per column is its own algorithm,
+        # and a bit-sliced evaluation of the value minterms needs fewer
+        # operations than these bytes take at D = 6
+        nbytes = (1 + (filt is not None)) * s * w * 4 + words * depth * 4 + max(((1 << depth) + 31) // 32, 1) * 4
     else:
         raise KeyError(name)
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -1531,6 +1760,7 @@ def _held(name: str, kernel_fn, plain_fn, args, flush, card: Card) -> dict:
     and timed, with its bound, its share of it and the earlier yardstick."""
     import torch
 
+    args = _on_card(args)
     got = _as_tuple(kernel_fn(*args))
     want = _as_tuple(plain_fn(*args))
     torch.cuda.synchronize()
@@ -1572,12 +1802,13 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
         # in place, as the kernel's route on the path
         "word_delta": delta.patch_words_2d_plain_,
         "bsi_minmax": bsi.bsi_minmax_plain,
+        "distinct_presence": bsi.bsi_distinct_presence_plain,
     }
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
     rows = []
     for name, plain_fn in plain.items():
         kernel_fn = rec.kernel_fn[name]
-        args = rec.args[name]
+        args = _on_card(rec.args[name])
         # the in-place patch: the plain version first, on a copy of the words
         want = _as_tuple(plain_fn(*((args[0].clone(),) + args[1:] if name == "word_delta" else args)))
         got = _as_tuple(kernel_fn(*args))
@@ -1678,7 +1909,7 @@ def _delta_copy_route(rec, flush, card) -> dict | None:
 
     if COPY_ROUTE not in rec.args:
         return None
-    args = rec.args[COPY_ROUTE]
+    args = _on_card(rec.args[COPY_ROUTE])
     kernel_fn, plain_fn = rec.kernel_fn[COPY_ROUTE], delta.apply_word_updates_2d_plain
     if not torch.equal(kernel_fn(*args), plain_fn(*args)):
         raise AssertionError(f"word_delta (copy route) differs from its plain version at {_shape('word_delta', args)}")
@@ -1723,7 +1954,7 @@ def _tree_one_leaf(rec, kernel_fn, plain_fn, flush, card) -> dict:
 
     if rec.tree_one_leaf is None:
         raise AssertionError("no one-leaf 32768-word tree count on the main paths")
-    args = rec.tree_one_leaf
+    args = _on_card(rec.tree_one_leaf)
     got, want = kernel_fn(*args), plain_fn(*args)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -1766,6 +1997,10 @@ def _shape(name: str, args) -> dict:
         planes, filt, is_min = args
         s, d1, w = planes.shape
         return {"S": s, "depth": d1 - 1, "W": w, "filter": filt is not None, "min": bool(is_min)}
+    if name == "distinct_presence":
+        planes, filt, depth = args
+        s, _, w = planes.shape
+        return {"S": s, "depth": depth, "W": w, "filter": filt is not None}
     from pilosa_tpu_torch.ops import packed
 
     leaves_by_query, program = args
@@ -1834,6 +2069,201 @@ def run_ssb(dev, oracle: SsbOracle) -> dict:
     return out
 
 
+# -- fusion: multi-call requests, the fuser off and on ----------------------------
+
+# warm repeats of each multi-call request in each arm
+FUSION_REPEATS = 10
+
+
+def fusion_requests(ssb, tall_topn, tall_chains) -> dict:
+    """name -> (index, calls) of each multi-call request: bench_tall.py's
+    three-chain request (its ``"".join(chains[:3])``), three chain Counts
+    and a TopN, each ssb family as one request, and all 31 ssb queries as
+    one (under the default fusion-max-calls of 64)."""
+    reqs = {
+        "tall_3_chains": ("tall", tall_chains[:3]),
+        "tall_3_counts_1_topn": ("tall", tall_chains[3:6] + tall_topn[:1]),
+    }
+    for family in SSB_FAMILIES:
+        reqs["ssb_" + family] = ("ssb", [q for f, q in ssb.queries if f == family])
+    reqs["ssb_all_31"] = ("ssb", [q for _, q in ssb.queries])
+    return reqs
+
+
+class FusedLaunchWatch:
+    """Wraps the fuser's enqueue and fetch: with ``strict`` the enqueue
+    runs under ``torch.cuda.set_sync_debug_mode("error")`` (a host wait
+    inside it raises), every fetch is counted, and the largest TopN head
+    (``sparse_intersection_counts_stacked_mat``) a fused launch scored is
+    kept with its launch count."""
+
+    def __init__(self) -> None:
+        import torch
+
+        from pilosa_tpu_torch import ops
+        from pilosa_tpu_torch.executor.fusion import QueryFuser
+
+        self.strict = False
+        self.fetches = 0
+        self.enqueues = 0
+        self.mat_calls = 0
+        self.mat_args = None
+        self._mat_size = -1
+        enqueue, fetch, mat = QueryFuser._enqueue, QueryFuser._fetch, ops.sparse_intersection_counts_stacked_mat
+        watch = self
+
+        def strict_enqueue(fuser, program, units):
+            watch.enqueues += 1
+            if not watch.strict:
+                return enqueue(fuser, program, units)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return enqueue(fuser, program, units)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def counted_fetch(buf):
+            watch.fetches += 1
+            return fetch(buf)
+
+        def kept_mat(srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk):
+            watch.mat_calls += 1
+            if blocks.numel() > watch._mat_size:
+                watch._mat_size = blocks.numel()
+                watch.mat_args = _keep((srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk))
+            return mat(srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk)
+
+        self.offload = lambda: setattr(self, "mat_args", _offload(self.mat_args))
+        QueryFuser._enqueue = strict_enqueue
+        QueryFuser._fetch = staticmethod(counted_fetch)
+        ops.sparse_intersection_counts_stacked_mat = kept_mat
+
+
+def _dtoh_copies(fn) -> int:
+    """Device-to-host copies (``Memcpy DtoH`` events) one call of ``fn``
+    made, from a torch.profiler trace; a failed trace fails the phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if "Memcpy DtoH" in ev.name)
+
+
+def fusion_arm(dev, index: str, calls: list[str], answers: dict, fused: bool, watch) -> dict:
+    """One multi-call request FUSION_REPEATS times, warm, with the fuser
+    on or off (``dev.fuser`` set aside), every answer held to its oracle:
+    p50, fused launches, kernel launches and fetches per request, bypasses
+    by reason, and device-to-host copies of one more request."""
+    from pilosa_tpu_torch.ops import cuda
+
+    pql = "".join(calls)
+    oracle = {pql: [a for q in calls for a in answers[q]]}
+    fuser = dev.fuser
+    if not fused:
+        dev.fuser = None
+    try:
+        legs: dict = {}
+        _execute(dev, index, pql, oracle, legs)  # warm: staging, programs
+        st0 = fuser.stats()
+        k0 = sum(k.launches for k in cuda.KERNELS)
+        f0 = watch.fetches
+        lat = [_execute(dev, index, pql, oracle, legs) for _ in range(FUSION_REPEATS)]
+        st1 = fuser.stats()
+        launches = st1["fused_launches"] - st0["fused_launches"]
+        fetches = watch.fetches - f0
+        out = {
+            "calls": len(calls),
+            "requests": FUSION_REPEATS,
+            "p50_ms": statistics.median(lat) * 1e3,
+            "qps": FUSION_REPEATS / sum(lat),
+            "fused_launches_per_request": launches / FUSION_REPEATS,
+            "fused_calls_per_launch": (st1["fused_calls"] - st0["fused_calls"]) / launches if launches else None,
+            "kernel_launches_per_request": (sum(k.launches for k in cuda.KERNELS) - k0) / FUSION_REPEATS,
+            "fetches_per_fused_launch": fetches / launches if launches else None,
+            "bypasses": {r: n - st0["bypasses"].get(r, 0) for r, n in st1["bypasses"].items()
+                         if n != st0["bypasses"].get(r, 0)},
+            "legs_ms": {k: v / len(lat) * 1e3 for k, v in sorted(legs.items())},
+            "dtoh_copies_per_request": _dtoh_copies(lambda: _execute(dev, index, pql, oracle, {})),
+        }
+        if fused and fetches != launches:
+            raise AssertionError(f"fusion: {index}: {fetches} fetches for {launches} fused launches")
+        # each fused launch's one fetch is a device-to-host copy: a trace
+        # that sees fewer saw nothing of the card
+        if out["dtoh_copies_per_request"] < (launches / FUSION_REPEATS if fused else 1):
+            raise AssertionError(f"fusion: {index}: the trace saw {out['dtoh_copies_per_request']} DtoH copies")
+        if fused and launches != FUSION_REPEATS:
+            raise AssertionError(f"fusion: {index}: {launches} fused launches for {FUSION_REPEATS} requests")
+        return out
+    finally:
+        dev.fuser = fuser
+
+
+def run_fusion(dev, ssb, tall_topn, tall_chains, tall_answers, watch) -> dict:
+    """Each multi-call request unfused, then fused, in turns on the same
+    executor and staged data; the fused enqueues strict about host waits."""
+    answers = {**tall_answers, **ssb.answers}
+    out: dict = {}
+    watch.strict = True
+    try:
+        for name, (index, calls) in fusion_requests(ssb, tall_topn, tall_chains).items():
+            unfused = fusion_arm(dev, index, calls, answers, False, watch)
+            fused = fusion_arm(dev, index, calls, answers, True, watch)
+            out[name] = {"unfused": unfused, "fused": fused}
+            log(f"fusion: {name} ({len(calls)} calls): p50 {unfused['p50_ms']:.3f} -> {fused['p50_ms']:.3f} ms, "
+                f"kernel launches {unfused['kernel_launches_per_request']:.1f} -> "
+                f"{fused['kernel_launches_per_request']:.1f}, DtoH {unfused['dtoh_copies_per_request']} -> "
+                f"{fused['dtoh_copies_per_request']}, bypasses {fused['bypasses']}")
+    finally:
+        watch.strict = False
+    st = dev.fuser.stats()
+    if st["bypasses"].get("error", 0):
+        raise AssertionError(f"fusion: bypasses {st['bypasses']}")
+    out["fuser"] = st
+    out["strict_enqueues"] = watch.enqueues
+    return out
+
+
+def stacked_mat_row(watch, flush, card: Card) -> dict:
+    """``sparse_intersection_counts_stacked_mat`` (K2, then the head as a
+    view) at the largest TopN head a fused launch scored: == its plain
+    version, timed, with K2's bound of those inputs."""
+    import torch
+
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.ops import packed
+
+    if watch.mat_args is None:
+        raise AssertionError("no fused TopN head scored")
+    mat_args = _on_card(watch.mat_args)
+    srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk = mat_args
+
+    def plain():
+        flat = packed.sparse_stacked_scores_plain(srcs.unsqueeze(0), blocks, brow, bslot, bshard, num_rows)[0]
+        return flat[: n_shards * chunk].reshape(n_shards, chunk)
+
+    got = ops.sparse_intersection_counts_stacked_mat(*mat_args)
+    if not torch.equal(got, plain()):
+        raise AssertionError("sparse_intersection_counts_stacked_mat differs from its plain version")
+    b = bound("sparse_stacked_scores", (srcs.unsqueeze(0), blocks, brow, bslot, bshard, num_rows), card)
+    return {
+        "name": "sparse_intersection_counts_stacked_mat",
+        "route": "cuda",
+        "source": "pilosa_tpu_torch/ops/kernels/sparse_scores.cu",
+        "replaces": "pilosa_tpu/ops/packed.py:155",
+        "launches": watch.mat_calls,
+        "max_abs_err": 0,
+        "ms": time_ms(lambda: ops.sparse_intersection_counts_stacked_mat(*mat_args), 20, flush),
+        "plain_ms": time_ms(plain, 3, flush),
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+        "shape": {"S": n_shards, "chunk": chunk, "B": blocks.shape[0], "num_rows": num_rows},
+    }
+
+
 # -- the server: the same data and queries over HTTP -------------------------------
 
 # kernels the server phase must launch (K6 may launch too, under tier
@@ -1846,6 +2276,7 @@ SERVER_KERNELS = (
     "bsi_range",
     "word_delta",
     "bsi_minmax",
+    "distinct_presence",
 )
 # the OOM check's post-degrade CPU cooldown, cut from the default 30 s
 # (PILOSA_OOM_CPU_COOLDOWN_S) so the phase sees the device path return
@@ -1880,12 +2311,15 @@ class HttpClient:
         resp = self.conn.getresponse()
         return resp.status, resp.getheader("Content-Type"), resp.read()
 
-    def query(self, index: str, q: str, want, cold: bool = False) -> float:
+    def query(self, index: str, q: str, want, cold: bool = False, cache: bool = False) -> float:
         """POST one query; returns its latency (s). Raises on any status
         but 200 and on an answer other than ``want``. A ``cold`` query
         (its data not staged yet) asks for a 600 s deadline instead of
-        the server's default (analytics-timeout is 10 s)."""
-        path = f"/index/{index}/query" + ("?timeout=600" if cold else "")
+        the server's default (analytics-timeout is 10 s). Unless
+        ``cache``, the query asks the server not to answer from its plan
+        cache (``cache=false``), so every answer is an execution."""
+        params = (["timeout=600"] if cold else []) + ([] if cache else ["cache=false"])
+        path = f"/index/{index}/query" + ("?" + "&".join(params) if params else "")
         t0 = time.perf_counter()
         st, _, body = self.request("POST", path, q.encode())
         dt = time.perf_counter() - t0
@@ -1910,10 +2344,10 @@ def recalculate_caches(addr) -> None:
         c.close()
 
 
-def http_sequential(addr, items, answers, cold: bool = False) -> list[float]:
+def http_sequential(addr, items, answers, cold: bool = False, cache: bool = False) -> list[float]:
     c = HttpClient(*addr)
     try:
-        return [c.query(index, q, answers[(index, q)], cold) for index, q in items]
+        return [c.query(index, q, answers[(index, q)], cold, cache) for index, q in items]
     finally:
         c.close()
 
@@ -2101,9 +2535,102 @@ def server_writes(server, addr, cpu) -> dict:
     return {**n, "import_bits": len(icols)}
 
 
+# the plan-cache arm: bench.py's _plan_cache_probe traffic over HTTP on the
+# dense data set: a Zipf(1.3) draw over 48 distinct TopN / Intersect /
+# Union queries over its first 128 rows; 1 % writes on the 16 hottest
+PC_DISTINCT = 48
+PC_ROWS = 128
+PC_ZIPF_A = 1.3
+PC_READS = 160
+PC_WRITE_OPS = 250
+PC_WRITE_EVERY = 100
+PC_HOT_ROWS = 16
+
+
+def plan_cache_pool() -> list[str]:
+    pool = []
+    for i in range(PC_DISTINCT):
+        a, b, c = i % PC_ROWS, (i * 7 + 1) % PC_ROWS, (i * 13 + 2) % PC_ROWS
+        pool.append([
+            f"TopN(f, Row(f={a}), n=10)",
+            f"Count(Intersect(Row(f={a}), Row(f={b})))",
+            f"Count(Union(Row(f={a}), Row(f={b}), Row(f={c})))",
+        ][i % 3])
+    return pool
+
+
+def plan_cache_arm(server, addr, cpu) -> dict:
+    """The plan cache over HTTP: the same Zipf draws with ``cache=false``
+    (every read executed), then cached, then cached with 1 % writes (Set
+    on a hot row at a column it lacks; the rank cache recalculated in
+    process after each, which leaves the plan cache alone, so a write
+    reaches the plan cache only through fragment generations). Every read
+    is held to the port's uncached CPU leg (memoized until the next
+    write). The writes are cleared at the end."""
+    pc = server.executor.plan_cache
+    pool = plan_cache_pool()
+    draws = (np.random.default_rng(23).zipf(PC_ZIPF_A, size=PC_READS + PC_WRITE_OPS) - 1) % PC_DISTINCT
+    frag = server.holder.fragment("dense", "f", "standard", 0)
+    memo: dict = {}
+
+    def want(q):
+        if q not in memo:
+            memo[q] = wire(cpu.execute("dense", q))
+        return memo[q]
+
+    def recalc():
+        frag.cache.recalculate()
+
+    c = HttpClient(*addr)
+    out: dict = {"distinct_queries": PC_DISTINCT, "zipf_a": PC_ZIPF_A, "write_frac": 1 / PC_WRITE_EVERY}
+    written: list = []
+    try:
+        recalc()
+
+        def arm(ops: int, cache: bool, writes: bool) -> dict:
+            st0 = pc.stats()
+            lat, nw = [], 0
+            for i in range(ops):
+                if writes and i % PC_WRITE_EVERY == PC_WRITE_EVERY - 1:
+                    row = len(written) % PC_HOT_ROWS
+                    col = _unset_columns(frag, row, 1, 1000 + 7919 * len(written))[0]
+                    c.query("dense", f"Set({col}, f={row})", [True])
+                    written.append((col, row))
+                    recalc()
+                    memo.clear()
+                    nw += 1
+                    continue
+                q = pool[draws[i]]
+                lat.append(c.query("dense", q, want(q), cache=cache))
+            st1 = pc.stats()
+            hits, misses = st1["hits"] - st0["hits"], st1["misses"] - st0["misses"]
+            return {
+                "reads": len(lat), "writes": nw, "p50_ms": statistics.median(lat) * 1e3, "qps": len(lat) / sum(lat),
+                "hits": hits, "misses": misses, "hit_ratio": hits / (hits + misses) if hits + misses else None,
+                "invalidations": st1["invalidations"] - st0["invalidations"],
+            }
+
+        out["uncached"] = arm(PC_READS, cache=False, writes=False)
+        out["cached"] = arm(PC_READS, cache=True, writes=False)
+        out["cached_writes"] = arm(PC_WRITE_OPS, cache=True, writes=True)
+        out["result_mismatches_vs_uncached_cpu_leg"] = 0  # any mismatch raised
+        if out["uncached"]["hits"] or out["uncached"]["misses"]:
+            raise AssertionError(f"plan cache: cache=false reads touched the cache: {out['uncached']}")
+        if out["cached_writes"]["invalidations"] <= 0:
+            raise AssertionError(f"plan cache: no invalidation under writes: {out['cached_writes']}")
+        c.query("dense", "".join(f"Clear({col}, f={row})" for col, row in written), [True] * len(written))
+        recalc()
+    finally:
+        c.close()
+    out["entries"] = pc.stats()["entries"]
+    return out
+
+
 def oom_check(server, addr, metrics, answers, probe_items) -> dict:
     """``OomRecovery`` on the card's own allocation failure, then relief
     plus a retry that succeeds, without ``torch.cuda.empty_cache``."""
+    import gc
+
     import torch
 
     from pilosa_tpu_torch.executor.hbm import DeviceOom, OomRecovery, classify_device_error
@@ -2157,7 +2684,11 @@ def oom_check(server, addr, metrics, answers, probe_items) -> dict:
     if out["restaged_entries"] <= 0 or out["kernel_launches_after_cooldown"] <= 0:
         raise AssertionError(f"server: the device path did not return after the cooldown: {out}")
     # relief plus one retry succeeds: ask for more than the card has free
-    # (the allocator's cached blocks included) but less than relief frees
+    # (the allocator's cached blocks included) but less than relief frees.
+    # The allocator returns to the driver only segments left wholly free,
+    # so a live tensor beside a staged one keeps its segment: where the
+    # card's bytes are, by owner, is printed before the probe and after a
+    # failed one
     torch.cuda.synchronize()
     free, _ = torch.cuda.mem_get_info()
     cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
@@ -2166,9 +2697,19 @@ def oom_check(server, addr, metrics, answers, probe_items) -> dict:
     need = (sum(sizes) - max(sizes)) // 2
     ask = free + cached + need
     probe = OomRecovery(governor=gov)
-    held = probe.run(lambda: torch.empty(ask, dtype=torch.uint8, device="cuda"), kind="oom_retry_probe")
+    out["retry_probe"] = {"asked_bytes": ask, "free_bytes": free, "cached_bytes": cached, "relief_need_bytes": need,
+                          "staged_before": gov.used("stager"), "staged_entries": len(sizes),
+                          "allocated_before": torch.cuda.memory_allocated()}
+    try:
+        held = probe.run(lambda: torch.empty(ask, dtype=torch.uint8, device="cuda"), kind="oom_retry_probe")
+    except DeviceOom:
+        out["retry_probe"].update(staged_after=gov.used("stager"), card_after=card_memory_by_owner(ex, holders=4))
+        gc.collect()
+        out["retry_probe"]["allocated_after_gc"] = torch.cuda.memory_allocated()
+        raise AssertionError(f"server: relief plus retry did not succeed: {json.dumps(out['retry_probe'])}")
     del held
-    out["retry_probe"] = {**probe.stats(), "asked_bytes": ask, "free_bytes": free, "cached_bytes": cached, "relief_need_bytes": need}
+    out["retry_probe"]["card_after_relief"] = card_memory_by_owner(ex, holders=4)
+    out["retry_probe"].update(probe.stats())
     if (probe.stats()["ooms"], probe.stats()["recovered"]) != (1, 1):
         raise AssertionError(f"server: relief plus retry did not succeed: {out['retry_probe']}")
     http_sequential(addr, probe_items, answers, cold=True)
@@ -2227,7 +2768,14 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
             src = in_process
             for k in SERVER_IN_PROCESS[family]:
                 src = src[k]
+            pc0 = server.executor.plan_cache.stats()
+            http_sequential(addr, items, cpu_answers, cache=True)
+            cached = http_sequential(addr, items, cpu_answers, cache=True)
+            pc1 = server.executor.plan_cache.stats()
             rates[family] = {
+                # the plan cache on: a first pass fills it, a second is timed
+                "cached": {**_http_rate(cached, sum(cached)), "hits": pc1["hits"] - pc0["hits"],
+                           "misses": pc1["misses"] - pc0["misses"]},
                 "sequential": _http_rate(seq, sum(seq)),
                 # the same queries from every client: part of the answers
                 # are shared by singleflight coalescing, not executed
@@ -2248,6 +2796,10 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
         # rest of the phase holds the server to are the CPU leg's anew
         cpu = Executor(server.holder, device=torch.device("cuda"), device_policy="never")
         try:
+            t0 = time.monotonic()
+            out["plan_cache"] = plan_cache_arm(server, addr, cpu)
+            out["plan_cache"]["seconds"] = time.monotonic() - t0
+            log(f"server: plan cache {out['plan_cache']}")
             out["writes"] = server_writes(server, addr, cpu)
         finally:
             cpu.close()
@@ -2263,6 +2815,8 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
         out["pipeline"] = {c: {"admitted": v["admitted"], "sheds": v["sheds"]} for c, v in ps["classes"].items()}
         out["pipeline"]["coalesce_hits"] = ps["coalesce_hits"]
         out["pipeline"]["batched_entries"] = ps["batched_entries"]
+        # fused launches and bypasses beside the pipeline's batched count
+        out["fusion"] = server.executor.fuser.stats()
         out["health"] = {"healthy": server.executor.health.healthy, "trips": server.executor.health.trips}
         out["governor"] = server.executor.governor.stats()
         out["oom_recovery"] = server.executor._oom.stats()
@@ -2349,6 +2903,7 @@ PATH_OF = {
     "expand_blocks": "tiered",
     "word_delta": "writes",
     "bsi_minmax": "ssb",
+    "distinct_presence": "ssb",
 }
 
 
@@ -2429,12 +2984,15 @@ def main() -> int:
         from pilosa_tpu_torch.utils import metrics
 
         ops_rec = OpsRecorder(ex_mod)
+        watch = FusedLaunchWatch()
+        SMOKE_HELD.extend((rec, ops_rec, watch))
         launches: dict = {}
         batched: dict = {}
         path_s: dict = {}
 
         def run_path(path: str, fn):
             rec.path = path
+            KEEP_ON_HOST["on"] = path == "server"
             cuda.reset_launches()
             fb0 = fallback_counts(metrics)
             t0 = time.monotonic()
@@ -2445,6 +3003,9 @@ def main() -> int:
             launches[path] = {k.name: k.launches for k in cuda.KERNELS}
             batched[path] = {k.name: k.batched_launches for k in cuda.KERNELS}
             rec.path = None
+            KEEP_ON_HOST["on"] = False
+            for held in (rec, ops_rec, watch):
+                held.offload()
             path_s[path] = time.monotonic() - t0
             log(f"{path} in {path_s[path]:.1f} s; launches {launches[path]}")
             return out
@@ -2454,6 +3015,9 @@ def main() -> int:
         phases["ssb"] = run_path("ssb", lambda: run_ssb(dev, ssb))
         ops_rec.counting = False
         phases["ssb"]["data_build_s"] = built["ssb_build_s"]
+        # multi-call requests over the staged tall and ssb data, the fuser
+        # off and on in turns
+        phases["fusion"] = run_path("fusion", lambda: run_fusion(dev, ssb, tall_topn, tall_chains, oracle, watch))
 
         # the server over the same directory, before any write changes
         # dense or tall, so the CPU leg's answers (oracle) and numpy's
@@ -2470,6 +3034,9 @@ def main() -> int:
             ex.close()
         holder.close()
         dev = cpu = holder = None
+        # the server starts with nothing cached by the allocator, as in a
+        # process of its own
+        torch.cuda.empty_cache()
         phases["server"] = run_path("server", lambda: run_server(root, server_answers, families, phases, card))
         for name in SERVER_KERNELS:
             if launches["server"][name] <= 0:
@@ -2522,6 +3089,10 @@ def main() -> int:
         own = {name: launches[path][name] for name, path in PATH_OF.items()}
         own_batched = {name: batched[path][name] for name, path in PATH_OF.items()}
         kernels = check_kernels(rec, own, own_batched, device, card_info)
+        phases["fusion"]["stacked_mat"] = stacked_mat_row(
+            watch, torch.zeros(64 << 20, dtype=torch.int32, device=device), card_info
+        )
+        phases["fusion"]["fetches_all_paths"] = watch.fetches
         torch_ops = time_torch_ops(ops_rec, torch.zeros(64 << 20, dtype=torch.int32, device=device))
         log(f"torch ops on the ssb path: {torch_ops}")
         for row in kernels:
@@ -2562,6 +3133,7 @@ def main() -> int:
                     "expand_blocks": launches["tiered"]["expand_blocks"] / n_tiered,
                     "word_delta": launches["writes"]["word_delta"] / n_writes,
                     "bsi_minmax": launches["ssb"]["bsi_minmax"] / phases["ssb"]["minmax_queries_run"],
+                    "distinct_presence": launches["ssb"]["distinct_presence"] / n_ssb,
                 },
                 "launches_by_path": launches,
                 "groupby_launches_k_gt_1_p_gt_0": rec.groupby_multi_with_planes,
@@ -2583,6 +3155,7 @@ def main() -> int:
                     "tier_build": tier_build_s,
                     "tiered_path": path_s["tiered"],
                     "server_path": path_s["server"],
+                    "fusion_path": path_s["fusion"],
                     **built,
                 },
             }
@@ -2602,7 +3175,18 @@ def main() -> int:
             "oom_recovery": srv["oom_recovery"],
             "oom_check": srv["oom"],
             "device_down_fallbacks": srv["device_down_fallbacks"],
+            "fusion": srv["fusion"],
+            "plan_cache": srv["plan_cache"],
             "launches": launches["server"],
+        }}), flush=True)
+        fus = phases["fusion"]
+        print(json.dumps({"phases.fusion": {
+            "card": card,
+            "requests": {k: v for k, v in fus.items() if isinstance(v, dict) and "fused" in v},
+            "plan_cache_http": srv["plan_cache"],
+            "stacked_mat": fus["stacked_mat"],
+            "bypasses": fus["fuser"]["bypasses"],
+            "launches": launches["fusion"],
         }}), flush=True)
         print(json.dumps({"phases": phases}), flush=True)
         print(json.dumps({"torch_ops": torch_ops}), flush=True)

@@ -34,6 +34,10 @@ from typing import Optional
 from pilosa_tpu_torch.core import Row, VIEW_BSI_GROUP_PREFIX, VIEW_STANDARD
 from pilosa_tpu_torch.utils.errors import NotFoundError
 
+# call names the analytic paths own: the executor's dispatch and the
+# fusion eligibility gate read them
+ANALYTIC_CALLS = ("GroupBy", "Distinct", "Percentile")
+
 # Distinct's on-device id extraction scatters into a 2^depth presence
 # bitmap; beyond this depth the domain no longer pays for itself in HBM
 # and the per-shard CPU walk wins
@@ -323,3 +327,19 @@ def decode_presence_words(words, base: int) -> list[int]:
             vals.append(base + wi * 32 + low.bit_length() - 1)
             w ^= low
     return vals
+
+
+def heat_fields(c) -> list[str]:
+    """Fields an analytic call reads — heat-ledger attribution for the
+    fused launch sites, which bypass ``_map_reduce``'s per-shard loop."""
+    if c.name == "GroupBy":
+        try:
+            plan = parse_groupby(c)
+        except ValueError:
+            return []
+        fields = [f for f, _ in plan.dims]
+        if plan.agg_field:
+            fields.append(plan.agg_field)
+        return fields
+    fname, ok = c.string_arg("field")
+    return [fname] if ok and fname else []

@@ -35,10 +35,19 @@ governor's tiers and retries once before the call degrades to the CPU
 leg, and a tripped gate or the post-degrade cooldown routes every read
 to the CPU leg until the device answers again. Writes skip the guard.
 
+A multi-call read (or a lone analytic call) goes through whole-query
+fusion first (executor/fusion.py, on by default as in the reference):
+its fusable calls lower to kernels enqueued back to back with one fetch,
+and the rest take the per-call legs. With a plan cache (plan/cache.py)
+whole-call results are cached against fragment generations, and the
+planner (plan/planner.py) substitutes cached or repeated bitmap subtrees
+with ``__cached`` placeholders, whose stacks a device plan cache keeps
+on the card.
+
 Attributes (``SetRowAttrs``/``SetColumnAttrs``, TopN attribute filters)
 and keyed indexes raise ``NotImplementedError`` naming ROADMAP A9. The
-cluster, mesh, fusion, plan cache and dispatch engine of the JAX
-executor are not here (A5, A6, A8).
+cluster, mesh and dispatch engine of the JAX executor are not here (A6,
+A8).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from pilosa_tpu_torch.executor.hbm import (
 )
 from pilosa_tpu_torch.executor.stager import DeviceStager
 from pilosa_tpu_torch.pql import BETWEEN, NEQ, Call, Condition, parse
+from pilosa_tpu_torch.plan.canon import CACHED_CALL
 from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.roaring import Bitmap
 from pilosa_tpu_torch.utils import heat, metrics, trace
@@ -86,6 +96,9 @@ AUTO_DEVICE_MIN_CONTAINERS = 64
 OOM_CPU_COOLDOWN_S = 30.0
 # Widest coalesced launch of the stacked TopN and chain-count scorers.
 MAX_BATCH = 32
+# The device plan cache's budget when the caller names none (the
+# reference's bare-executor default; the server passes its own knob).
+DEVICE_CACHE_BYTES = 256 << 20
 
 # Calls not ported yet -> the ROADMAP item that ports them.
 _UNPORTED = {
@@ -162,10 +175,10 @@ def pairs_add(a: list[tuple[int, int]], b: list[tuple[int, int]]) -> list[tuple[
 
 @dataclass
 class ExecOptions:
-    """reference execOptions (executor.go:1714). ``remote`` and
-    ``cache`` are carried for the HTTP API; the port has neither a
-    cluster nor a plan cache yet (ROADMAP A8, A5), so neither changes
-    execution."""
+    """reference execOptions (executor.go:1714). ``cache`` = False
+    bypasses the plan result cache (lookups, inserts and the CSE
+    rewrite). ``remote`` is carried for the HTTP API; the port has no
+    cluster yet (ROADMAP A8), so it changes nothing."""
 
     remote: bool = False
     exclude_row_attrs: bool = False
@@ -351,6 +364,10 @@ class Executor:
         analytics_max_groups: Optional[int] = None,
         translate_store=None,
         auto_min_containers: Optional[int] = None,
+        plan_cache=None,
+        fusion_enabled: bool = True,
+        fusion_max_calls: int = 64,
+        plan_cache_device_bytes: int = DEVICE_CACHE_BYTES,
     ) -> None:
         if translate_store is not None:
             raise NotImplementedError(
@@ -421,6 +438,26 @@ class Executor:
             on_degrade=self._on_oom_degrade,
         )
         self._timed_tree_count = _timed_kernel("tree_count", ops.tree_count, recovery=self._oom)
+        # generation-stamped result cache (plan/cache.py); None = off,
+        # the default for bare executors (the server passes one)
+        self.plan_cache = plan_cache
+        # whole-query fusion (executor/fusion.py): the fusable calls of a
+        # multi-call read enqueue back to back and come back in one fetch
+        if fusion_enabled:
+            from pilosa_tpu_torch.executor.fusion import QueryFuser
+
+            self.fuser = QueryFuser(self, max_calls=fusion_max_calls)
+        else:
+            self.fuser = None
+        # device-resident plan cache: __cached subtree stacks stay on the
+        # card instead of being packed and uploaded again; 0 disables it
+        if plan_cache_device_bytes > 0 and plan_cache is not None:
+            from pilosa_tpu_torch.plan.cache import DevicePlanCache
+
+            self.device_cache = DevicePlanCache(plan_cache_device_bytes)
+            self.device_cache.set_governor(self.governor)
+        else:
+            self.device_cache = None
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
@@ -476,7 +513,39 @@ class Executor:
         if shards is None and self._needs_shards(query.calls):
             shards = list(range(idx.max_shard() + 1))
         calls = query.calls
-        if len(calls) > 1 and query.write_call_n() == 0 and not opt.serial:
+        reads_only = query.write_call_n() == 0
+        if self.plan_cache is not None and opt.cache and self._local_batchable(opt) and shards and reads_only:
+            # CSE against the result cache (plan/planner.py): bitmap
+            # subtrees repeated across this query's calls (a pipeline-
+            # combined query may hold many requests) build once, and
+            # subtrees already cached feed in as materialized rows
+            from pilosa_tpu_torch.plan import planner
+
+            t0_cse = time.monotonic()
+            with trace.child(metrics.STAGE_PLAN_CANON):
+                calls = planner.rewrite_for_cse(self, index_name, calls, shards, opt)
+            trace.attrib_add(trace.WF_PLAN_CANON, time.monotonic() - t0_cse)
+        # whole-query fusion: the fuser serves the calls it can lower (or
+        # finds cached); the rest run per call below and the results
+        # merge by position. A lone analytic call is itself a K-way panel
+        fused: dict[int, Any] = {}
+        if (
+            self.fuser is not None
+            and (len(calls) > 1 or any(c.name in analytics.ANALYTIC_CALLS for c in calls))
+            and reads_only
+            and not opt.serial
+            and shards
+        ):
+            fused = self.fuser.try_execute(index_name, calls, shards, opt) or {}
+        rest = [c for i, c in enumerate(calls) if i not in fused]
+        results = self._execute_calls(index_name, rest, shards, opt, dl, reads_only)
+        if not fused:
+            return results
+        it = iter(results)
+        return [fused[i] if i in fused else next(it) for i in range(len(calls))]
+
+    def _execute_calls(self, index_name, calls, shards, opt, dl, reads_only: bool) -> list[Any]:
+        if len(calls) > 1 and reads_only and not opt.serial:
             # an all-read request has no cross-call ordering constraints;
             # running the calls concurrently lets the BatchedScorer
             # coalesce their TopN scoring into batched kernel launches
@@ -534,9 +603,10 @@ class Executor:
         """Replace machinery whose locks abandoned guard workers may
         hold forever (a batch leader hung inside a dead launch keeps its
         scorer's lock; a hung upload keeps the stager's). Fresh
-        instances start clean. A context lost to a sticky CUDA error
-        never gets here: its probe keeps failing, so the gate stays
-        tripped and reads stay on the CPU leg."""
+        instances start clean, and results and tensors the wedged card
+        produced leave both plan caches. A context lost to a sticky CUDA
+        error never gets here: its probe keeps failing, so the gate
+        stays tripped and reads stay on the CPU leg."""
         self.scorer = BatchedScorer()
         self.stacked_scorer = _make_stacked_scorer()
         self.chain_scorer = _make_chain_scorer(self)
@@ -546,14 +616,43 @@ class Executor:
             sc.set_governor(self.governor)
         self._oom_cpu_until = 0.0
         self.stager.reset_after_wedge()
+        if self.plan_cache is not None:
+            self.plan_cache.epoch_reset()
+        if self.device_cache is not None:
+            self.device_cache.epoch_reset()
 
     def _execute_call(self, index, c: Call, shards, opt) -> Any:
         metrics.count(metrics.EXECUTOR_CALLS, call=c.name)
         sp = trace.current()
         if sp is None:
-            return self._execute_call_guarded(index, c, shards, opt)
+            return self._execute_call_cached(index, c, shards, opt)
         with sp.child(metrics.STAGE_CALL, call=c.name):
+            return self._execute_call_cached(index, c, shards, opt)
+
+    def _local_batchable(self, opt) -> bool:
+        """Whether this call's legs all run here, so the plan cache, the
+        CSE rewrite and the shard-batched legs may serve it. Always, on
+        one node; the multi-device plane (ROADMAP A8) makes it depend on
+        ``opt.remote``, as in the reference."""
+        return True
+
+    def _execute_call_cached(self, index, c: Call, shards, opt) -> Any:
+        """Whole-call result cache around dispatch (plan/cache.py): a
+        generation-valid entry answers without touching the executor; a
+        miss executes under singleflight and stamps the entry with the
+        generation vector read before the build. Writes and uncacheable
+        calls (malformed arguments, attribute reads) go straight
+        through."""
+        pc = self.plan_cache
+        if pc is None or not opt.cache or not self._local_batchable(opt) or shards is None or c.name in WRITE_CALLS:
             return self._execute_call_guarded(index, c, shards, opt)
+        from pilosa_tpu_torch.plan import planner
+
+        keyinfo = planner.call_cache_key(self, index, c, shards, opt)
+        if keyinfo is None:
+            return self._execute_call_guarded(index, c, shards, opt)
+        key, genvec_fn = keyinfo
+        return pc.get_or_build(key, genvec_fn, lambda: self._execute_call_guarded(index, c, shards, opt))
 
     def _execute_call_guarded(self, index, c: Call, shards, opt) -> Any:
         """Read calls run under the device health gate when one is
@@ -744,6 +843,11 @@ class Executor:
 
     def _bitmap_call_shard_cpu(self, index, c: Call, shard: int) -> Row:
         name = c.name
+        if name == CACHED_CALL:
+            # a planner-substituted subtree (plan/planner.py): its
+            # materialized per-shard rows are the result
+            seg = c.args["_row"].shard_segment(shard)
+            return Row() if seg is None else Row.from_segment(shard, seg)
         if name == "Row":
             return self._row_shard(index, c, shard)
         if name == "Difference":
@@ -1009,9 +1113,28 @@ class Executor:
                     break
         return self._bsi_plane_containers(index, fname, shard) if fname else 0
 
+    def _cached_words(self, c: Call, shard: int) -> np.ndarray:
+        """u32[W] host words of one shard of a ``__cached`` node's row,
+        memoized on the node (query-local, so the memo dies with the
+        query)."""
+        memo = c.args.setdefault("_words", {})
+        w = memo.get(shard)
+        if w is None:
+            seg = c.args["_row"].shard_segment(shard)
+            w64 = np.zeros(SHARD_WIDTH // 64, dtype=np.uint64)
+            if seg is not None:
+                cols = np.asarray(seg.slice_all(), dtype=np.uint64) - np.uint64(shard * SHARD_WIDTH)
+                np.bitwise_or.at(
+                    w64, (cols >> np.uint64(6)).astype(np.int64), np.uint64(1) << (cols & np.uint64(63))
+                )
+            w = memo[shard] = w64.view("<u4")
+        return w
+
     def _device_bitmap(self, index, c: Call, shard: int):
         """Lower a bitmap call subtree to a device i32[W] word vector."""
         name = c.name
+        if name == CACHED_CALL:
+            return ops.words_from_numpy(self._cached_words(c, shard), self.device)
         if name == "Row":
             field_name = c.field_arg()
             f = self.holder.field(index, field_name)
@@ -1119,15 +1242,18 @@ class Executor:
         boolean nodes become structure tuples, anything else stages to
         a leaf tensor."""
         leaves: list = []
+        return leaves, self._tree_structure(index, c, batch, leaves)
 
-        def build(call: Call):
-            if call.name in ("Intersect", "Union", "Xor", "Difference") and call.children:
-                return (call.name, tuple(build(ch) for ch in call.children))
-            arr = self._device_bitmap_stack(index, call, batch)
-            leaves.append(arr)
-            return ("leaf", len(leaves) - 1)
-
-        return leaves, build(c)
+    def _tree_structure(self, index, call: Call, batch, leaves: list):
+        """``_tree_leaves``' recursion, a method and not a closure that
+        calls itself: such a closure is a reference cycle, and the leaves
+        it holds (staged tensors) would outlive the query until a garbage
+        collection, so relief would evict entries whose memory stays
+        allocated."""
+        if call.name in ("Intersect", "Union", "Xor", "Difference") and call.children:
+            return (call.name, tuple(self._tree_structure(index, ch, batch, leaves) for ch in call.children))
+        leaves.append(self._device_bitmap_stack(index, call, batch))
+        return ("leaf", len(leaves) - 1)
 
     def _tree_program(self, tree) -> ops.TreeProgram:
         """The TreeProgram of a tree structure, cached so its code is
@@ -1150,6 +1276,8 @@ class Executor:
     def _device_bitmap_stack(self, index, c: Call, shards):
         """Lower a bitmap call subtree to i32[S, W] across shards."""
         name = c.name
+        if name == CACHED_CALL:
+            return self._cached_stack(index, c, shards)
         if name == "Row":
             field_name = c.field_arg()
             f = self.holder.field(index, field_name)
@@ -1183,6 +1311,28 @@ class Executor:
         if name == "Range":
             return self._device_range(index, c, shards, stacked=True)
         raise _NotDeviceable(name)
+
+    def _cached_stack(self, index, c: Call, shards):
+        """A ``__cached`` node's i32[S, W] stack on the device. With a
+        device plan cache it is served from the card when the subtree's
+        generation vector still matches, else packed, uploaded (a tensor
+        of its own, never a stager entry's view) and stamped with the
+        vector the planner froze before resolving the row, so a racing
+        write can only over-invalidate. An upload failure raises."""
+        dc = self.device_cache
+        g0 = c.args.get("_genvec")
+        gvfn = c.args.get("_gv")
+        if dc is None or g0 is None or gvfn is None:
+            return ops.words_from_numpy(np.stack([self._cached_words(c, s) for s in shards]), self.device)
+        key = (index, c.args["_h"], tuple(shards))
+        hit = dc.get(key, gvfn)
+        if hit is not None:
+            return hit
+        epoch0 = dc.epoch
+        stack = np.stack([self._cached_words(c, s) for s in shards])
+        dev = ops.words_from_numpy(stack, self.device)
+        dc.put(key, g0, dev, int(stack.nbytes), epoch0=epoch0)
+        return dev
 
     # -- Count ---------------------------------------------------------------
 
@@ -1574,7 +1724,10 @@ class Executor:
 
     # -- TopN (reference executeTopN two-pass, executor.go:521-585) ----------
 
-    def _execute_topn(self, index, c: Call, shards, opt) -> list[dict]:
+    def _execute_topn(self, index, c: Call, shards, opt, prescored=None) -> list[dict]:
+        """``prescored`` (the fuser's): a head chunk already scored in a
+        fused launch, ``(frags, pairs_by_shard, ids_by_shard, mat,
+        srcs)``; the walk starts from it."""
         ids_arg, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
         attr_name, _ = c.string_arg("attrName")
@@ -1588,7 +1741,7 @@ class Executor:
         # winning ids sit in every shard's cache head, so pass 2 usually
         # needs no device launch at all
         carry = _ScoreCarry()
-        pairs = self._execute_topn_shards(index, c, shards, opt, carry)
+        pairs = self._execute_topn_shards(index, c, shards, opt, carry, prescored=prescored)
         if not pairs or ids_arg:
             return _pairs_result(pairs)
         # Pass 2: re-query the union of candidate ids for exact counts.
@@ -1599,15 +1752,18 @@ class Executor:
             trimmed = trimmed[:n]
         return _pairs_result(trimmed)
 
-    def _execute_topn_shards(self, index, c: Call, shards, opt, carry=None):
+    def _execute_topn_shards(self, index, c: Call, shards, opt, carry=None, prescored=None):
         if (
-            shards
+            self._local_batchable(opt)
+            and shards
             and len(c.children) == 1
-            and self._use_device_batched(index, c, shards)
+            # a fused launch already scored the head on the card: honour
+            # it whatever the auto crossover now says
+            and (prescored is not None or self._use_device_batched(index, c, shards))
         ):
             try:
                 with trace.child(metrics.STAGE_DEVICE_BATCH, call="TopN"):
-                    pairs = self._topn_shards_batched(index, c, shards, carry)
+                    pairs = self._topn_shards_batched(index, c, shards, carry, prescored=prescored)
                 self._heat_read_legs(index, c, shards)
                 return sort_pairs(pairs)
             except _NotDeviceable:
@@ -1619,7 +1775,7 @@ class Executor:
         result = self._map_reduce(index, shards, c, opt, map_fn, pairs_add, zero_factory=list)
         return sort_pairs(result or [])
 
-    def _topn_shards_batched(self, index, c: Call, shards, carry=None):
+    def _topn_shards_batched(self, index, c: Call, shards, carry=None, prescored=None):
         """Single-device cross-shard TopN: every shard's candidate
         scoring lands in ONE chunked kernel launch over the merged
         block-sparse staging (sparse_intersection_counts_stacked). The
@@ -1638,12 +1794,17 @@ class Executor:
         if min_threshold <= 0:
             min_threshold = DEFAULT_MIN_THRESHOLD
 
-        frags = tuple(
-            self.holder.fragment(index, field, VIEW_STANDARD, s) for s in shards
-        )
-        pairs_by_shard = [
-            f._top_bitmap_pairs(row_ids) if f is not None else [] for f in frags
-        ]
+        if prescored is not None:
+            # the fused launch's fragment and pairs snapshot: the head
+            # matrix and the walk must agree on candidate order
+            frags, pairs_by_shard, ids0, mat0, srcs0 = prescored
+        else:
+            frags = tuple(
+                self.holder.fragment(index, field, VIEW_STANDARD, s) for s in shards
+            )
+            pairs_by_shard = [
+                f._top_bitmap_pairs(row_ids) if f is not None else [] for f in frags
+            ]
         if not any(pairs_by_shard):
             return []
         # lazy: a pass 2 fully covered by the carry never resolves the
@@ -1652,10 +1813,18 @@ class Executor:
             self,
             frags,
             pairs_by_shard,
-            lambda: self._device_bitmap_stack(index, c.children[0], shards),
+            srcs0 if prescored is not None else lambda: self._device_bitmap_stack(index, c.children[0], shards),
             shards=shards,
             carry=carry,
         )
+        if prescored is not None:
+            # the fused head is chunk 0; the walk goes on from
+            # _chunk_size(FIRST_CHUNK) as the unfused schedule would, so
+            # chunk boundaries (and staging keys) match
+            provider._mats.append(mat0)
+            provider._chunk_meta.append((0, mat0.shape[1], ids0))
+            provider._pos = mat0.shape[1]
+            provider._publish(ids0, mat0)
         opt_ = TopOptions(
             n=int(n),
             src=None,

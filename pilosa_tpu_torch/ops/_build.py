@@ -39,6 +39,7 @@ SOURCES = (
     "expand_blocks",
     "word_delta",
     "bsi_minmax",
+    "distinct_presence",
 )
 HEADERS = ("common.cuh", "tma.cuh")
 NVCC_FLAGS = (
@@ -101,6 +102,12 @@ _SIGNATURES = {
         # planes, plane_stride, shard_stride, filt, filt_stride, s, depth,
         # sv, is_min, bits, count, device, stream
         [_P, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P],
+    ),
+    "distinct_presence": (
+        "pilosa_distinct_presence",
+        # planes, plane_stride, shard_stride, filt, filt_stride, s, w,
+        # depth, out, nwords, device, stream
+        [_P, _LL, _LL, _P, _LL, _LL, _LL, _I, _P, _I, _I, _P],
     ),
 }
 

@@ -15,11 +15,12 @@ batch; filters are [W] / [S, W] words.
     reads each plane once. Predicates are Python ints: any depth up to 63;
   * Min and Max run on K8 (``ops/kernels/bsi_minmax.cu``): one launch
     runs every shard's recurrence, a thread-block cluster per shard;
-  * Percentile and Distinct stay PyTorch ops on the device. Each
-    Percentile plane step's popcount goes through ``packed.count_bits``
-    (K3's one-leaf program) and ``torch.where`` takes the place of the
-    host branch, so nothing leaves the card before the caller's one
-    fetch.
+  * Distinct runs on K9 (``ops/kernels/distinct_presence.cu``): one
+    launch marks every considered column's value in a presence bitmap;
+  * Percentile stays PyTorch ops on the device. Each plane step's
+    popcount goes through ``packed.count_bits`` (K3's one-leaf program)
+    and ``torch.where`` takes the place of the host branch, so nothing
+    leaves the card before the caller's one fetch.
 
 CPU tensors run the plain versions (the tests); CUDA tensors launch the
 kernels or raise.
@@ -301,7 +302,7 @@ def bsi_max(planes, filter_row, *, bit_depth: int, has_filter: bool):
     return _minmax_op(planes, filter_row, bit_depth, has_filter, False)
 
 
-# -- Percentile / Distinct: PyTorch ops on the device ----------------------------------
+# -- Percentile: PyTorch ops on the device; Distinct: K9 -------------------------------
 
 
 def bsi_percentile_batched(planes, filter_rows, nth_bp: int, *, bit_depth: int, has_filter: bool):
@@ -336,18 +337,18 @@ def _unpack(words: torch.Tensor) -> torch.Tensor:
     return ((words.unsqueeze(-1) >> pos) & 1).reshape(-1).to(torch.int64)
 
 
-def bsi_distinct_presence(planes, filter_rows, *, bit_depth: int, has_filter: bool):
-    """Distinct as a presence bitmap over the value domain [0, 2^D):
-    planes [S, D+1, W] -> i32 packed presence words. Each existing (and
-    filtered) column's value is reassembled from its plane bits and marks
-    its slot; shards OR into one presence vector, one shard wide at a
-    time. Callers bound D (the bitmap holds 2^D bits)."""
+def bsi_distinct_presence_plain(planes, filt, bit_depth: int):
+    """K9's function in plain PyTorch: planes [S, D+1, W] and an optional
+    [S, W] filter -> i32 packed presence words over the value domain
+    [0, 2^D). Each existing (and filtered) column's value is reassembled
+    from its plane bits and marks its slot; shards OR into one presence
+    vector, one shard wide at a time."""
     domain = 1 << bit_depth
     nwords = max((domain + 31) // 32, 1)
     pres = torch.zeros(nwords * 32, dtype=torch.bool, device=planes.device)
     for s in range(planes.shape[0]):
         sp = planes[s]
-        exists = sp[bit_depth] & filter_rows[s] if has_filter else sp[bit_depth]
+        exists = sp[bit_depth] & filt[s] if filt is not None else sp[bit_depth]
         vals = torch.zeros(sp.shape[-1] * 32, dtype=torch.int64, device=planes.device)
         for i in range(bit_depth):
             vals |= _unpack(sp[i]) << i
@@ -356,3 +357,16 @@ def bsi_distinct_presence(planes, filter_rows, *, bit_depth: int, has_filter: bo
     words = (pres.view(nwords, 32).to(torch.int64) << shifts).sum(dim=1)
     # u32 bit patterns as int32
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def bsi_distinct_presence(planes, filter_rows, *, bit_depth: int, has_filter: bool):
+    """Distinct as a presence bitmap over the value domain [0, 2^D):
+    planes [S, D+1, W] -> i32 packed presence words (bit v set iff some
+    existing, filtered column holds v). One K9 launch on CUDA tensors,
+    with no host sync; callers bound D (the bitmap holds 2^D bits)."""
+    if planes.shape[-2] != bit_depth + 1:
+        raise ValueError(f"{planes.shape[-2]} planes for bit depth {bit_depth}")
+    filt = filter_rows if has_filter else None
+    if _on_cuda(planes):
+        return cuda.distinct_presence(planes, filt, bit_depth)
+    return bsi_distinct_presence_plain(planes, filt, bit_depth)

@@ -85,6 +85,11 @@ BSI_MINMAX = Kernel(
     "pilosa_tpu_torch/ops/kernels/bsi_minmax.cu",
     "pilosa_tpu/ops/bsi.py:47",
 )
+DISTINCT_PRESENCE = Kernel(
+    "distinct_presence",
+    "pilosa_tpu_torch/ops/kernels/distinct_presence.cu",
+    "pilosa_tpu/ops/bsi.py:262",
+)
 KERNELS = (
     DENSE_SCORES,
     SPARSE_STACKED_SCORES,
@@ -94,6 +99,7 @@ KERNELS = (
     EXPAND_BLOCKS,
     WORD_DELTA,
     BSI_MINMAX,
+    DISTINCT_PRESENCE,
 )
 
 
@@ -572,3 +578,54 @@ def bsi_minmax(planes: torch.Tensor, filt, is_min: bool) -> tuple[torch.Tensor, 
     _raise_on(err, "bsi_minmax")
     BSI_MINMAX.note_launch(1)
     return bits, count
+
+
+# Deepest field distinct_presence takes: its output is 2^depth bits
+# (DP_MAX_DEPTH in distinct_presence.cu).
+DISTINCT_MAX_DEPTH = 24
+
+
+def _word_strides(t: torch.Tensor, what: str) -> tuple[int, int]:
+    """(dim 0 stride, dim 1 stride) in words of an int32 [., ., W] CUDA
+    view whose word axis is dense."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what} must be int32, got {t.dtype}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dim() != 3 or (t.shape[2] > 1 and t.stride(2) != 1):
+        raise ValueError(f"{what} must be [., ., W] with a dense word axis")
+    return t.stride(0), t.stride(1)
+
+
+def distinct_presence(planes: torch.Tensor, filt, depth: int) -> torch.Tensor:
+    """K9: the values present among the columns of a [S, D+1, W] plane
+    stack (plane D is not-null; any strides with a dense word axis) under
+    an optional [S, W] filter -> i32[max(ceil(2^D / 32), 1)] presence
+    words (bit v of the bitmap set iff some considered column holds v).
+    One launch into zeros."""
+    s, d1, w = planes.shape
+    if d1 != depth + 1:
+        raise ValueError(f"{d1} planes for bit depth {depth}")
+    if not 0 <= depth <= DISTINCT_MAX_DEPTH:
+        raise ValueError(f"bit depth {depth} outside [0, {DISTINCT_MAX_DEPTH}]")
+    device = planes.device
+    shard_stride, plane_stride = _word_strides(planes, "planes")
+    fptr, fss = None, 0
+    if filt is not None:
+        if tuple(filt.shape) != (s, w):
+            raise ValueError(f"filter is {tuple(filt.shape)}, expected {(s, w)}")
+        _same_device(device, filt)
+        fss, _ = _word_strides(filt.unsqueeze(1), "filter")
+        fptr = filt.data_ptr()
+    nwords = max(((1 << depth) + 31) // 32, 1)
+    out = torch.zeros(nwords, dtype=torch.int32, device=device)
+    if s * w == 0:
+        return out
+    lib = _build.library("distinct_presence")
+    err = lib.pilosa_distinct_presence(
+        planes.data_ptr(), plane_stride, shard_stride, fptr, fss, s, w, depth,
+        out.data_ptr(), nwords, device.index, _stream(device),
+    )
+    _raise_on(err, "distinct_presence")
+    DISTINCT_PRESENCE.note_launch(1)
+    return out

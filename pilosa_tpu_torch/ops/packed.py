@@ -249,6 +249,18 @@ def sparse_intersection_counts_stacked(
     )[0]
 
 
+def sparse_intersection_counts_stacked_mat(
+    srcs, blocks, block_row, block_slot, block_shard, num_rows: int, n_shards: int, chunk: int
+):
+    """The stacked scorer's matrix form, as whole-query fusion lowers a
+    TopN head: K2's launch, then i32[n_shards, chunk] as a view of its
+    output on the device, so the caller fetches exactly the per-shard
+    score head. The stacked staging keeps num_rows == n_shards * chunk,
+    so the slice takes nothing away."""
+    flat = sparse_intersection_counts_stacked(srcs, blocks, block_row, block_slot, block_shard, num_rows)
+    return flat[: n_shards * chunk].reshape(n_shards, chunk)
+
+
 def sparse_intersection_counts_stacked_batch_list(
     srcs, blocks, block_row, block_slot, block_shard, num_rows: int
 ):
@@ -345,15 +357,28 @@ class TreeProgram:
         return depth
 
     def device_code(self, device) -> torch.Tensor:
-        """The kernel program as an int32 tensor on ``device`` (uploaded
-        once)."""
-        key = str(device)
+        """The kernel program as an int32 tensor on ``device``, uploaded
+        once per device. On a card the upload goes from pinned memory
+        without a host wait, so a first use inside a launch sequence
+        stays asynchronous; a stream other than the uploading one waits
+        for the copy on the card."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         with self._mu:
-            t = self._dev.get(key)
-            if t is None:
-                t = self._dev[key] = torch.tensor(
-                    self.kernel_code, dtype=torch.int32
-                ).to(device)
+            ent = self._dev.get(device)
+            if ent is None:
+                host = torch.tensor(self.kernel_code, dtype=torch.int32)
+                if device.type != "cuda":
+                    ent = (host.to(device), None, None)
+                else:
+                    stream = torch.cuda.current_stream(device)
+                    t = host.pin_memory().to(device, non_blocking=True)
+                    ent = (t, stream, stream.record_event())
+                self._dev[device] = ent
+        t, stream, uploaded = ent
+        if stream is not None and torch.cuda.current_stream(device) != stream:
+            torch.cuda.current_stream(device).wait_event(uploaded)
         return t
 
 

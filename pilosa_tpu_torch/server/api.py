@@ -646,6 +646,11 @@ class API:
                 for v in f.views.values():
                     for frag in v.fragments.values():
                         frag.cache.recalculate()
+        # rank reorders can change TopN candidate walks without any
+        # fragment generation bump: cached TopN results are stale
+        pc = getattr(self.executor, "plan_cache", None)
+        if pc is not None:
+            pc.epoch_reset()
 
     # -- info / status --
 

@@ -227,7 +227,7 @@ class Config:
     # result cache between parsing and execution. Entries are keyed by
     # canonical plan hash + shard set and validated against fragment
     # generations, so every write path invalidates exactly — no TTLs.
-    plan_cache_enabled: bool = False  # not ported yet: see _UNPORTED
+    plan_cache_enabled: bool = True
     # LRU byte budget for cached results (per-shard row segments +
     # scalars); 0 effectively disables storage
     plan_cache_max_bytes: int = 256 << 20
@@ -239,7 +239,7 @@ class Config:
     # queries lower to ONE jitted device program per plan signature so
     # intermediates never leave HBM — one host↔device round trip per
     # query (or per combined dispatch wave) instead of one per call
-    fusion_enabled: bool = False  # not ported yet: see _UNPORTED
+    fusion_enabled: bool = True
     # calls above this per query fall back to per-call execution (each
     # distinct call mix compiles its own fused program; bounding the
     # mix bounds compile-cache growth)
@@ -516,7 +516,6 @@ def _mesh_on(cfg: Config) -> bool:
     return want not in (0, 1)
 
 
-_A5 = "A5 (fusion and the plan cache)"
 _A6 = "A6 (dispatch and autotune)"
 _A7 = "A7 (device telemetry)"
 _A8 = "A8 (the multi-device plane)"
@@ -527,8 +526,6 @@ _A9 = "A9 (attributes and keys)"
 _UNPORTED = {
     "dispatch-enabled = true": (lambda c: c.dispatch_enabled, _A6),
     "prefetch-enabled = true": (lambda c: c.prefetch_enabled, _A6),
-    "fusion-enabled = true": (lambda c: c.fusion_enabled, _A5),
-    "plan-cache-enabled = true": (lambda c: c.plan_cache_enabled, _A5),
     "mesh-devices > 1": (_mesh_on, _A8),
     "distributed-enabled = true": (lambda c: c.distributed_enabled, _A8),
     "distributed-coordinator": (lambda c: bool(c.distributed_coordinator), _A8),

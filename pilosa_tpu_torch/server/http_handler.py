@@ -6,8 +6,8 @@ single-node API serves answers with the same status codes and bodies,
 JSON and protobuf (``utils/publicproto.py``). A route of a subsystem
 this port lacks answers 501 with its ROADMAP item in the body, never
 404: the cluster and gang messages, fleet, scrub and chaos (A7, A8),
-key translation and attributes (A9), the dispatch engine (A6), fusion
-and the plan cache (A5), and the device profile capture (A7).
+key translation and attributes (A9), the dispatch engine (A6) and the
+device profile capture (A7).
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ from pilosa_tpu_torch.utils.errors import NotFoundError as ExecNotFound
 from pilosa_tpu_torch.utils import events, heat, metrics, profiler, publicproto, slo, trace
 from pilosa_tpu_torch.utils.stats import NOP_STATS
 
-A5 = "A5 (fusion and the plan cache)"
 A6 = "A6 (dispatch and autotune)"
 A7 = "A7 (device telemetry)"
 
@@ -197,6 +196,8 @@ class Handler:
             Route("GET", r"/internal/fragments", lambda req: a.fragment_inventory()),
             Route("GET", r"/metrics", self.get_metrics),
             Route("GET", r"/debug/pipeline", self.get_debug_pipeline),
+            Route("GET", r"/debug/fusion", self.get_debug_fusion),
+            Route("GET", r"/debug/plancache", self.get_debug_plancache),
             Route("GET", r"/debug/ingest", self.get_debug_ingest),
             # holder-level checksummed backup/restore
             Route("GET", r"/backup", self.get_backup),
@@ -721,6 +722,23 @@ class Handler:
             return {"enabled": False}
         return self.pipeline.stats()
 
+    def get_debug_plancache(self, req) -> dict:
+        """Plan result-cache snapshot: entries/bytes, hit ratio,
+        invalidations, evictions, epoch (plan/cache.py)."""
+        pc = getattr(self.api.executor, "plan_cache", None)
+        if pc is None:
+            return {"enabled": False}
+        return pc.stats()
+
+    def get_debug_fusion(self, req) -> dict:
+        """Whole-query fusion snapshot: fused launches, calls per launch,
+        bytes returned, bypass reasons, program count, and the
+        device-resident plan cache (entries/bytes/hit ratio)."""
+        fuser = getattr(self.api.executor, "fuser", None)
+        if fuser is None:
+            return {"enabled": False}
+        return fuser.stats()
+
     def get_backup(self, req):
         """Full-holder backup archive (tar): MANIFEST.json with per-entry
         blake2b checksums, schema.json, and every fragment's roaring
@@ -887,8 +905,8 @@ class Handler:
         entry metadata, sorted names, blake2b-128 manifest — the
         backup archive's idiom) capturing config, status, metrics,
         recent traces, the events tail, the heat snapshot, and
-        the HBM governor's and OOM recovery's stats (the port has no
-        dispatch engine or fusion yet). ``debug-bundle`` streams it to
+        the fuser's, the HBM governor's and OOM recovery's stats (the
+        port has no dispatch engine yet). ``debug-bundle`` streams it to
         a file."""
         import hashlib
         import io
@@ -912,6 +930,7 @@ class Handler:
         put_json("traces.json", {"traces": trace.TRACER.recent()})
         put_json("events.json", {"events": events.snapshot(limit=500)})
         put_json("heat.json", heat.LEDGER.snapshot())
+        put_json("fusion.json", self.get_debug_fusion(req))
         ex = self.api.executor
         put_json(
             "governor.json",
@@ -946,12 +965,19 @@ class Handler:
 
         names = {t.ident: t.name for t in _t.enumerate()}
         lines = []
-        for ident, frame in sys._current_frames().items():
-            lines.append(f"goroutine-analog {names.get(ident, '?')} [{ident}]:")
-            lines.extend(
-                line.rstrip() for line in traceback.format_stack(frame)
-            )
-            lines.append("")
+        frames = sys._current_frames()
+        try:
+            for ident, frame in frames.items():
+                lines.append(f"goroutine-analog {names.get(ident, '?')} [{ident}]:")
+                lines.extend(
+                    line.rstrip() for line in traceback.format_stack(frame)
+                )
+                lines.append("")
+        finally:
+            # this thread's own frame is among them: drop the references
+            # so no dumped frame outlives the request in a cycle
+            frames.clear()
+            frame = None
         return RawResponse("\n".join(lines).encode(), "text/plain; charset=utf-8")
 
     # -- dispatch --
@@ -1192,8 +1218,6 @@ _UNPORTED_ROUTES = (
     ("GET", r"/debug/chaos", "fault injection", A7),
     ("POST", r"/debug/chaos", "fault injection", A7),
     ("GET", r"/debug/dispatch", "the dispatch engine", A6),
-    ("GET", r"/debug/fusion", "query fusion", A5),
-    ("GET", r"/debug/plancache", "the plan cache", A5),
     ("GET", r"/debug/translate", "key translation", A9),
     ("GET", r"/internal/translate/data", "key translation", A9),
     ("GET", r"/internal/translate/stores", "key translation", A9),

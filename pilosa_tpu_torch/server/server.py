@@ -9,11 +9,14 @@ deployments get the device health gate and the HBM governor. On a CUDA
 device ``open()`` builds the kernels before the listener answers, so
 the first guarded query does not spend the gate's deadline compiling.
 
+The plan cache and whole-query fusion are on by default, as in the
+reference (``plan-cache-enabled``, ``fusion-enabled``).
+
 Not constructed here, with the ROADMAP item that ports each: the
 cluster, multihost gangs, the fleet collector and the integrity
-scrubber (A8), key translation and the attribute store (A9), the plan
-cache, fusion (A5), the dispatch engine and autotune (A6), the durable
-event journal and telemetry export (A7). ``Config.check_ported``
+scrubber (A8), key translation and the attribute store (A9), the
+dispatch engine and autotune (A6), the durable event journal and
+telemetry export (A7). ``Config.check_ported``
 refuses a configuration that turns one on, and their HTTP routes
 answer 501.
 """
@@ -32,6 +35,7 @@ from pilosa_tpu_torch.core import Holder
 from pilosa_tpu_torch.executor import DeviceStager, Executor, resolve_device
 from pilosa_tpu_torch.executor.devicehealth import DeviceHealth
 from pilosa_tpu_torch.executor.hbm import HbmGovernor
+from pilosa_tpu_torch.plan.cache import PlanCache
 from pilosa_tpu_torch.server.api import A8, API
 from pilosa_tpu_torch.server.config import Config
 from pilosa_tpu_torch.server.http_handler import Handler, make_http_server
@@ -135,6 +139,14 @@ class Server:
                 logger=self.logger,
                 device=self.device,
             )
+        # plan result cache (plan/cache.py): the executor consults it
+        # around call dispatch and the planner substitutes cached subtrees
+        self.plan_cache = None
+        if self.config.plan_cache_enabled:
+            self.plan_cache = PlanCache(
+                max_bytes=self.config.plan_cache_max_bytes,
+                min_cost=self.config.plan_cache_min_cost,
+            )
         self.executor = Executor(
             self.holder,
             device=self.device,
@@ -149,6 +161,10 @@ class Server:
                 if self.config.auto_device_min_containers > 0
                 else None
             ),
+            plan_cache=self.plan_cache,
+            fusion_enabled=self.config.fusion_enabled,
+            fusion_max_calls=self.config.fusion_max_calls,
+            plan_cache_device_bytes=self.config.plan_cache_device_bytes,
         )
         self.api = API(self.holder, self.executor, server=self)
         # multi-tenant QoS (server/tenancy.py): per-index admission

@@ -342,6 +342,25 @@ class StackSampler:
             frames = _current_frames()
         except Exception:
             return
+        try:
+            keys = self._stack_keys(frames, skip_ident)
+        finally:
+            # the dict holds this thread's own frame, which holds the
+            # dict: a reference cycle that would keep every sampled frame,
+            # and the tensors its locals hold, alive until a garbage
+            # collection, after those frames finished
+            frames.clear()
+        with self._mu:
+            for key in keys:
+                if key not in self._counts and len(self._counts) >= self.max_keys:
+                    key = "(other)"
+                self._counts[key] = self._counts.get(key, 0) + 1
+            self.samples += 1
+            nkeys = len(self._counts)
+        metrics.count(metrics.PROFILER_SAMPLES)
+        metrics.gauge(metrics.PROFILER_STACK_KEYS, nkeys)
+
+    def _stack_keys(self, frames: dict, skip_ident: Optional[int]) -> list[str]:
         keys = []
         for ident, frame in frames.items():
             if ident == skip_ident:
@@ -356,15 +375,7 @@ class StackSampler:
                 f = f.f_back
             if parts:
                 keys.append(";".join(parts))
-        with self._mu:
-            for key in keys:
-                if key not in self._counts and len(self._counts) >= self.max_keys:
-                    key = "(other)"
-                self._counts[key] = self._counts.get(key, 0) + 1
-            self.samples += 1
-            nkeys = len(self._counts)
-        metrics.count(metrics.PROFILER_SAMPLES)
-        metrics.gauge(metrics.PROFILER_STACK_KEYS, nkeys)
+        return keys
 
     def top(self, n: int = 25) -> list[dict]:
         with self._mu:

@@ -20,6 +20,15 @@ takes a view of every staged tensor and holds it until the next write,
 as a reader between staging and launch does: those entries must be
 refreshed into a copy (the view keeps its snapshot), the others in
 place. Both routes must be taken.
+
+A second gauntlet sends multi-call reads (several random reads in one
+request, drawn again and again from a small pool so the plan caches
+hit) among the same writes, to legs that run fusion and a plan cache:
+``pilosa_tpu``'s ``always`` leg and the port's ``always`` leg, each
+with a ``PlanCache``, held call by call to the port's uncached roaring
+leg, to ``pilosa_tpu``'s uncached roaring leg, and (ids that repeat) to
+the numpy oracle. Fused launches, cache hits and invalidations must all
+have happened.
 """
 
 import itertools
@@ -33,8 +42,10 @@ import torch
 from pilosa_tpu.core import FieldOptions as JaxFieldOptions
 from pilosa_tpu.core import Holder as JaxHolder
 from pilosa_tpu.executor import Executor as JaxExecutor
+from pilosa_tpu.plan.cache import PlanCache as JaxPlanCache
 
 import pilosa_tpu_torch
+from pilosa_tpu_torch.plan.cache import PlanCache
 
 SW = 1 << 20
 SHARDS = 3
@@ -327,6 +338,60 @@ def test_fuzz_parity_with_writes(base, tmp_path, seed):
         assert routes["in_place"] > 0 and routes["copied"] > 0, routes
         assert checked["reference"] > 0
         assert checked["oracle"] > 0
+    finally:
+        for ex in (jax_dev, jax_cpu, dev, cpu):
+            ex.close()
+        jh.close()
+        th.close()
+
+
+MULTI_POOL = 6
+MULTI_STEPS = 30
+
+
+@pytest.mark.parametrize("seed", [5])
+def test_fuzz_multicall_with_fusion_and_plan_cache(base, tmp_path, seed):
+    src, model0 = base
+    model = {
+        "pool": model0["pool"],
+        "bits": {k: set(v) for k, v in model0["bits"].items()},
+        "vals": dict(model0["vals"]),
+    }
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    shutil.copytree(src, jdir)
+    shutil.copytree(src, tdir)
+    jh = JaxHolder(str(jdir))
+    jh.open()
+    th = pilosa_tpu_torch.holder_from_dir(str(tdir))
+    jax_dev = JaxExecutor(jh, device_policy="always", plan_cache=JaxPlanCache())
+    jax_cpu = JaxExecutor(jh, device_policy="never")
+    dev = pilosa_tpu_torch.Executor(th, device="cpu", device_policy="always", plan_cache=PlanCache())
+    cpu = pilosa_tpu_torch.Executor(th, device="cpu", device_policy="never")
+    rng = np.random.default_rng(seed)
+    pool = []
+    for _ in range(MULTI_POOL):
+        reads = [_read(rng) for _ in range(int(rng.integers(2, 6)))]
+        pool.append(("".join(q for q, _ in reads), [spec for _, spec in reads]))
+    try:
+        for step in range(MULTI_STEPS):
+            if rng.random() < WRITE_FRAC:
+                w = _write(rng, model)
+                jax_dev.execute("z", w)
+                dev.execute("z", w)
+                continue
+            q, specs = pool[int(rng.zipf(1.5)) % MULTI_POOL]
+            got, want = _plain(dev.execute("z", q)), _plain(cpu.execute("z", q))
+            assert got == want, (seed, step, q)
+            ref_dev, ref_cpu = _plain(jax_dev.execute("z", q)), _plain(jax_cpu.execute("z", q))
+            for k, spec in enumerate(specs):
+                if spec is None:
+                    assert ref_dev[k] == ref_cpu[k] == got[k], (seed, step, q, k)
+                else:
+                    assert got[k] == _oracle_groupby(model, spec), (seed, step, q, k)
+        st, pc = dev.fuser.stats(), dev.plan_cache.stats()
+        assert st["fused_launches"] > 0 and st["cache_served"] > 0, st
+        assert pc["hits"] > 0 and pc["invalidations"] > 0, pc
+        assert "error" not in st["bypasses"], st
     finally:
         for ex in (jax_dev, jax_cpu, dev, cpu):
             ex.close()

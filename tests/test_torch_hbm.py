@@ -331,7 +331,9 @@ def test_executor_wires_one_ledger_for_the_stager_and_tier1():
     h = _holder(shards=1)  # one shard: rows stage through tier 1
     gov = HbmGovernor(budget_bytes=32 << 20)
     st = DeviceStager("cpu", tier1_max_bytes=1 << 20, compressed_min_ratio=4.0)
-    ex = Executor(h, device="cpu", device_policy="always", stager=st, governor=gov)
+    # the per-call legs: a fused launch stages shard stacks, which tier 1
+    # does not hold
+    ex = Executor(h, device="cpu", device_policy="always", stager=st, governor=gov, fusion_enabled=False)
     try:
         assert ex.governor is gov
         tenants = gov.stats()["tenants"]
@@ -352,6 +354,115 @@ def test_executor_wires_one_ledger_for_the_stager_and_tier1():
         assert t1["domain"] == "host" and t1["used"] == st.tier1.stats()["bytes"] > 0
         assert gov.stats()["used_bytes"] == gov.used("stager") + gov.used("batcher")
     finally:
+        ex.close()
+        h.close()
+
+
+def test_fused_reads_keep_one_ledger_and_skip_tier1_as_the_reference():
+    """The same query on the server's default path: the fuser stages
+    whole shard stacks, which neither package builds through tier 1, so
+    tier 1 stays empty on both while the budget and the stager's ledger
+    hold."""
+    import jax
+
+    from pilosa_tpu.core import FieldOptions as RefFieldOptions
+    from pilosa_tpu.core import Holder as RefHolder
+    from pilosa_tpu.core.field import FIELD_TYPE_INT as REF_INT
+    from pilosa_tpu.executor import Executor as RefExecutor
+    from pilosa_tpu.executor.hbm import HbmGovernor as RefGovernor
+    from pilosa_tpu.executor.stager import DeviceStager as RefStager
+    from pilosa_tpu_torch.executor import DeviceStager, Executor
+    from pilosa_tpu_torch.executor.hbm import HbmGovernor
+
+    q = (
+        "Count(Intersect(Row(f=1), Row(f=2)))"
+        "TopN(f, Intersect(Row(f=1), Row(f=2)), n=5)"
+        'Sum(Row(f=3), field="v") Count(Row(f=4))'
+    )
+    h = _holder(shards=1)
+    gov = HbmGovernor(budget_bytes=32 << 20)
+    st = DeviceStager("cpu", tier1_max_bytes=1 << 20, compressed_min_ratio=4.0)
+    ex = Executor(h, device="cpu", device_policy="always", stager=st, governor=gov)
+    rh = RefHolder()
+    rh.open()
+    rng = np.random.default_rng(5)  # _holder's data, in the reference
+    ridx = rh.create_index("i")
+    ridx.create_field("f").import_bits(
+        rng.integers(0, 10, size=2000).tolist(), rng.integers(0, SHARD_WIDTH, size=2000).tolist()
+    )
+    vcols = rng.choice(SHARD_WIDTH, size=400, replace=False)
+    ridx.create_field("v", RefFieldOptions(type=REF_INT, min=-50, max=5000)).import_values(
+        vcols.tolist(), rng.integers(-50, 5000, size=400).tolist()
+    )
+    rgov = RefGovernor(budget_bytes=32 << 20)
+    rst = RefStager(device=jax.devices()[0], tier1_max_bytes=1 << 20, compressed_min_ratio=4.0)
+    ref = RefExecutor(rh, device_policy="always", stager=rst, governor=rgov, dispatch_enabled=False)
+    try:
+        assert ex.fuser is not None and ref.fuser is not None
+        def plain(results):  # each package has its own ValCount
+            return [(r.val, r.count) if hasattr(r, "val") else r for r in results]
+
+        for _ in range(2):
+            assert plain(ex.execute("i", q)) == plain(ref.execute("i", q))
+            assert gov.used() <= gov.budget(), gov.stats()
+        assert ex.fuser.stats()["fused_launches"] == ref.fuser.stats()["fused_launches"] == 2
+        assert gov.used("stager") == st._bytes > 0
+        assert gov.stats()["tenants"]["stager"]["by_index"] == {"i": st._bytes}
+        for g, t1 in ((gov, st.tier1), (rgov, rst.tier1)):
+            tenant = g.stats()["tenants"]["tier1"]
+            assert tenant["domain"] == "host" and tenant["used"] == t1.stats()["bytes"] == 0
+            assert t1.stats()["misses"] == 0
+        assert gov.stats()["used_bytes"] == gov.used("stager") + gov.used("batcher")
+    finally:
+        ex.close()
+        ref.close()
+        h.close()
+        rh.close()
+
+
+@pytest.mark.parametrize("fusion", [True, False], ids=["fused", "per_call"])
+def test_relief_frees_evicted_tensors_without_a_collection(fusion):
+    """Nothing of a finished query holds a staged tensor in a reference
+    cycle: every entry relief evicts is freed at once, with the garbage
+    collector off, so its device memory is there for the retry."""
+    import gc
+    import weakref
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.executor.hbm import HbmGovernor
+
+    h = _holder(shards=3)
+    gov = HbmGovernor()
+    ex = Executor(h, device="cpu", device_policy="always", governor=gov, fusion_enabled=fusion)
+    queries = [
+        "Count(Intersect(Row(f=1), Row(f=2)))Count(Union(Row(f=3), Difference(Row(f=4), Row(f=5))))",
+        "TopN(f, Intersect(Row(f=1), Row(f=2)), n=5)TopN(f, n=3)",
+        'Sum(Row(f=3), field="v")Distinct(Row(f=2), field="v")Percentile(field="v", nth=50)',
+        "GroupBy(Rows(f), limit=5)GroupBy(Rows(f, ids=[1, 2]), Row(f=3), Sum(field=v))",
+        "Count(Range(v > 100))Min(field=v)Max(Row(f=1), field=v)",
+    ]
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        for q in queries:
+            ex.execute("i", q)
+        with ex.stager._mu:
+            staged = {
+                k: weakref.ref(t)
+                for k, e in ex.stager._cache.items()
+                for t in (e.value if isinstance(e.value, (tuple, list)) else (e.value,))
+                if isinstance(t, torch.Tensor)
+            }
+        assert len(staged) > 4
+        assert gov.relieve_for_oom() > 0
+        with ex.stager._mu:
+            evicted = [k for k in staged if k not in ex.stager._cache]
+        assert evicted
+        assert [k for k in evicted if staged[k]() is not None] == []
+    finally:
+        if enabled:
+            gc.enable()
         ex.close()
         h.close()
 

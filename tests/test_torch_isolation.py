@@ -39,6 +39,15 @@ print(ex.execute("i", "Count(Intersect(Row(f=1), Row(f=2)))TopN(f, Row(f=0), n=2
 groups, n, pct = ex.execute("b", "GroupBy(Rows(g), Sum(field=v))Count(Range(v > 10))Percentile(field=v, nth=50)")
 print("ANALYTICS", len(groups), sum(g["count"] for g in groups), n, pct.count)
 ex.close()
+# fusion, the plan cache and the planner's CSE rewrite
+from pilosa_tpu_torch.executor import fusion
+from pilosa_tpu_torch.plan import cache, planner
+ex = pilosa_tpu_torch.Executor(h, device="cpu", device_policy="always", plan_cache=cache.PlanCache())
+q = "Count(Intersect(Row(f=1), Row(f=2)))Count(Union(Intersect(Row(f=1), Row(f=2)), Row(f=0)))"
+r1, r2 = ex.execute("i", q), ex.execute("i", q)
+print("FUSED", r1 == r2, isinstance(ex.fuser, fusion.QueryFuser), ex.fuser.stats()["fused_launches"],
+      ex.plan_cache.stats()["hits"] >= 2, planner.BITMAP_CALLS[0])
+ex.close()
 # a write, then a read, through a tiered, delta-enabled stager
 from pilosa_tpu_torch.executor import DeviceStager
 st = DeviceStager("cpu", tier1_max_bytes=1 << 20, compressed_min_ratio=4.0)
@@ -67,11 +76,13 @@ def test_import_and_query_pull_in_no_jax():
     )
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    count, pairs = ast.literal_eval(lines[-4])
+    count, pairs = ast.literal_eval(lines[-5])
     assert count == 1667 and len(pairs) == 2 and pairs[0]["count"] == 1667
     ncols = len(range(0, 2 * (1 << 20), 4099))
-    assert lines[-3].split()[:3] == ["ANALYTICS", "3", str(ncols)]
-    assert 0 < int(lines[-3].split()[3]) < ncols and int(lines[-3].split()[4]) == ncols
+    assert lines[-4].split()[:3] == ["ANALYTICS", "3", str(ncols)]
+    assert 0 < int(lines[-4].split()[3]) < ncols and int(lines[-4].split()[4]) == ncols
+    # one fused launch, then both calls served by the plan cache
+    assert lines[-3] == "FUSED True True 1 True Row"
     # the write reached the staged row as one delta; tier 1 held its payloads
     assert lines[-2] == "TIERED 1667 1668 1 1"
     assert lines[-1] == "FOREIGN []"
@@ -203,8 +214,6 @@ def test_cli_cluster_flags_exit_naming_their_item(tmp_path, flags, item, capsys)
     [
         ("dispatch-enabled", True, "A6"),
         ("prefetch-enabled", True, "A6"),
-        ("fusion-enabled", True, "A5"),
-        ("plan-cache-enabled", True, "A5"),
         ("mesh-devices", 2, "A8"),
         ("distributed-enabled", True, "A8"),
         ("federation-leader", True, "A8"),
@@ -228,8 +237,11 @@ def test_generate_config_prints_the_ports_defaults():
     assert out.returncode == 0, out.stderr
     toml = out.stdout
     assert 'device = "cuda"' in toml
-    for key in ("dispatch-enabled", "prefetch-enabled", "fusion-enabled", "plan-cache-enabled"):
+    for key in ("dispatch-enabled", "prefetch-enabled"):
         assert f"{key} = false" in toml
+    # fusion and the plan cache are on, as in the reference
+    for key in ("fusion-enabled", "plan-cache-enabled"):
+        assert f"{key} = true" in toml
     from pilosa_tpu.server.config import Config as RefConfig
     from pilosa_tpu_torch.server.config import Config, tomllib
 

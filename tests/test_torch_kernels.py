@@ -346,8 +346,8 @@ def test_bsi_range_matches_plain(dev, depth, op):
 
 def test_bsi_device_recurrences_on_card(dev):
     """Min/Max run on K8 (one shard, a batch folded, the per-shard form),
-    Percentile/Distinct as torch ops on the card (each Percentile step's
-    popcount on the tree count); all agree with the CPU run."""
+    Percentile as torch ops on the card (each step's popcount on the tree
+    count), Distinct on K9; all agree with the CPU run."""
     rng = np.random.default_rng(4)
     a = rng.integers(0, 2**32, size=(3, 11, 1024), dtype=np.uint32)
     filt = rng.integers(0, 2**32, size=(3, 1024), dtype=np.uint32)
@@ -584,3 +584,131 @@ def test_word_delta_2d_matches_plain(dev, s, m):
     got = ops.apply_word_updates_2d(words, shard, word, om, am)
     want = ops.apply_word_updates_2d_plain(words, *[_on(dev, a) for a in (shard, word, om, am)])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 5, 6, 7, 13, 20, 21, 24])
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_distinct_presence_matches_plain(dev, depth, with_filter):
+    """K9 == its plain version on every marking route (a per-thread mask
+    up to depth 6, shared memory up to 20, global atomics to 24), one
+    launch: random values, a shard with no value, a sparse filter, and a
+    plane stack read in place through its strides."""
+    rng = np.random.default_rng(depth * 10 + with_filter)
+    s, w = 3, 4096
+    wide = _words(rng, (s, depth + 3, w), dev)
+    planes = wide[:, 1 : depth + 2]
+    planes[1, depth] = 0
+    filt = _sparse(rng, (s, w), dev, ands=2) if with_filter else None
+    before = ops.cuda.DISTINCT_PRESENCE.launches
+    got = ops.cuda.distinct_presence(planes, filt, depth)
+    torch.cuda.synchronize()
+    assert ops.cuda.DISTINCT_PRESENCE.launches == before + 1
+    want = ops.bsi_distinct_presence_plain(planes, filt, depth)
+    assert torch.equal(got, want)
+    assert int((got != 0).sum()) > 0
+    # the public function routes CUDA tensors to the kernel
+    zeros = torch.zeros((s, w), dtype=torch.int32, device=dev)
+    pub = ops.bsi_distinct_presence(planes, filt if with_filter else zeros, bit_depth=depth, has_filter=with_filter)
+    assert torch.equal(pub, want)
+
+
+def test_distinct_presence_at_the_ssb_shape_and_rejects(dev):
+    """K9 at ssb's lo_quantity shape ([58, 7, 32768]: 60 million columns
+    on 50 values, the contended per-thread-mask route) == plain; a depth
+    past 24 or a mismatched filter raises."""
+    rng = np.random.default_rng(58)
+    vals = rng.integers(0, 50, size=(58, 32768 * 32), dtype=np.uint64)
+    bits = np.stack([(vals >> np.uint64(i)) & np.uint64(1) for i in range(6)], axis=1)
+    packed = np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little").view("<u4")
+    nn = np.full((58, 1, 32768), 0xFFFFFFFF, dtype=np.uint32)
+    planes = ops.words_from_numpy(np.concatenate([packed, nn], axis=1), dev)
+    got = ops.cuda.distinct_presence(planes, None, 6)
+    want = ops.bsi_distinct_presence_plain(planes, None, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.cpu().numpy().view("<u4").tolist() == [0xFFFFFFFF, (1 << 18) - 1]
+    with pytest.raises(ValueError):
+        ops.cuda.distinct_presence(torch.zeros((1, 26, 32), dtype=torch.int32, device=dev), None, 25)
+    with pytest.raises(ValueError):
+        ops.cuda.distinct_presence(planes, torch.zeros((58, 16), dtype=torch.int32, device=dev), 6)
+
+
+def test_fused_enqueue_waits_for_nothing_on_card(dev):
+    """A multi-call read through the fuser on the card: every unit kind's
+    kernels enqueue under ``torch.cuda.set_sync_debug_mode("error")``
+    (the enqueue never waits for the device), one fetch a launch, and the
+    answers equal the CPU leg's."""
+    from pilosa_tpu_torch.core import FieldOptions, Holder
+    from pilosa_tpu_torch.core.field import FIELD_TYPE_INT
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.executor.fusion import QueryFuser
+
+    rng = np.random.default_rng(9)
+    h = Holder()
+    h.open()
+    idx = h.create_index("i")
+    f = idx.create_field("f")
+    v = idx.create_field("v", FieldOptions(type=FIELD_TYPE_INT, min=-50, max=5000))
+    f.import_bits(rng.integers(0, 12, 3000).tolist(), rng.integers(0, 3 << 20, 3000).tolist())
+    v.import_values(rng.choice(3 << 20, 800, replace=False).tolist(), rng.integers(-50, 5000, 800).tolist())
+    q = (
+        "Count(Row(f=1))Count(Row(f=2))Count(Intersect(Row(f=1), Row(f=2)))"
+        'TopN(f, Row(f=3), n=4)Sum(Row(f=1), field="v")Count(Range(v > 100))'
+        'Distinct(field="v")Percentile(field="v", nth=50)GroupBy(Rows(f), limit=5)'
+        "GroupBy(Rows(f, ids=[1, 2]), Row(f=3), Sum(field=v))"
+    )
+    cpu = Executor(h, device="cpu", device_policy="never")
+    ex = Executor(h, device=dev, device_policy="always")
+    fetches = []
+    enqueue, fetch = QueryFuser._enqueue, QueryFuser._fetch
+
+    def strict_enqueue(self, program, units):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return enqueue(self, program, units)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def counted_fetch(buf):
+        fetches.append(buf.numel())
+        return fetch(buf)
+
+    try:
+        QueryFuser._enqueue = strict_enqueue
+        QueryFuser._fetch = staticmethod(counted_fetch)
+        want = cpu.execute("i", q)
+        for _ in range(2):
+            assert ex.execute("i", q) == want
+        st = ex.fuser.stats()
+        assert st["fused_launches"] == 2 and st["fused_calls"] == 20, st
+        assert len(fetches) == 2 and not st["bypasses"], st
+    finally:
+        QueryFuser._enqueue, QueryFuser._fetch = enqueue, staticmethod(fetch)
+        ex.close()
+        cpu.close()
+        h.close()
+
+
+def test_tree_program_first_upload_waits_for_nothing(dev):
+    """A tree program's first use on the card uploads its code without a
+    host wait, once per device however the device is named, and a launch
+    on another stream reads the uploaded code."""
+    prog = ops.TreeProgram(("Intersect", (("leaf", 0), ("Union", (("leaf", 1), ("leaf", 2))))))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        code = prog.device_code("cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert prog.device_code(torch.device("cuda", torch.cuda.current_device())) is code
+    assert prog.device_code(dev) is code
+    assert code.cpu().tolist() == list(prog.kernel_code)
+    rng = np.random.default_rng(3)
+    leaves = [_words(rng, (4096,), dev) for _ in range(3)]
+    torch.cuda.synchronize()
+    fresh = ops.TreeProgram(("Intersect", (("leaf", 0), ("Union", (("leaf", 1), ("leaf", 2))))))
+    fresh.device_code(dev)  # on the default stream, not waited for
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = ops.cuda.tree_count([leaves], fresh)
+    side.synchronize()
+    assert torch.equal(got.cpu(), ops.tree_count_plain([[t.cpu() for t in leaves]], fresh))
