@@ -26,8 +26,9 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          filtered Sums, Q2.1-Q3.2 as GroupBy panels with a Sum aggregate
          (K = 280, 56, 150, 600 groups: the GroupBy kernel
          groupby_reduce), a count-only GroupBy, Min/Max (every shard's
-         recurrence in one launch of bsi_minmax), Percentile (a tree
-         count per plane step), Distinct (the presence map
+         recurrence in one launch of bsi_minmax), Percentile (the whole
+         bit-sliced search in one cooperative launch of bsi_percentile;
+         one launch and no tree count a query, asserted), Distinct (the presence map
          distinct_presence), and Count(Range) of every operator alone and
          inside chains (the range kernel bsi_range), a cold pass then a
          warm pass. dbgen is not in the repository: the columns are drawn
@@ -83,7 +84,7 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          HTTP on dense (Zipf 1.3 over 48 TopN/Intersect/Union queries,
          uncached, cached, then cached with 1 % writes that must
          invalidate; every read against the CPU leg). It must launch K1,
-         K2, K3, K4, K5, K7, K8 and K9 and show no degrade, device-down
+         K2, K3, K4, K5, K7, K8, K9 and K10 and show no degrade, device-down
          fallback or gate trip outside the allocation failure.
 
 The device executors stage with the port's defaults, which are the
@@ -106,7 +107,9 @@ window. The word-delta kernel is checked and timed on both routes, at
 the largest in-place patch and at the largest copy; the expansion kernel
 against the unbinned function, at the largest tiered launch with each
 input kind, and once more on the widest launch's payloads shuffled,
-binned on the card. The tree count is also checked and timed at
+binned on the card. The percentile search is also checked and timed
+on its global route, on a seeded stack just past what its on-chip route
+holds. The tree count is also checked and timed at
 its most launched shape, a one-leaf count of one shard row; the dense
 scorer at the widest batch (Q) of the dense phases; the GroupBy kernel
 at the count-only ssb panel and at a dense, non-exclusive shape (no
@@ -191,9 +194,9 @@ SSB_SET_FIELDS = (
 SSB_INT_FIELDS = {"lo_revenue": (0, 10_500_000), "lo_quantity": (1, 50), "lo_discount": (0, 10)}
 # query families of the ssb phase, timed apart
 STATS = "minmax_percentile_distinct"
-# Percentile's per-plane-step counts and the Count(Range) queries: the
-# tree count's launches on the ssb path (Min/Max run on bsi_minmax)
-SSB_TREE_COUNT_MAX = 300
+# the Count(Range) queries: the tree count's launches on the ssb path
+# (Min/Max run on bsi_minmax, Percentile on bsi_percentile)
+SSB_TREE_COUNT_MAX = 40
 RANGE = "range_count"
 SSB_FAMILIES = ("sum", "groupby", RANGE, STATS)
 AMERICA, ASIA = 1, 2  # SSB region order: AFRICA, AMERICA, ASIA, EUROPE, MIDDLE EAST
@@ -1314,6 +1317,7 @@ class Recorder:
             ("word_delta", COPY_ROUTE, self._delta_bytes),
             ("bsi_minmax", "bsi_minmax", self._minmax_bytes),
             ("distinct_presence", "distinct_presence", self._minmax_bytes),
+            ("bsi_percentile", "bsi_percentile", self._minmax_bytes),
         ):
             self.kernel_fn[name] = getattr(cuda_mod, attr)
             setattr(cuda_mod, attr, self._wrap(name, self.kernel_fn[name], size))
@@ -1403,66 +1407,6 @@ class Recorder:
         return planes.shape[0] * planes.shape[2] * 4 * (1 + sum(1 for c in code if c))
 
 
-class OpsRecorder:
-    """The device function of the ssb path that still runs as PyTorch ops,
-    not a hand-written kernel (Percentile's bit-sliced search): calls on
-    the ssb path and the arguments of the largest call (by plane words).
-    Wraps the executor's timed entry and the function the fused launch
-    calls."""
-
-    ENTRIES = {"bsi_percentile_batched": "_timed_percentile"}
-
-    def __init__(self, ex_mod) -> None:
-        from pilosa_tpu_torch import ops
-
-        self.calls = {name: 0 for name in self.ENTRIES}
-        self.args: dict[str, tuple] = {}
-        self.counting = False
-        self._size: dict[str, int] = {}
-        for name, entry in self.ENTRIES.items():
-            setattr(ex_mod, entry, self._wrap(name, getattr(ex_mod, entry)))
-            setattr(ops, name, self._wrap(name, getattr(ops, name)))
-
-    def offload(self) -> None:
-        self.args = {k: (_offload(a), kw) for k, (a, kw) in self.args.items()}
-
-    def _wrap(self, name, fn):
-        def wrapped(planes, *args, **kw):
-            if self.counting:
-                self.calls[name] += 1
-                if planes.numel() > self._size.get(name, -1):
-                    self._size[name] = planes.numel()
-                    self.args[name] = (_keep((planes,) + args), kw)
-            return fn(planes, *args, **kw)
-
-        return wrapped
-
-
-def time_torch_ops(rec: OpsRecorder, flush) -> dict:
-    """Each recorded function once more at its largest ssb call, timed
-    (median of 5, as ``time_ms``), with the bytes bound of what it reads:
-    the [S, D+1, W] planes and the filter once."""
-    from pilosa_tpu_torch import ops
-
-    out = {}
-    for name, calls in rec.calls.items():
-        if name not in rec.args:
-            raise AssertionError(f"{name} never ran on the ssb path")
-        args, kw = rec.args[name]
-        args = _on_card(args)
-        fn = getattr(ops, name)
-        planes, filt = args[0], args[1]
-        nbytes = (planes.numel() + (filt.numel() if kw["has_filter"] else 0)) * 4
-        out[name] = {
-            "calls": calls,
-            "shape": {"planes": list(planes.shape), "filter": bool(kw["has_filter"])},
-            "ms": time_ms(lambda: fn(*args, **kw), 5, flush),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-        }
-    return out
-
-
 class Card:
     """What the bounds need from the card: SMs and the SM clock."""
 
@@ -1537,6 +1481,39 @@ def dense_need(srcs) -> int:
     return int((srcs != 0).sum())
 
 
+def percentile_need(planes, filt, nth_bp: int) -> dict:
+    """What one nearest-rank search over these inputs needs, counted from
+    the inputs on whatever device they lie by running the search: at each
+    plane step, the non-zero words of that step's ``consider`` (each needs
+    a popcount; ``step_words``) and the 32-byte sectors holding them (a
+    plane is read only there; ``step_sectors``), summed over the steps,
+    out of ``all_sectors`` a step. Planes [S, D+1, W], filter [S, W] or
+    None; W a multiple of 8, so no sector crosses a shard."""
+    import torch
+
+    from pilosa_tpu_torch.ops.packed import popcount
+
+    s, d1, w = planes.shape
+    per_sector = SECTOR_BYTES // 4
+    consider = planes[:, d1 - 1] if filt is None else planes[:, d1 - 1] & filt
+    count = int(popcount(consider).sum())
+    k = nth_bp * (count // 10000) + (nth_bp * (count % 10000) + 9999) // 10000
+    k = min(max(k, 1), max(count, 1))
+    words = sectors = 0
+    for i in range(d1 - 2, -1, -1):
+        words += int(torch.count_nonzero(consider))
+        sectors += int((consider.reshape(s, w // per_sector, per_sector) != 0).any(dim=2).sum())
+        plane = planes[:, i]
+        zeros = consider & ~plane
+        c = int(popcount(zeros).sum())
+        if k <= c:
+            consider = zeros
+        else:
+            consider = consider & plane
+            k -= c
+    return {"step_words": words, "step_sectors": sectors, "all_sectors": s * w // per_sector}
+
+
 def _popc_s(n: int, card: Card) -> float:
     return n / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
 
@@ -1573,7 +1550,10 @@ def bound(name: str, args, card: Card) -> dict:
     non-zero group word, the filter read whole and every other row only in
     the sectors where the filter is set; for the sparse scorer, the blocks
     in range and the source containers they name; for the tree count, each
-    distinct leaf; for the range kernel, the planes its program reads.
+    distinct leaf; for the range kernel, the planes its program reads; for
+    Distinct, the planes at the considered words; for the percentile
+    search, each step's plane in the sectors where that step's candidates
+    lie (``percentile_need``).
 
     Popcounts are timed at the CUDA cores' rate (``popcount_ms``). The
     dense scorer runs them as single-bit matrix products on the tensor
@@ -1650,6 +1630,16 @@ def bound(name: str, args, card: Card) -> dict:
         # and a bit-sliced evaluation of the value minterms needs fewer
         # operations than these bytes take at D = 6
         nbytes = (1 + (filt is not None)) * s * w * 4 + words * depth * 4 + max(((1 << depth) + 31) // 32, 1) * 4
+    elif name == "bsi_percentile":
+        planes, filt, nth = args
+        s, d1, w = planes.shape
+        need = percentile_need(planes, filt, nth)
+        # the not-null plane and the filter whole, each step's plane only in
+        # the sectors where that step's consider is set; the bits and the
+        # count out
+        nbytes = (1 + (filt is not None)) * s * w * 4 + need["step_sectors"] * SECTOR_BYTES + (d1 - 1) + 4
+        # one popcount per word for the count, then one per considered word a step
+        ops_s = _popc_s(s * w + need["step_words"], card)
     else:
         raise KeyError(name)
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -1755,6 +1745,33 @@ def nonexclusive_groupby_inputs(device, seed: int = NONEXCL_SEED):
     return dims, None, words(s, NONEXCL_PLANES, w)
 
 
+# the percentile search's global route: ssb's depth and shard width, a
+# filter, and shards just past what the on-chip route holds
+PCT_GLOBAL_DEPTH = 24
+PCT_GLOBAL_NTH = 9500
+PCT_GLOBAL_SEED = 1906
+
+
+def percentile_global_inputs(device, seed: int = PCT_GLOBAL_SEED):
+    """(planes, filter, nth_bp) of a seeded stack two shards past K10's
+    on-chip capacity on ``device``: random planes, the not-null plane and
+    the filter each set at about 3 of 4 columns."""
+    import torch
+
+    from pilosa_tpu_torch.ops import cuda
+
+    w = SW // 32
+    s = cuda.percentile_grid(device)[1] // w + 2
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, generator=g, device=device)
+
+    planes = words(s, PCT_GLOBAL_DEPTH + 1, w)
+    planes[:, PCT_GLOBAL_DEPTH] |= words(s, w)
+    return planes, words(s, w) | words(s, w), PCT_GLOBAL_NTH
+
+
 def _held(name: str, kernel_fn, plain_fn, args, flush, card: Card) -> dict:
     """One more launch of ``name`` held against its plain version (==)
     and timed, with its bound, its share of it and the earlier yardstick."""
@@ -1803,6 +1820,7 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
         "word_delta": delta.patch_words_2d_plain_,
         "bsi_minmax": bsi.bsi_minmax_plain,
         "distinct_presence": bsi.bsi_distinct_presence_plain,
+        "bsi_percentile": bsi.bsi_percentile_plain,
     }
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=device)  # 256 MiB > L2
     rows = []
@@ -1871,6 +1889,13 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             nonexcl = nonexclusive_groupby_inputs(device)
             rows[-1]["dense_nonexclusive"] = _held(name, kernel_fn, plain_fn, nonexcl, flush, card)
             del nonexcl
+        if name == "bsi_percentile":
+            rows[-1]["share_of_bound"] = b["bound_ms"] / ms
+            if not rows[-1]["shape"]["on_chip"]:
+                raise AssertionError(f"bsi_percentile's largest ssb launch took the global route: {rows[-1]['shape']}")
+            rows[-1]["global_route"] = _held(name, kernel_fn, plain_fn, percentile_global_inputs(device), flush, card)
+            if rows[-1]["global_route"]["shape"]["on_chip"]:
+                raise AssertionError("bsi_percentile's global-route inputs fit on chip")
         if name == "tree_count":
             rows[-1]["share_of_bound"] = b["bound_ms"] / ms
             rows[-1]["ms_as_before"] = time_ms(lambda: kernel_fn(*args), 20, flush, as_before=True)
@@ -2001,6 +2026,13 @@ def _shape(name: str, args) -> dict:
         planes, filt, depth = args
         s, _, w = planes.shape
         return {"S": s, "depth": depth, "W": w, "filter": filt is not None}
+    if name == "bsi_percentile":
+        from pilosa_tpu_torch.ops import cuda
+
+        planes, filt, nth = args
+        s, d1, w = planes.shape
+        return {"S": s, "depth": d1 - 1, "W": w, "filter": filt is not None, "nth_bp": nth,
+                "on_chip": cuda.percentile_on_chip(planes)}
     from pilosa_tpu_torch.ops import packed
 
     leaves_by_query, program = args
@@ -2034,28 +2066,46 @@ def _stats_part(q: str) -> str:
     return next(part for part, heads in STATS_PARTS.items() if q.startswith(heads))
 
 
+# the kernels whose launches the stats family's parts count
+STATS_KERNELS = ("tree_count", "bsi_minmax", "bsi_percentile")
+
+
+def _execute_ssb(dev, q: str, oracle: SsbOracle, legs: dict) -> tuple[float, dict]:
+    """One ssb query: its latency and the launches of STATS_KERNELS it
+    made. A Percentile query must launch bsi_percentile once and the tree
+    count never (the whole search is one launch)."""
+    from pilosa_tpu_torch.ops import cuda
+
+    kernels = {k.name: k for k in cuda.KERNELS}
+    before = {name: kernels[name].launches for name in STATS_KERNELS}
+    dt = _execute(dev, "ssb", q, oracle.answers, legs)
+    launched = {name: kernels[name].launches - before[name] for name in STATS_KERNELS}
+    if q.startswith(STATS_PARTS["percentile"]) and (launched["bsi_percentile"], launched["tree_count"]) != (1, 0):
+        raise AssertionError(f"{q} launched {launched}: not one bsi_percentile and no tree_count")
+    return dt, launched
+
+
 def run_ssb(dev, oracle: SsbOracle) -> dict:
     """Every ssb query once cold (staging included), then each family
     warm, every answer held against the numpy oracle. The stats family's
     warm pass is also split by part (Min/Max, Percentile, Distinct), each
-    with its p50 and its tree-count and bsi_minmax launches."""
-    from pilosa_tpu_torch.ops import cuda
-
+    with its p50 and its tree-count, bsi_minmax and bsi_percentile
+    launches."""
     qs = [q for _, q in oracle.queries]
-    cold, _ = run_sequential(dev, "ssb", qs, oracle.answers)
+    cold = [_execute_ssb(dev, q, oracle, {})[0] for q in qs]
     out = {"first_pass_s": sum(cold), "queries": len(qs)}
     for family in SSB_FAMILIES:
         fq = [q for f, q in oracle.queries if f == family]
         if family != STATS:
             out[family] = _rate(*run_sequential(dev, "ssb", fq, oracle.answers))
             continue
-        parts = {part: ([], {}, {"tree_count": 0, "bsi_minmax": 0}) for part in STATS_PARTS}
+        parts = {part: ([], {}, dict.fromkeys(STATS_KERNELS, 0)) for part in STATS_PARTS}
         for q in fq:
             lat, legs, launched = parts[_stats_part(q)]
-            before = (cuda.TREE_COUNT.launches, cuda.BSI_MINMAX.launches)
-            lat.append(_execute(dev, "ssb", q, oracle.answers, legs))
-            launched["tree_count"] += cuda.TREE_COUNT.launches - before[0]
-            launched["bsi_minmax"] += cuda.BSI_MINMAX.launches - before[1]
+            dt, made = _execute_ssb(dev, q, oracle, legs)
+            lat.append(dt)
+            for name, n in made.items():
+                launched[name] += n
         merged: dict = {}
         for _, legs, _ in parts.values():
             for k, v in legs.items():
@@ -2066,6 +2116,7 @@ def run_ssb(dev, oracle: SsbOracle) -> dict:
         }
     # cold and warm
     out["minmax_queries_run"] = 2 * sum(1 for q in qs if q.startswith(STATS_PARTS["minmax"]))
+    out["percentile_queries_run"] = 2 * sum(1 for q in qs if q.startswith(STATS_PARTS["percentile"]))
     return out
 
 
@@ -2139,9 +2190,13 @@ class FusedLaunchWatch:
         ops.sparse_intersection_counts_stacked_mat = kept_mat
 
 
-def _dtoh_copies(fn) -> int:
-    """Device-to-host copies (``Memcpy DtoH`` events) one call of ``fn``
-    made, from a torch.profiler trace; a failed trace fails the phase."""
+def _request_trace(fn) -> dict:
+    """One call of ``fn`` under torch.profiler; a failed trace fails the
+    phase. Its device-to-host copies (``Memcpy DtoH`` events), and on the
+    device: the kernels and their time (``kernel_ms``, memcpys and memsets
+    apart), by kernel name; the span from the first device event's start
+    to the last one's end; and the gaps in that span where no device event
+    ran (``device_gap_ms``: the host enqueuing, between launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2149,14 +2204,41 @@ def _dtoh_copies(fn) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for ev in prof.events() if "Memcpy DtoH" in ev.name)
+    events = list(prof.events())
+    on_device = sorted(
+        (ev for ev in events if "CUDA" in str(getattr(ev, "device_type", ""))),
+        key=lambda ev: ev.time_range.start,
+    )
+    kernels = [ev for ev in on_device if not ev.name.startswith(("Memcpy", "Memset"))]
+    by_name: dict = {}
+    for ev in kernels:
+        name = ev.name.split("(")[0].removeprefix("void ")
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + ev.time_range.elapsed_us())
+    busy_us = 0.0
+    end = None
+    for ev in on_device:
+        start = ev.time_range.start if end is None else max(ev.time_range.start, end)
+        if ev.time_range.end > start:
+            busy_us += ev.time_range.end - start
+        end = ev.time_range.end if end is None else max(end, ev.time_range.end)
+    span_us = end - on_device[0].time_range.start if on_device else 0.0
+    return {
+        "dtoh_copies": sum(1 for ev in events if "Memcpy DtoH" in ev.name),
+        "device_kernels": len(kernels),
+        "kernel_ms": sum(us for _, us in by_name.values()) / 1e3,
+        "device_span_ms": span_us / 1e3,
+        "device_gap_ms": (span_us - busy_us) / 1e3,
+        "kernel_ms_by_name": {k: {"launches": n, "ms": us / 1e3} for k, (n, us) in sorted(by_name.items())},
+    }
 
 
 def fusion_arm(dev, index: str, calls: list[str], answers: dict, fused: bool, watch) -> dict:
     """One multi-call request FUSION_REPEATS times, warm, with the fuser
     on or off (``dev.fuser`` set aside), every answer held to its oracle:
     p50, fused launches, kernel launches and fetches per request, bypasses
-    by reason, and device-to-host copies of one more request."""
+    by reason, and a profiler trace of one more request (its device-to-host
+    copies, kernel time and the gaps between kernels: ``_request_trace``)."""
     from pilosa_tpu_torch.ops import cuda
 
     pql = "".join(calls)
@@ -2186,8 +2268,10 @@ def fusion_arm(dev, index: str, calls: list[str], answers: dict, fused: bool, wa
             "bypasses": {r: n - st0["bypasses"].get(r, 0) for r, n in st1["bypasses"].items()
                          if n != st0["bypasses"].get(r, 0)},
             "legs_ms": {k: v / len(lat) * 1e3 for k, v in sorted(legs.items())},
-            "dtoh_copies_per_request": _dtoh_copies(lambda: _execute(dev, index, pql, oracle, {})),
         }
+        trace = _request_trace(lambda: _execute(dev, index, pql, oracle, {}))
+        out["dtoh_copies_per_request"] = trace.pop("dtoh_copies")
+        out["trace"] = trace
         if fused and fetches != launches:
             raise AssertionError(f"fusion: {index}: {fetches} fetches for {launches} fused launches")
         # each fused launch's one fetch is a device-to-host copy: a trace
@@ -2215,7 +2299,9 @@ def run_fusion(dev, ssb, tall_topn, tall_chains, tall_answers, watch) -> dict:
             log(f"fusion: {name} ({len(calls)} calls): p50 {unfused['p50_ms']:.3f} -> {fused['p50_ms']:.3f} ms, "
                 f"kernel launches {unfused['kernel_launches_per_request']:.1f} -> "
                 f"{fused['kernel_launches_per_request']:.1f}, DtoH {unfused['dtoh_copies_per_request']} -> "
-                f"{fused['dtoh_copies_per_request']}, bypasses {fused['bypasses']}")
+                f"{fused['dtoh_copies_per_request']}, bypasses {fused['bypasses']}; fused trace: kernels "
+                f"{fused['trace']['kernel_ms']:.4f} ms, gaps {fused['trace']['device_gap_ms']:.4f} of a "
+                f"{fused['trace']['device_span_ms']:.4f} ms device span")
     finally:
         watch.strict = False
     st = dev.fuser.stats()
@@ -2277,6 +2363,7 @@ SERVER_KERNELS = (
     "word_delta",
     "bsi_minmax",
     "distinct_presence",
+    "bsi_percentile",
 )
 # the OOM check's post-degrade CPU cooldown, cut from the default 30 s
 # (PILOSA_OOM_CPU_COOLDOWN_S) so the phase sees the device path return
@@ -2904,6 +2991,7 @@ PATH_OF = {
     "word_delta": "writes",
     "bsi_minmax": "ssb",
     "distinct_presence": "ssb",
+    "bsi_percentile": "ssb",
 }
 
 
@@ -2980,14 +3068,13 @@ def main() -> int:
 
         # 4. each path, counts set to 0 just before it and read just after
         rec = Recorder(cuda)
-        from pilosa_tpu_torch.executor import executor as ex_mod
         from pilosa_tpu_torch.utils import metrics
 
-        ops_rec = OpsRecorder(ex_mod)
         watch = FusedLaunchWatch()
-        SMOKE_HELD.extend((rec, ops_rec, watch))
+        SMOKE_HELD.extend((rec, watch))
         launches: dict = {}
         batched: dict = {}
+        launches_by_q: dict = {}
         path_s: dict = {}
 
         def run_path(path: str, fn):
@@ -3002,18 +3089,17 @@ def main() -> int:
                 require_on_card(metrics, fb0, path)
             launches[path] = {k.name: k.launches for k in cuda.KERNELS}
             batched[path] = {k.name: k.batched_launches for k in cuda.KERNELS}
+            launches_by_q[path] = {k.name: dict(sorted(k.launches_by_q.items())) for k in cuda.KERNELS}
             rec.path = None
             KEEP_ON_HOST["on"] = False
-            for held in (rec, ops_rec, watch):
+            for held in (rec, watch):
                 held.offload()
             path_s[path] = time.monotonic() - t0
             log(f"{path} in {path_s[path]:.1f} s; launches {launches[path]}")
             return out
 
         phases = run_path("dense_tall", lambda: main_path(dev, dense_qs, tall_topn, tall_chains, oracle))
-        ops_rec.counting = True
         phases["ssb"] = run_path("ssb", lambda: run_ssb(dev, ssb))
-        ops_rec.counting = False
         phases["ssb"]["data_build_s"] = built["ssb_build_s"]
         # multi-call requests over the staged tall and ssb data, the fuser
         # off and on in turns
@@ -3075,6 +3161,11 @@ def main() -> int:
             raise AssertionError(
                 f"bsi_minmax launched {launches['ssb']['bsi_minmax']} times on ssb for {mm_run} Min/Max queries"
             )
+        pct_run = phases["ssb"]["percentile_queries_run"]
+        if launches["ssb"]["bsi_percentile"] != pct_run:
+            raise AssertionError(
+                f"bsi_percentile launched {launches['ssb']['bsi_percentile']} times on ssb for {pct_run} Percentile queries"
+            )
         if launches["ssb"]["tree_count"] > SSB_TREE_COUNT_MAX:
             raise AssertionError(
                 f"tree_count launched {launches['ssb']['tree_count']} times on ssb (> {SSB_TREE_COUNT_MAX})"
@@ -3093,11 +3184,10 @@ def main() -> int:
             watch, torch.zeros(64 << 20, dtype=torch.int32, device=device), card_info
         )
         phases["fusion"]["fetches_all_paths"] = watch.fetches
-        torch_ops = time_torch_ops(ops_rec, torch.zeros(64 << 20, dtype=torch.int32, device=device))
-        log(f"torch ops on the ssb path: {torch_ops}")
         for row in kernels:
             row["path"] = PATH_OF[row["name"]]
             row["launches_by_path"] = {path: launches[path][row["name"]] for path in launches}
+            row["launches_by_q_by_path"] = {path: launches_by_q[path][row["name"]] for path in launches_by_q}
             if row["name"] == "word_delta":
                 row["launches_by_route"] = phases["writes"]["refreshes_by_route"]
                 copy = row["copy_route"]
@@ -3134,8 +3224,13 @@ def main() -> int:
                     "word_delta": launches["writes"]["word_delta"] / n_writes,
                     "bsi_minmax": launches["ssb"]["bsi_minmax"] / phases["ssb"]["minmax_queries_run"],
                     "distinct_presence": launches["ssb"]["distinct_presence"] / n_ssb,
+                    "bsi_percentile": launches["ssb"]["bsi_percentile"] / pct_run,
                 },
                 "launches_by_path": launches,
+                # K2's launches by batch width on each path (ROADMAP B8's K2 at Q = 8)
+                "sparse_stacked_scores_launches_by_q": {
+                    path: by_q["sparse_stacked_scores"] for path, by_q in launches_by_q.items()
+                },
                 "groupby_launches_k_gt_1_p_gt_0": rec.groupby_multi_with_planes,
                 "expand_launches_by_input_kind": rec.expand_kinds,
                 "expand_widest_tiered_words": rec.expand_widest,
@@ -3189,7 +3284,6 @@ def main() -> int:
             "launches": launches["fusion"],
         }}), flush=True)
         print(json.dumps({"phases": phases}), flush=True)
-        print(json.dumps({"torch_ops": torch_ops}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         for ex in (dev, cpu):

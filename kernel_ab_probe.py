@@ -49,7 +49,15 @@ wrappers on the same seeded inputs, drawn once by this process:
   delta_copy   the copy route (``cuda.word_delta``) on the same input;
   fill_16mib   a yardstick, not a kernel of the port: PyTorch's
                ``zero_`` of a 4,194,304-word tensor, the stores alone of
-               expand_widest's output.
+               expand_widest's output;
+  pct_ssb      Percentile(field=lo_revenue, nth=95) over the 58 shards:
+               the percentile search (K10, ``cuda.bsi_percentile``; a
+               checkout without it runs ``ops.bsi_percentile_batched``,
+               its torch ops and tree counts) on lo_revenue's 25 planes;
+  pct_ssb_filtered the same under Q3.2's filter (nth=50);
+  pct_step_floor the same search over one shard's first 1024 words (a
+               strided view of the planes): its bytes are negligible, so
+               the time is the launch and 25 grid-wide steps.
 The ssb columns are drawn as ``chip_smoke.py`` draws them
 (``ssb_columns``) and packed to words with numpy.
 
@@ -90,9 +98,16 @@ DENSE_AND = 6
 EXPAND_ROWS = 128
 EXPAND_KINDS = ("widest", "positions", "runs", "dense")
 DELTA_WORDS = 64
+# (filter, nth basis points, shards, words) of the percentile cases; a
+# filter of None reads none
+PCT_CASES = {
+    "pct_ssb": (None, 9500, None, None),
+    "pct_ssb_filtered": ("q32_filt", 5000, None, None),
+    "pct_step_floor": (None, 9500, 1, 1024),
+}
 CASES = ("chain", "one") + tuple(f"dense_q{q}" for q in DENSE_QS) + (
     "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive") + tuple(
-    f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib")
+    f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib") + tuple(PCT_CASES)
 
 
 def _smoke():
@@ -232,6 +247,18 @@ def _expand_case(ops, dev, arrays, kind: str):
     return (lambda: ops.cuda.expand_blocks(*args, num_words)), want
 
 
+def _percentile_oracle(values, nth_bp: int, depth: int) -> list:
+    """[bit 0, ..., bit depth-1, count] of the nearest-rank percentile of
+    ``values`` (the search's answer; no value: every bit set, count 0)."""
+    n = int(values.size)
+    if n == 0:
+        return [1] * depth + [0]
+    q, r = divmod(n, 10000)
+    k = min(max(nth_bp * q + (nth_bp * r + 9999) // 10000, 1), n)
+    kth = int(np.partition(values, k - 1)[k - 1])
+    return [(kth >> i) & 1 for i in range(depth)] + [n]
+
+
 def draw_inputs(smoke, out_dir: str) -> None:
     """Every input and expected answer of the dense and GroupBy cases,
     saved as .npy files in ``out_dir``."""
@@ -273,6 +300,12 @@ def draw_inputs(smoke, out_dir: str) -> None:
         [c["c_region"], c["s_region"]], [range(5), range(5)], np.ones(rev.size, dtype=bool), []
     )
     arrays["sum_plane_counts"] = np.array([int(b.sum()) for b in bits], dtype=np.int64)
+    q32_sel = (c["c_nation"] == smoke.UNITED_STATES) & (c["s_nation"] == smoke.UNITED_STATES)
+    for name, (filt, nth, shards_cut, words) in PCT_CASES.items():
+        cols = rev if words is None else rev[: words * 32]
+        if filt is not None:
+            cols = cols[q32_sel[: cols.size]]
+        arrays[name + "_want"] = np.array(_percentile_oracle(cols, nth, depth), dtype=np.int64)
     del c, bits, rev, sel
     arrays.update(_nonexclusive(smoke, arrays["planes"]))
     arrays.update(_tier_payloads(smoke))
@@ -345,6 +378,19 @@ def run_arm(checkout: str, data: str) -> int:
     cases["delta_copy"] = (lambda: cuda.word_delta(flat, None, *upd), [patched.view("<i4").reshape(1, -1)])
     fill = torch.empty(EXPAND_ROWS * 32768, dtype=torch.int32, device=dev)
     cases["fill_16mib"] = (lambda: fill.zero_(), [np.zeros(fill.numel(), np.int32)])
+    depth = planes.shape[1] - 1
+    for name, (filt_name, nth, shards_cut, words) in PCT_CASES.items():
+        pl = planes if words is None else planes[:shards_cut, :, :words]
+        filt = up(filt_name) if filt_name is not None else None
+        kernel = getattr(cuda, "bsi_percentile", None)
+        if kernel is not None:
+            fn = lambda pl=pl, filt=filt, nth=nth, k=kernel: k(pl, filt, nth)  # noqa: E731
+        else:
+            fn = lambda pl=pl, filt=filt, nth=nth: ops.bsi_percentile_batched(  # noqa: E731
+                pl, filt, nth, bit_depth=depth, has_filter=filt is not None
+            )
+        want = load(name + "_want")
+        cases[name] = (fn, [want[:-1], want[-1]])
     torch.cuda.synchronize()
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
     out = {"arm": checkout}

@@ -316,7 +316,6 @@ _timed_plane_counts_batched = _timed_kernel("groupby_reduce", ops.bsi_plane_coun
 _timed_bsi_min = _timed_kernel("bsi_min", ops.bsi_min)
 _timed_bsi_max = _timed_kernel("bsi_max", ops.bsi_max)
 _timed_minmax_batched = _timed_kernel("bsi_minmax", ops.bsi_minmax_batched)
-# the recurrences are many small launches; each is timed as a whole
 _timed_percentile = _timed_kernel("bsi_percentile", ops.bsi_percentile_batched)
 _timed_distinct = _timed_kernel("bsi_distinct", ops.bsi_distinct_presence)
 

@@ -7,7 +7,7 @@ one multi-call query) launches its kernels, waits for them and fetches
 its own result. The fuser lowers every fusable call of the query to a
 unit — Count → the tree count (K3), Sum → the BSI plane counts (K4),
 GroupBy → the segmented reduction (K4), Distinct → the presence map
-(K9), Percentile → the bit-sliced search, TopN → the head chunk's
+(K9), Percentile → the bit-sliced search (K10), TopN → the head chunk's
 block-sparse scores (K2) — and runs the units as one fused program:
 
   1. lowering finishes first: staging, host tables, filter stacks and
@@ -556,11 +556,11 @@ class QueryFuser:
             val = sum(1 << j for j in range(depth) if int(out[j]))
             return ValCount(val + bsig.min, count)
 
-        # the search keeps two [S, W] sets live besides its inputs
-        work = 2 * len(shards) * _W32 * 4
+        # K10's step counters and outputs, and its [2, S, W] scratch on the global route
+        work = ops.cuda.percentile_scratch_bytes(planes)
         return _Unit(
             i, ("percentile", depth, filt is not None), (planes, filt, nth_bp), finish,
-            extra_bytes=fbytes + work + 4 * (depth + 2),
+            extra_bytes=fbytes + work,
         )
 
     def _lower_topn(self, index, i, c, shards, opt) -> Optional[_Unit]:

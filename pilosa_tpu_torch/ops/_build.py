@@ -40,6 +40,7 @@ SOURCES = (
     "word_delta",
     "bsi_minmax",
     "distinct_presence",
+    "bsi_percentile",
 )
 HEADERS = ("common.cuh", "tma.cuh")
 NVCC_FLAGS = (
@@ -53,61 +54,66 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# source -> its entry points, each (symbol, ctypes argument types)
 _SIGNATURES = {
     "dense_scores": (
-        "pilosa_dense_scores",
         # srcs, mat, out, q, r, w, device, stream
-        [_P, _P, _P, _I, _I, _LL, _I, _P],
+        ("pilosa_dense_scores", [_P, _P, _P, _I, _I, _LL, _I, _P]),
     ),
     "sparse_scores": (
-        "pilosa_sparse_scores",
         # srcs, blocks, block_row, block_slot, block_shard, out,
         # q, s, w, nb, num_rows, device, stream
-        [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P],
+        ("pilosa_sparse_scores", [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P]),
     ),
     "tree_count": (
-        "pilosa_tree_count",
         # leaf_ptrs (host u64[ndistinct]), refs (host u8[q * nleaves]),
         # ndistinct, code, code_len, max_spill, nleaves, n_words, q,
         # scratch, out, device, stream
-        [_P, _P, _I, _P, _I, _I, _I, _LL, _I, _P, _P, _I, _P],
+        ("pilosa_tree_count", [_P, _P, _I, _P, _I, _I, _I, _LL, _I, _P, _P, _I, _P]),
     ),
     "groupby_reduce": (
-        "pilosa_groupby_reduce",
         # dims (host GbDim[]), ndims, filt, filt_shard_stride, planes,
         # plane_stride, plane_shard_stride, nplanes, s, wv, k, counts,
         # plane_counts, device, stream
-        [_P, _I, _P, _LL, _P, _LL, _LL, _I, _LL, _LL, _LL, _P, _P, _I, _P],
+        (
+            "pilosa_groupby_reduce",
+            [_P, _I, _P, _LL, _P, _LL, _LL, _I, _LL, _LL, _LL, _P, _P, _I, _P],
+        ),
     ),
     "bsi_range": (
-        "pilosa_bsi_range",
         # planes, plane_stride, shard_stride, s, wv, out, prog (host
         # RangeProg*), device, stream
-        [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P],
+        ("pilosa_bsi_range", [_P, _LL, _LL, _LL, _LL, _P, _P, _I, _P]),
     ),
     "expand_blocks": (
-        "pilosa_expand_blocks",
         # positions, np, starts, ends, nr, dense, dense_word, nd,
         # offsets, out, num_words, device, stream
-        [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _P, _LL, _I, _P],
+        ("pilosa_expand_blocks", [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _P, _LL, _I, _P]),
     ),
     "word_delta": (
-        "pilosa_word_delta",
         # src, out, shard_idx, word_idx, or_mask, andnot_mask, k, s, m,
         # device, stream
-        [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
+        ("pilosa_word_delta", [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P]),
     ),
     "bsi_minmax": (
-        "pilosa_bsi_minmax",
         # planes, plane_stride, shard_stride, filt, filt_stride, s, depth,
         # sv, is_min, bits, count, device, stream
-        [_P, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P],
+        ("pilosa_bsi_minmax", [_P, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _P, _P, _I, _P]),
     ),
     "distinct_presence": (
-        "pilosa_distinct_presence",
         # planes, plane_stride, shard_stride, filt, filt_stride, s, w,
         # depth, out, nwords, device, stream
-        [_P, _LL, _LL, _P, _LL, _LL, _LL, _I, _P, _I, _I, _P],
+        ("pilosa_distinct_presence", [_P, _LL, _LL, _P, _LL, _LL, _LL, _I, _P, _I, _I, _P]),
+    ),
+    "bsi_percentile": (
+        # planes, plane_stride, shard_stride, filt, filt_stride, wv, nv,
+        # depth, nth, on_chip, state, counters, bits, count, device, stream
+        (
+            "pilosa_bsi_percentile",
+            [_P, _LL, _LL, _P, _LL, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+        ),
+        # device, grid (host int*), on_chip_vectors (host long long*)
+        ("pilosa_bsi_percentile_grid", [_I, _P, _P]),
     ),
 }
 
@@ -175,10 +181,10 @@ def build_all() -> dict:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in SOURCES:
             lib = ctypes.CDLL(_lib_path(name))
-            sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for sym, argtypes in _SIGNATURES[name]:
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return BUILD_LOG
 

@@ -17,10 +17,10 @@ batch; filters are [W] / [S, W] words.
     runs every shard's recurrence, a thread-block cluster per shard;
   * Distinct runs on K9 (``ops/kernels/distinct_presence.cu``): one
     launch marks every considered column's value in a presence bitmap;
-  * Percentile stays PyTorch ops on the device. Each plane step's
-    popcount goes through ``packed.count_bits`` (K3's one-leaf program)
-    and ``torch.where`` takes the place of the host branch, so nothing
-    leaves the card before the caller's one fetch.
+  * Percentile runs on K10 (``ops/kernels/bsi_percentile.cu``): one
+    cooperative launch walks every plane step of the search, each step's
+    count over every shard reduced across the grid on the card, so
+    nothing leaves the card before the caller's one fetch.
 
 CPU tensors run the plain versions (the tests); CUDA tensors launch the
 kernels or raise.
@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch.ops import cuda
-from pilosa_tpu_torch.ops.packed import _on_cuda, count_bits, groupby_reduce, popcount
+from pilosa_tpu_torch.ops.packed import _on_cuda, groupby_reduce, popcount
 
 # K5 opcodes (one nibble each; the low nibble runs first) and output
 # selectors — the table in ops/kernels/bsi_range.cu.
@@ -213,10 +213,6 @@ def _consider(planes, filter_rows, has_filter: bool):
     return exists.contiguous()
 
 
-def _count(words):
-    return count_bits(words.contiguous())
-
-
 def _minmax(planes, filter_row, bit_depth: int, has_filter: bool, is_min: bool):
     """One shard's recurrence over its [D+1, W] planes in plain PyTorch
     -> (bits bool[D], count i32)."""
@@ -302,7 +298,32 @@ def bsi_max(planes, filter_row, *, bit_depth: int, has_filter: bool):
     return _minmax_op(planes, filter_row, bit_depth, has_filter, False)
 
 
-# -- Percentile: PyTorch ops on the device; Distinct: K9 -------------------------------
+# -- Percentile: K10; Distinct: K9 ------------------------------------------------------
+
+
+def bsi_percentile_plain(planes, filt, nth_bp: int):
+    """K10's function in plain PyTorch: the nearest-rank search over
+    [S, D+1, W] planes and an optional [S, W] filter -> (bits bool[D],
+    count i32). Every count is a popcount sum; ``torch.where`` takes the
+    place of the branch, so on the card nothing waits for the host."""
+    depth = planes.shape[-2] - 1
+    consider = _consider(planes, filt, filt is not None)
+    count = popcount(consider).sum()
+    q = count // 10000
+    r = count % 10000
+    k = nth_bp * q + (nth_bp * r + 9999) // 10000
+    k = torch.minimum(torch.clamp(k, min=1), torch.clamp(count, min=1))
+    bits = []
+    for i in reversed(range(depth)):
+        plane = planes.select(-2, i)
+        zeros = consider & ~plane
+        c = popcount(zeros).sum()
+        pred = k <= c
+        bits.append(~pred)
+        consider = torch.where(pred, zeros, consider & plane)
+        k = torch.where(pred, k, k - c)
+    stacked = torch.stack(bits[::-1]) if bits else torch.zeros(0, dtype=torch.bool, device=planes.device)
+    return stacked, count.to(torch.int32)
 
 
 def bsi_percentile_batched(planes, filter_rows, nth_bp: int, *, bit_depth: int, has_filter: bool):
@@ -311,24 +332,14 @@ def bsi_percentile_batched(planes, filter_rows, nth_bp: int, *, bit_depth: int, 
     points, so k = ceil(nth * n / 100) is exact integer arithmetic. Walking
     planes high to low: if at least k considered columns have bit i clear,
     the k-th smallest has it clear and the zeros are kept; else bit i is
-    set and k drops by the zeros count. count == 0 means no value."""
-    consider = _consider(planes, filter_rows, has_filter)
-    count = _count(consider).to(torch.int64)
-    q = count // 10000
-    r = count % 10000
-    k = nth_bp * q + (nth_bp * r + 9999) // 10000
-    k = torch.minimum(torch.clamp(k, min=1), torch.clamp(count, min=1))
-    bits = []
-    for i in reversed(range(bit_depth)):
-        plane = planes.select(-2, i)
-        zeros = consider & ~plane
-        c = _count(zeros).to(torch.int64)
-        pred = k <= c
-        bits.append(~pred)
-        consider = torch.where(pred, zeros, consider & plane)
-        k = torch.where(pred, k, k - c)
-    stacked = torch.stack(bits[::-1]) if bits else torch.zeros(0, dtype=torch.bool, device=planes.device)
-    return stacked, count.to(torch.int32)
+    set and k drops by the zeros count. count == 0 means no value. One K10
+    launch on CUDA tensors, with no host sync."""
+    if planes.shape[-2] != bit_depth + 1:
+        raise ValueError(f"{planes.shape[-2]} planes for bit depth {bit_depth}")
+    filt = filter_rows if has_filter else None
+    if _on_cuda(planes):
+        return cuda.bsi_percentile(planes, filt, int(nth_bp))
+    return bsi_percentile_plain(planes, filt, int(nth_bp))
 
 
 def _unpack(words: torch.Tensor) -> torch.Tensor:

@@ -22,27 +22,32 @@ from pilosa_tpu_torch.ops import _build
 
 class Kernel:
     """One hand-written kernel: its source, the TPU-side function it
-    replaces, and how many times it was launched. ``batched_launches``
-    counts launches that served more than one query."""
+    replaces, and how many times it was launched, in all and at each
+    query count Q (``launches_by_q``)."""
 
     def __init__(self, name: str, source: str, replaces: str) -> None:
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
-        self.batched_launches = 0
+        self.launches_by_q: dict[int, int] = {}
         self._mu = threading.Lock()
+
+    @property
+    def batched_launches(self) -> int:
+        """Launches that served more than one query."""
+        with self._mu:
+            return sum(n for q, n in self.launches_by_q.items() if q > 1)
 
     def note_launch(self, q: int) -> None:
         with self._mu:
             self.launches += 1
-            if q > 1:
-                self.batched_launches += 1
+            self.launches_by_q[q] = self.launches_by_q.get(q, 0) + 1
 
     def reset(self) -> None:
         with self._mu:
             self.launches = 0
-            self.batched_launches = 0
+            self.launches_by_q = {}
 
 
 DENSE_SCORES = Kernel(
@@ -90,6 +95,11 @@ DISTINCT_PRESENCE = Kernel(
     "pilosa_tpu_torch/ops/kernels/distinct_presence.cu",
     "pilosa_tpu/ops/bsi.py:262",
 )
+BSI_PERCENTILE = Kernel(
+    "bsi_percentile",
+    "pilosa_tpu_torch/ops/kernels/bsi_percentile.cu",
+    "pilosa_tpu/ops/bsi.py:222",
+)
 KERNELS = (
     DENSE_SCORES,
     SPARSE_STACKED_SCORES,
@@ -100,6 +110,7 @@ KERNELS = (
     WORD_DELTA,
     BSI_MINMAX,
     DISTINCT_PRESENCE,
+    BSI_PERCENTILE,
 )
 
 
@@ -629,3 +640,90 @@ def distinct_presence(planes: torch.Tensor, filt, depth: int) -> torch.Tensor:
     _raise_on(err, "distinct_presence")
     DISTINCT_PRESENCE.note_launch(1)
     return out
+
+
+# Columns one bsi_percentile launch counts: a step word keeps the sum in
+# its low 48 bits (kArrivalShift in bsi_percentile.cu).
+PERCENTILE_MAX_BITS = 1 << 48
+
+def percentile_grid(device) -> tuple[int, int]:
+    """(CTAs of K10's cooperative grid, int32 words of ``consider`` its
+    on-chip route holds) on a CUDA device. The occupancy query runs once
+    per device inside the library, which later calls read."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    grid, vectors = ctypes.c_int(0), ctypes.c_longlong(0)
+    lib = _build.library("bsi_percentile")
+    err = lib.pilosa_bsi_percentile_grid(index, ctypes.byref(grid), ctypes.byref(vectors))
+    _raise_on(err, "bsi_percentile (grid query)")
+    return grid.value, 4 * vectors.value
+
+
+def percentile_on_chip(planes: torch.Tensor) -> bool:
+    """Whether K10 keeps ``consider`` of the search over this [S, D+1, W]
+    plane view on chip (else in a [2, S, W] scratch in device memory):
+    the S x W words fit in what the grid holds, and every plane word lies
+    within the kernel's 32-bit vector offsets. The one route decision:
+    the launch and fusion's admission charge both ask it."""
+    s, d1, w = planes.shape
+    last = ((s - 1) * planes.stride(0) + (d1 - 1) * planes.stride(1) + w) // 4
+    return s * w <= percentile_grid(planes.device)[1] and last < 1 << 32
+
+
+def percentile_scratch_bytes(planes: torch.Tensor) -> int:
+    """Device memory one K10 launch over ``planes`` ([S, D+1, W])
+    allocates beyond its inputs: the step counters, the bits and the
+    count, and on the global route the [2, S, W] scratch. On a CPU
+    device, what the card's on-chip route takes (no grid to ask)."""
+    s, d1, w = planes.shape
+    small = 8 * d1 + (d1 - 1) + 4
+    if planes.device.type != "cuda" or s * w == 0 or percentile_on_chip(planes):
+        return small
+    return small + 2 * s * w * 4
+
+
+def bsi_percentile(planes: torch.Tensor, filt, nth_bp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10: the nearest-rank Percentile (``nth_bp`` basis points, 0 to
+    10000) of a [S, D+1, W] plane stack (plane D is not-null; any strides
+    with a dense word axis, 16-byte aligned) under an optional [S, W]
+    filter -> (bits bool[D], count i32 scalar), bit i of the k-th smallest
+    considered value and the considered columns (0: no value; every bit
+    is then set, as the search gives an empty set). One cooperative
+    launch; no host sync. W a multiple of 4."""
+    s, d1, w = planes.shape
+    depth = d1 - 1
+    device = planes.device
+    if not 0 <= depth <= BSI_MAX_DEPTH:
+        raise ValueError(f"bit depth {depth} outside [0, {BSI_MAX_DEPTH}]")
+    if not 0 <= nth_bp <= 10000:
+        raise ValueError(f"nth {nth_bp} basis points outside [0, 10000]")
+    if w % 4:
+        raise ValueError(f"words per shard must be a multiple of 4, got {w}")
+    if s * w * 32 >= PERCENTILE_MAX_BITS:
+        raise ValueError(f"{s * w} words: the count would pass 2^48 columns")
+    shard_stride, plane_stride = _vec_strides(planes, "planes")
+    fptr, fss = None, 0
+    if filt is not None:
+        if tuple(filt.shape) != (s, w):
+            raise ValueError(f"filter is {tuple(filt.shape)}, expected {(s, w)}")
+        _same_device(device, filt)
+        _, fss = _vec_strides(filt.unsqueeze(0), "filter")
+        fptr = filt.data_ptr()
+    bits = torch.empty(depth, dtype=torch.bool, device=device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    if s * w == 0:
+        return bits.fill_(True), count.zero_()
+    wv = w // 4
+    nv = s * wv
+    on_chip = percentile_on_chip(planes)
+    state = None if on_chip else torch.empty((2, s * w), dtype=torch.int32, device=device)
+    counters = torch.empty(depth + 1, dtype=torch.int64, device=device)
+    lib = _build.library("bsi_percentile")
+    err = lib.pilosa_bsi_percentile(
+        planes.data_ptr(), plane_stride, shard_stride, fptr, fss, wv, nv, depth, int(nth_bp),
+        int(on_chip), state.data_ptr() if state is not None else None, counters.data_ptr(),
+        bits.data_ptr(), count.data_ptr(), device.index, _stream(device),
+    )
+    _raise_on(err, "bsi_percentile")
+    BSI_PERCENTILE.note_launch(1)
+    return bits, count

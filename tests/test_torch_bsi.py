@@ -239,15 +239,53 @@ def test_min_max_match_jax(fn, has_filter):
     assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc)
 
 
-@pytest.mark.parametrize("nth_bp", [0, 1, 5000, 9500, 9999, 10000])
-def test_percentile_matches_jax(nth_bp):
-    rng = np.random.default_rng(nth_bp)
-    stack = _planes(rng, 9, shards=2)
-    filts = _u32(rng, (2, W))
-    for has_filter in (False, True):
-        wb, wc = jops.bsi_percentile_batched(stack, filts, np.int32(nth_bp), bit_depth=9, has_filter=has_filter)
-        gb, gc = tops.bsi_percentile_batched(_t(stack), _t(filts), nth_bp, bit_depth=9, has_filter=has_filter)
-        assert gb.tolist() == np.asarray(wb).tolist() and int(gc) == int(wc)
+PERCENTILE_NTH = (0, 1, 5000, 9500, 9999, 10000)
+# (nth_bp, depth, shards, strided): the first cases keep their ids
+PERCENTILE_CASES = [pytest.param(n, 9, 2, False, id=str(n)) for n in PERCENTILE_NTH] + [
+    pytest.param(n, d, s, strided, id=f"d{d}-s{s}-{'strided-' if strided else ''}{n}")
+    for d in (0, 1, 9, 24)
+    for s in (1, 3)
+    for strided in (False, True)
+    for n in PERCENTILE_NTH
+    if not strided or (d, s) == (9, 3)
+]
+
+
+def _strided_planes(stack):
+    """[S, D+1, W] words as a view of a larger buffer: the planes 2 apart
+    with a plane before them, each shard's words offset by 4."""
+    s, d1, w = stack.shape
+    big = np.zeros((s, 2 * d1 + 1, w + 8), dtype=np.uint32)
+    big[:, 1::2, 4 : w + 4] = stack
+    view = _t(big)[:, 1::2, 4 : w + 4]
+    assert not view.is_contiguous() and tuple(view.shape) == stack.shape
+    return view
+
+
+@pytest.mark.parametrize("nth_bp,depth,shards,strided", PERCENTILE_CASES)
+def test_percentile_matches_jax(nth_bp, depth, shards, strided):
+    """``bsi_percentile_plain`` (K10's plain version) and
+    ``bsi_percentile_batched`` against the JAX package, ==: no filter, a
+    random filter, an all-zero filter (count 0: every bit set), and a
+    sparse filter that leaves few candidates, so the search branches both
+    ways; all-ones words in the planes."""
+    rng = np.random.default_rng(nth_bp + 100 * depth + 10 * shards + strided)
+    stack = _planes(rng, depth, shards=shards)
+    sparse = np.zeros((shards, W), dtype=np.uint32)
+    sparse[:, ::17] = 0x10101
+    filters = [None, _u32(rng, (shards, W)), np.zeros((shards, W), dtype=np.uint32), sparse]
+    planes = _strided_planes(stack) if strided else _t(stack)
+    for filt in filters:
+        has_filter = filt is not None
+        f = filt if has_filter else np.zeros((shards, W), dtype=np.uint32)
+        wb, wc = jops.bsi_percentile_batched(stack, f, np.int32(nth_bp), bit_depth=depth, has_filter=has_filter)
+        want = (np.asarray(wb).tolist(), int(wc))
+        gb, gc = tops.bsi_percentile_batched(planes, _t(f), nth_bp, bit_depth=depth, has_filter=has_filter)
+        pb, pc = tops.bsi_percentile_plain(planes, _t(filt) if has_filter else None, nth_bp)
+        assert gb.dtype == pb.dtype == torch.bool and gc.dtype == pc.dtype == torch.int32
+        assert (gb.tolist(), int(gc)) == want and (pb.tolist(), int(pc)) == want, has_filter
+        if has_filter and not filt.any():
+            assert want == ([True] * depth, 0)
 
 
 @pytest.mark.parametrize("depth", [1, 6, 10])

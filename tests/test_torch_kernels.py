@@ -346,8 +346,8 @@ def test_bsi_range_matches_plain(dev, depth, op):
 
 def test_bsi_device_recurrences_on_card(dev):
     """Min/Max run on K8 (one shard, a batch folded, the per-shard form),
-    Percentile as torch ops on the card (each step's popcount on the tree
-    count), Distinct on K9; all agree with the CPU run."""
+    Percentile on K10 (one launch, no tree count), Distinct on K9; all
+    agree with the CPU run."""
     rng = np.random.default_rng(4)
     a = rng.integers(0, 2**32, size=(3, 11, 1024), dtype=np.uint32)
     filt = rng.integers(0, 2**32, size=(3, 1024), dtype=np.uint32)
@@ -369,7 +369,9 @@ def test_bsi_device_recurrences_on_card(dev):
         gb, gc = ops.bsi_minmax_batched(*gpu, is_min=is_min, bit_depth=10, has_filter=True)
         cb, cc = ops.bsi_minmax_batched(*cpu, is_min=is_min, bit_depth=10, has_filter=True)
         assert torch.equal(gb.cpu(), cb) and torch.equal(gc.cpu(), cc)
+    k3, k10 = ops.cuda.TREE_COUNT.launches, ops.cuda.BSI_PERCENTILE.launches
     gb, gc = ops.bsi_percentile_batched(*gpu, 9500, bit_depth=10, has_filter=True)
+    assert (ops.cuda.TREE_COUNT.launches, ops.cuda.BSI_PERCENTILE.launches) == (k3, k10 + 1)
     cb, cc = ops.bsi_percentile_batched(*cpu, 9500, bit_depth=10, has_filter=True)
     assert gb.cpu().tolist() == cb.tolist() and int(gc) == int(cc)
     got = ops.bsi_distinct_presence(*gpu, bit_depth=10, has_filter=True)
@@ -413,6 +415,90 @@ def test_bsi_minmax_strided_and_rejects(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError):
         ops.cuda.bsi_minmax(torch.zeros((2, 5, 2048 + 16), dtype=torch.int32, device=dev), None, True)
+
+
+def _percentile_once(planes, filt, nth):
+    """One K10 call: one launch of it and none of the tree count, and its
+    outputs == the plain version's."""
+    k3, k10 = ops.cuda.TREE_COUNT.launches, ops.cuda.BSI_PERCENTILE.launches
+    got = ops.cuda.bsi_percentile(planes, filt, nth)
+    torch.cuda.synchronize()
+    assert (ops.cuda.TREE_COUNT.launches, ops.cuda.BSI_PERCENTILE.launches) == (k3, k10 + 1)
+    want = ops.bsi_percentile_plain(planes, filt, nth)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32 and got[1].dim() == 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), nth
+    return got
+
+
+@pytest.mark.parametrize("depth", [0, 9, 24])
+@pytest.mark.parametrize("s,w", [(1, 32768), (3, 4096), (58, 32768)])
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_bsi_percentile_matches_plain(dev, depth, s, w, with_filter):
+    """K10 on its on-chip route == its plain version at every nth, one
+    launch and no tree count each: all-ones planes, a shard with no
+    value, a filter emptying a shard and a sparse one."""
+    rng = np.random.default_rng(depth * 100 + s + with_filter + 7)
+    a = rng.integers(0, 2**32, size=(s, depth + 1, w), dtype=np.uint32)
+    a[0, : depth // 2] = 0xFFFFFFFF
+    f = rng.integers(0, 2**32, size=(s, w), dtype=np.uint32)
+    if s > 1:
+        a[1, depth] = 0
+        f[-1] = 0
+        f[s // 2] &= np.uint32(0x00010001)
+    planes = ops.words_from_numpy(a, dev)
+    filt = ops.words_from_numpy(f, dev) if with_filter else None
+    assert ops.cuda.percentile_on_chip(planes)
+    for nth in (0, 1, 5000, 9500, 9999, 10000):
+        _percentile_once(planes, filt, nth)
+
+
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_bsi_percentile_global_route(dev, with_filter):
+    """Two shards past what the on-chip route holds, ``consider`` lives in
+    a [2, S, W] scratch in device memory: == the plain version."""
+    w = 32768
+    s = ops.cuda.percentile_grid(dev)[1] // w + 2
+    g = torch.Generator(device=dev).manual_seed(5 + with_filter)
+    planes = torch.randint(-(2**31), 2**31, (s, 10, w), dtype=torch.int32, generator=g, device=dev)
+    assert not ops.cuda.percentile_on_chip(planes)
+    filt = None
+    if with_filter:
+        filt = torch.randint(-(2**31), 2**31, (s, w), dtype=torch.int32, generator=g, device=dev)
+        filt[3] = 0
+    for nth in (1, 5000, 10000):
+        _percentile_once(planes, filt, nth)
+
+
+def test_bsi_percentile_edges_strided_and_rejects(dev):
+    """An all-zero filter (count 0: every bit set), a strided plane view
+    read in place, a launch under set_sync_debug_mode("error"), and what
+    the wrapper refuses."""
+    rng = np.random.default_rng(12)
+    wide = ops.words_from_numpy(rng.integers(0, 2**32, size=(4, 30, 2048 + 8), dtype=np.uint32), dev)
+    sub = wide[:, 3:14, 4 : 2048 + 4]
+    zero = torch.zeros((4, 2048), dtype=torch.int32, device=dev)
+    bits, count = _percentile_once(sub, zero, 5000)
+    assert bits.all() and int(count) == 0
+    _percentile_once(sub, None, 9500)
+    assert torch.equal(
+        ops.cuda.bsi_percentile(sub, None, 9500)[0], ops.cuda.bsi_percentile(sub.contiguous(), None, 9500)[0]
+    )
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.bsi_percentile_batched(sub, zero, 50, bit_depth=10, has_filter=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = ops.bsi_percentile_plain(sub, None, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for planes, nth in (
+        (torch.zeros((2, 5, 2048 + 2), dtype=torch.int32, device=dev), 50),
+        (sub, 10001),
+        (sub, -1),
+        (torch.zeros((1, 65, 32), dtype=torch.int32, device=dev), 50),
+    ):
+        with pytest.raises(ValueError):
+            ops.cuda.bsi_percentile(planes, None, nth)
 
 
 # -- K6 expand_blocks and K7 word_delta -----------------------------------------------

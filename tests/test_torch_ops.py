@@ -407,6 +407,84 @@ def test_bound_popcount_floor_by_kernel(rows, p, with_filter):
         assert d["popcount_ms"] > 0 and d["bound_by"] == "bytes"
 
 
+def _percentile_need_brute(a, f, nth):
+    """(considered words, their 32-byte sectors) summed over the plane
+    steps of the nearest-rank search on u32 planes [S, D+1, W] and an
+    optional filter [S, W], walked one step at a time in numpy."""
+    s, d1, w = a.shape
+    consider = a[:, d1 - 1] if f is None else a[:, d1 - 1] & f
+    count = sum(bin(int(x)).count("1") for x in consider.reshape(-1))
+    k = min(max(-(-nth * count // 10000), 1), max(count, 1))
+    words = sectors = 0
+    for i in range(d1 - 2, -1, -1):
+        words += int(np.count_nonzero(consider))
+        sectors += int((consider.reshape(s, w // 8, 8) != 0).any(axis=2).sum())
+        zeros = consider & ~a[:, i]
+        c = sum(bin(int(x)).count("1") for x in zeros.reshape(-1))
+        if k <= c:
+            consider = zeros
+        else:
+            consider = consider & a[:, i]
+            k -= c
+    return words, sectors
+
+
+@pytest.mark.parametrize(
+    "depth,filt_kind,nth",
+    [(0, None, 9500), (6, "dense", 9500), (24, None, 9500), (24, "dense", 9500),
+     (24, "sparse", 5000), (9, "sparse", 1), (9, "empty", 10000)],
+)
+def test_bound_bsi_percentile(depth, filt_kind, nth):
+    """chip_smoke's bound of the percentile search: the not-null plane and
+    the filter read whole, each step's plane only in the sectors where
+    that step's candidates lie, the bits and the count written; one
+    popcount per word for the count and one per candidate word a step,
+    the floor on a card slow enough for it."""
+    import types
+
+    smoke = _smoke()
+    rng = np.random.default_rng(depth * 7 + len(filt_kind or "") + nth)
+    s, w = 3, 64
+    a = _u32(rng, (s, depth + 1, w))
+    f = None
+    if filt_kind == "dense":
+        f = _u32(rng, (s, w))
+    elif filt_kind == "sparse":
+        f = rng.integers(0, 2**32, size=(s, w), dtype=np.uint32) * (rng.random((s, w)) < 0.2)
+        f = f.astype(np.uint32)
+    elif filt_kind == "empty":
+        f = np.zeros((s, w), dtype=np.uint32)
+    planes = _t(a)
+    filt = _t(f) if f is not None else None
+    words, sectors = _percentile_need_brute(a, f, nth)
+    assert smoke.percentile_need(planes, filt, nth) == {
+        "step_words": words, "step_sectors": sectors, "all_sectors": s * w // 8}
+    if depth >= 9:
+        # the search narrows: later steps read fewer sectors than a plane holds
+        assert sectors < depth * s * w // 8
+    h100 = types.SimpleNamespace(sms=132, sm_clock_hz=1.98e9)
+    b = smoke.bound("bsi_percentile", (planes, filt, nth), h100)
+    assert b["bytes"] == (1 + (f is not None)) * s * w * 4 + sectors * 32 + depth + 4
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / smoke.HBM_BYTES_PER_S * 1e3)
+    popcounts = s * w + words
+    assert b["popcount_ms"] == pytest.approx(popcounts / (132 * smoke.POPC_PER_CLOCK_PER_SM * 1.98e9) * 1e3)
+    slow = smoke.bound("bsi_percentile", (planes, filt, nth), types.SimpleNamespace(sms=1, sm_clock_hz=1.0))
+    assert slow["bound_by"] == "operations"
+    assert slow["bound_ms"] == pytest.approx(popcounts / smoke.POPC_PER_CLOCK_PER_SM * 1e3)
+
+
+@pytest.mark.parametrize("depth", [0, 6, 24])
+def test_percentile_scratch_bytes_on_cpu(depth):
+    """The fused percentile unit's admission charge off the card: K10's
+    step counters and outputs as on its on-chip route, no [2, S, W]
+    working set."""
+    from pilosa_tpu_torch.ops import cuda
+
+    planes = torch.zeros((), dtype=torch.int32).expand(58, depth + 1, 32768)
+    assert cuda.percentile_scratch_bytes(planes) == 8 * (depth + 1) + depth + 4
+
+
 @pytest.mark.parametrize("n_items", [1, 3, 5, 8, 16])
 def test_smoke_client_streams(n_items):
     """chip_smoke's HTTP client streams: the rotating ones send every
