@@ -115,9 +115,15 @@ scorer at the widest batch (Q) of the dense phases; the GroupBy kernel
 at the count-only ssb panel and at a dense, non-exclusive shape (no
 filter, two 8-row set fields whose columns sit in several rows each,
 drawn from a seed), the worst case of a kernel that visits only the
-group words that are set. Bounds count what the inputs need: for the
-GroupBy kernel, the set group words and the sectors where the filter is
-set; for the dense scorer, the non-zero source words.
+group words that are set; and every kernel that launches on the fusion
+path also at each shape it launched with there (the first launch of
+each, == plain and timed, with its launches there), which gives its
+launch-weighted gap to the bound. Bounds count what the inputs need: for
+the GroupBy kernel, the set group words and the sectors where the filter
+is set; for the dense scorer, the non-zero source words; for Min/Max and
+the percentile search, each step's plane only in the sectors where that
+step's candidates lie (per shard for Min/Max); for Distinct, the planes
+at the considered words and its minterm split's operations.
 
 The fragments are written by a pool of worker processes, stopped before
 the card is used.
@@ -139,6 +145,7 @@ import itertools
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1273,6 +1280,15 @@ def card_memory_by_owner(ex, holders: int = 0) -> dict:
     }
 
 
+# the kernels timed at each shape they launch with on the fusion path (the
+# rest launch on other paths only), and the distinct shapes of each whose
+# arguments are kept and timed; launches of any further shape are counted
+# as untimed
+FUSION_SHAPE_KERNELS = ("sparse_stacked_scores", "tree_count", "groupby_reduce", "bsi_range",
+                        "bsi_minmax", "distinct_presence", "bsi_percentile")
+FUSION_SHAPES_KEPT = 24
+
+
 class Recorder:
     """Wraps the kernel wrappers of ``ops.cuda`` to keep, per kernel, a
     copy of the arguments of its largest launch over the run (by input
@@ -1304,6 +1320,9 @@ class Recorder:
         # a one-leaf tree count of one shard row (32,768 words), the
         # tree count's most launched shape
         self.tree_one_leaf = None
+        # each kernel on the fusion path, by shape: {key: [launches, kept
+        # arguments of the first launch or None past FUSION_SHAPES_KEPT]}
+        self.fusion_shapes: dict[str, dict] = {name: {} for name in FUSION_SHAPE_KERNELS}
         # (wrapper, record key, size): the word-delta kernel's two routes
         # are recorded apart, the in-place one under the kernel's name
         for attr, name, size in (
@@ -1330,6 +1349,9 @@ class Recorder:
             self.dense_widest_q = _offload(self.dense_widest_q)
             self.tree_one_leaf = _offload(self.tree_one_leaf)
             self.groupby_count_only = _offload(self.groupby_count_only)
+            for shapes in self.fusion_shapes.values():
+                for entry in shapes.values():
+                    entry[1] = _offload(entry[1])
 
     def _wrap(self, name, fn, size):
         def wrapped(*args):
@@ -1339,6 +1361,12 @@ class Recorder:
                     self._size[name] = n
                     self.args[name] = _keep(args)
                     self.where[name] = self.path
+                if self.path == "fusion" and name in self.fusion_shapes:
+                    shapes = self.fusion_shapes[name]
+                    key = json.dumps(_shape(name, args), sort_keys=True)
+                    if key not in shapes:
+                        shapes[key] = [0, _keep(args) if len(shapes) < FUSION_SHAPES_KEPT else None]
+                    shapes[key][0] += 1
             return fn(*args)
 
         return wrapped
@@ -1514,6 +1542,31 @@ def percentile_need(planes, filt, nth_bp: int) -> dict:
     return {"step_words": words, "step_sectors": sectors, "all_sectors": s * w // per_sector}
 
 
+def minmax_need(planes, filt, is_min: bool) -> dict:
+    """What K8's per-shard recurrences over these inputs need, counted from
+    the inputs on whatever device they lie by running them: at each plane
+    step of each shard, the non-zero words of that shard's ``consider``
+    (``step_words``) and the 32-byte sectors holding them (a plane is read
+    only there; ``step_sectors``), summed over shards and steps, out of
+    ``all_sectors`` a step. Min keeps the columns with the plane's bit
+    clear when any is, Max those with it set; planes [S, D+1, W], filter
+    [S, W] or None; W a multiple of 8."""
+    import torch
+
+    s, d1, w = planes.shape
+    per_sector = SECTOR_BYTES // 4
+    consider = planes[:, d1 - 1] if filt is None else planes[:, d1 - 1] & filt
+    words = sectors = 0
+    for i in range(d1 - 2, -1, -1):
+        words += int(torch.count_nonzero(consider))
+        sectors += int((consider.reshape(s, w // per_sector, per_sector) != 0).any(dim=2).sum())
+        plane = planes[:, i]
+        x = consider & ~plane if is_min else consider & plane
+        keep = (x != 0).any(dim=1, keepdim=True)
+        consider = torch.where(keep, x, consider)
+    return {"step_words": words, "step_sectors": sectors, "all_sectors": s * w // per_sector}
+
+
 def _popc_s(n: int, card: Card) -> float:
     return n / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
 
@@ -1544,16 +1597,19 @@ def bound(name: str, args, card: Card) -> dict:
     inputs: the larger of its bytes (each input read once, each output
     written once) over HBM's rate and its operations over the card's rate
     for them (popcounts for the scorers and the GroupBy kernel, 32-bit
-    integer ops for the range kernel). Where the work depends on the data,
+    integer ops for the range kernel and Distinct's minterm split). Where the work depends on the data,
     what these inputs need: for the dense scorer, a popcount per row and
     non-zero source word; for the GroupBy kernel, P + 1 popcounts per
     non-zero group word, the filter read whole and every other row only in
     the sectors where the filter is set; for the sparse scorer, the blocks
     in range and the source containers they name; for the tree count, each
     distinct leaf; for the range kernel, the planes its program reads; for
-    Distinct, the planes at the considered words; for the percentile
+    Distinct, the planes at the considered words and, to 6 bits, the
+    2^(D+1) - 2 operations that split each into its value minterms; for
+    the percentile
     search, each step's plane in the sectors where that step's candidates
-    lie (``percentile_need``).
+    lie (``percentile_need``); for Min/Max, each shard's step plane in
+    the sectors where that shard's candidates lie (``minmax_need``).
 
     Popcounts are timed at the CUDA cores' rate (``popcount_ms``). The
     dense scorer runs them as single-bit matrix products on the tensor
@@ -1615,21 +1671,25 @@ def bound(name: str, args, card: Card) -> dict:
     elif name == "bsi_minmax":
         planes, filt, is_min = args
         s, d1, w = planes.shape
-        # every plane, the not-null plane and the filter once; bits and counts out
-        nbytes = (d1 + (filt is not None)) * s * w * 4 + s * (d1 - 1) + s * 4
-        # one popcount per word per plane step, and one for the final count
-        ops_s = d1 * s * w / (card.sms * POPC_PER_CLOCK_PER_SM * card.sm_clock_hz)
+        need = minmax_need(planes, filt, is_min)
+        # the not-null plane and the filter whole, each step's plane only in
+        # the sectors where that shard's consider is set; bits and counts out
+        nbytes = (1 + (filt is not None)) * s * w * 4 + need["step_sectors"] * SECTOR_BYTES + s * (d1 - 1) + s * 4
+        # a test per considered word a step, and a popcount per word for the count
+        ops_s = _popc_s(s * w + need["step_words"], card)
     elif name == "distinct_presence":
         planes, filt, depth = args
         s, _, w = planes.shape
         considered = planes[:, depth] if filt is None else planes[:, depth] & filt
         words = int(torch.count_nonzero(considered))
         # not-null and filter whole, the planes only at words that hold a
-        # considered column, the presence words out. The bytes alone: the
-        # kernel's extract-and-OR per plane per column is its own algorithm,
-        # and a bit-sliced evaluation of the value minterms needs fewer
-        # operations than these bytes take at D = 6
+        # considered column, the presence words out
         nbytes = (1 + (filt is not None)) * s * w * 4 + words * depth * 4 + max(((1 << depth) + 31) // 32, 1) * 4
+        # to 6 bits, the bit-sliced split of each considered word into its
+        # 2^D value minterms: 2^(D+1) - 2 logical operations (the last
+        # level's AND folded into the OR); deeper fields by bytes alone
+        if depth <= 6:
+            ops_s = words * ((2 << depth) - 2) / (card.sms * INT32_PER_CLOCK_PER_SM * card.sm_clock_hz)
     elif name == "bsi_percentile":
         planes, filt, nth = args
         s, d1, w = planes.shape
@@ -1889,6 +1949,8 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             nonexcl = nonexclusive_groupby_inputs(device)
             rows[-1]["dense_nonexclusive"] = _held(name, kernel_fn, plain_fn, nonexcl, flush, card)
             del nonexcl
+        if name in rec.fusion_shapes:
+            rows[-1]["fusion_shapes"] = _fusion_shapes(rec, name, kernel_fn, plain_fn, flush, card)
         if name == "bsi_percentile":
             rows[-1]["share_of_bound"] = b["bound_ms"] / ms
             if not rows[-1]["shape"]["on_chip"]:
@@ -1902,6 +1964,34 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             rows[-1]["one_leaf_32768"] = _tree_one_leaf(rec, kernel_fn, plain_fn, flush, card)
         log(f"{name}: == plain; {ms:.3f} ms (bound {b['bound_ms']:.3f} by {b['bound_by']}, plain {plain_ms:.3f})")
     return rows
+
+
+def _fusion_shapes(rec: Recorder, name: str, kernel_fn, plain_fn, flush, card: Card) -> dict:
+    """A kernel at each shape it launched with on the fusion path (the
+    arguments of the shape's first launch): == its plain version once,
+    timed, with its bound and its launches there; and over them, the
+    launches x (ms - bound) that ranks the kernel (``gap_ms``)."""
+    import torch
+
+    rows, gap, untimed = [], 0.0, 0
+    for key, (n, kept) in sorted(rec.fusion_shapes[name].items(), key=lambda kv: -kv[1][0]):
+        if kept is None:
+            untimed += n
+            continue
+        args = _on_card(kept)
+        got = _as_tuple(kernel_fn(*args))
+        want = _as_tuple(plain_fn(*args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version at fusion shape {key}")
+        ms = time_ms(lambda: kernel_fn(*args), 20, flush)
+        b = bound(name, args, card)
+        rows.append({"shape": json.loads(key), "launches": n, "ms": ms,
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+        gap += n * (ms - b["bound_ms"])
+        del args, got, want
+    return {"shapes": rows, "launches": sum(r["launches"] for r in rows) + untimed,
+            "untimed_launches": untimed, "gap_ms": gap}
 
 
 def _expand_unbinned(args, plain_fn, flush) -> dict:
@@ -2011,7 +2101,9 @@ def _shape(name: str, args) -> dict:
         return {"dims": [d.shape[0] for d in dims], "filter": filt is not None, "S": s, "P": p, "W": w}
     if name == "bsi_range":
         planes, code, out_sel = args
-        return {"S": planes.shape[0], "depth": len(code), "planes_read": 1 + sum(1 for c in code if c)}
+        return {"S": planes.shape[0], "W": planes.shape[2], "depth": len(code),
+                "planes_read": 1 + sum(1 for c in code if c),
+                "opcodes": sum((c & 15 != 0) + (c >> 4 != 0) for c in code)}
     if name == "expand_blocks":
         positions, starts, ends, dense, dword, num_words, _offsets = args
         return {"positions": positions.numel(), "runs": starts.numel(), "dense": dense.shape[0], "num_words": num_words}
@@ -2995,6 +3087,17 @@ PATH_OF = {
 }
 
 
+# kernels whose build must report no spill: their design keeps per-thread
+# state (K10's planes, K9's accumulators) in registers
+NO_SPILL = ("bsi_percentile", "distinct_presence")
+
+
+def spill_bytes(ptxas: str) -> int:
+    """The spill store and load bytes ptxas -v reports, summed over a
+    source's kernels."""
+    return sum(int(a) + int(b) for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pilosa_tpu_torch")):
         print("chip_smoke.py: pilosa_tpu_torch/ not found beside this script; "
@@ -3022,6 +3125,11 @@ def main() -> int:
     for name, ent in build.items():
         report = [ln for ln in ent["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"built {name} in {ent['seconds']:.1f} s: " + " | ".join(report))
+    for name in NO_SPILL:
+        if build[name]["cached"]:
+            log(f"{name}: built before this run, its spills not checked")
+        elif spill_bytes(build[name]["ptxas"]):
+            raise AssertionError(f"{name}: ptxas reports {spill_bytes(build[name]['ptxas'])} spill bytes")
     card = card_line()
     print(card, flush=True)
     card_info = Card()

@@ -57,7 +57,20 @@ wrappers on the same seeded inputs, drawn once by this process:
   pct_ssb_filtered the same under Q3.2's filter (nth=50);
   pct_step_floor the same search over one shard's first 1024 words (a
                strided view of the planes): its bytes are negligible, so
-               the time is the launch and 25 grid-wide steps.
+               the time is the launch and its grid-wide steps;
+  pct_launch_floor the same view's not-null plane alone (depth 0): the
+               launch and the one grid-wide count, so pct_step_floor less
+               this is the search's steps;
+  pct_global   the search on K10's global route at a fixed shape for every
+               arm: 101 shards of 25 random planes (past every checkout's
+               on-chip capacity), the not-null plane and a filter each set
+               at about 3 of 4 columns, nth=95 (held to a numpy search
+               over the same words);
+  distinct_ssb_quantity / distinct_ssb_discount / distinct_ssb_discount_brand7
+               the Distinct kernel (K9, ``cuda.distinct_presence``) as
+               ``chip_smoke.py`` queries it: Distinct(field=lo_quantity)
+               (6 bits), Distinct(field=lo_discount) (4 bits), and
+               lo_discount under Row(p_brand1=7), over the 58 shards.
 The ssb columns are drawn as ``chip_smoke.py`` draws them
 (``ssb_columns``) and packed to words with numpy.
 
@@ -98,16 +111,26 @@ DENSE_AND = 6
 EXPAND_ROWS = 128
 EXPAND_KINDS = ("widest", "positions", "runs", "dense")
 DELTA_WORDS = 64
-# (filter, nth basis points, shards, words) of the percentile cases; a
-# filter of None reads none
+# (filter, nth basis points, shards, words, planes) of the percentile
+# cases; a filter of None reads none; planes "all" or "not-null" (depth 0)
 PCT_CASES = {
-    "pct_ssb": (None, 9500, None, None),
-    "pct_ssb_filtered": ("q32_filt", 5000, None, None),
-    "pct_step_floor": (None, 9500, 1, 1024),
+    "pct_ssb": (None, 9500, None, None, "all"),
+    "pct_ssb_filtered": ("q32_filt", 5000, None, None, "all"),
+    "pct_step_floor": (None, 9500, 1, 1024, "all"),
+    "pct_launch_floor": (None, 9500, 1, 1024, "not-null"),
+}
+PCT_GLOBAL_SHAPE = (101, 25, 32768)
+PCT_GLOBAL_NTH = 9500
+# (field, p_brand1 row of the filter or None) of the Distinct cases
+DISTINCT_CASES = {
+    "distinct_ssb_quantity": ("lo_quantity", None),
+    "distinct_ssb_discount": ("lo_discount", None),
+    "distinct_ssb_discount_brand7": ("lo_discount", 7),
 }
 CASES = ("chain", "one") + tuple(f"dense_q{q}" for q in DENSE_QS) + (
     "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive") + tuple(
-    f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib") + tuple(PCT_CASES)
+    f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib") + tuple(
+    PCT_CASES) + ("pct_global",) + tuple(DISTINCT_CASES)
 
 
 def _smoke():
@@ -259,6 +282,34 @@ def _percentile_oracle(values, nth_bp: int, depth: int) -> list:
     return [(kth >> i) & 1 for i in range(depth)] + [n]
 
 
+def _percentile_words_oracle(planes, filt, nth_bp: int) -> list:
+    """[bit 0, ..., bit D-1, count] of the nearest-rank search over packed
+    u32 words (planes [S, D+1, W], filter [S, W]) by numpy."""
+    depth = planes.shape[1] - 1
+    consider = planes[:, depth] & filt
+    count = int(np.bitwise_count(consider).sum(dtype=np.int64))
+    k = nth_bp * (count // 10000) + (nth_bp * (count % 10000) + 9999) // 10000
+    k = min(max(k, 1), max(count, 1))
+    bits = [0] * depth
+    for i in range(depth - 1, -1, -1):
+        zeros = consider & ~planes[:, i]
+        c = int(np.bitwise_count(zeros).sum(dtype=np.int64))
+        if k <= c:
+            consider = zeros
+        else:
+            bits[i] = 1
+            consider = consider & planes[:, i]
+            k -= c
+    return bits + [count]
+
+
+def _presence_words(values, depth: int) -> np.ndarray:
+    """The presence bitmap of ``values`` over [0, 2^depth) as int32 words."""
+    pres = np.zeros(max(1 << depth, 32), dtype=bool)
+    pres[np.unique(values)] = True
+    return np.packbits(pres, bitorder="little").view("<u4").view("<i4")
+
+
 def draw_inputs(smoke, out_dir: str) -> None:
     """Every input and expected answer of the dense and GroupBy cases,
     saved as .npy files in ``out_dir``."""
@@ -301,12 +352,33 @@ def draw_inputs(smoke, out_dir: str) -> None:
     )
     arrays["sum_plane_counts"] = np.array([int(b.sum()) for b in bits], dtype=np.int64)
     q32_sel = (c["c_nation"] == smoke.UNITED_STATES) & (c["s_nation"] == smoke.UNITED_STATES)
-    for name, (filt, nth, shards_cut, words) in PCT_CASES.items():
+    for name, (filt, nth, shards_cut, words, which) in PCT_CASES.items():
         cols = rev if words is None else rev[: words * 32]
         if filt is not None:
             cols = cols[q32_sel[: cols.size]]
-        arrays[name + "_want"] = np.array(_percentile_oracle(cols, nth, depth), dtype=np.int64)
+        d = depth if which == "all" else 0
+        arrays[name + "_want"] = np.array(_percentile_oracle(cols, nth, d), dtype=np.int64)
+    for name, (field, brand) in DISTINCT_CASES.items():
+        lo_f, hi_f = smoke.SSB_INT_FIELDS[field]
+        d = smoke._bit_depth(hi_f - lo_f)
+        vals = c[field].astype(np.int64) - lo_f
+        key = f"planes_{field}"
+        if key not in arrays:
+            fb = [((vals >> i) & 1).astype(bool) for i in range(d)] + [np.ones(vals.size, dtype=bool)]
+            arrays[key] = np.stack([_pack(b, shards, sw) for b in fb], axis=1)
+        if brand is not None:
+            m = c["p_brand1"] == brand
+            arrays[f"brand{brand}_filt"] = _pack(m, shards, sw)
+            vals = vals[m]
+        arrays[name + "_want"] = _presence_words(vals, d)
     del c, bits, rev, sel
+    g = np.random.default_rng(1906)
+    s_g, d1_g, w_g = PCT_GLOBAL_SHAPE
+    gp = g.integers(0, 2**32, size=(s_g, d1_g, w_g), dtype=np.uint32)
+    gp[:, d1_g - 1] |= g.integers(0, 2**32, size=(s_g, w_g), dtype=np.uint32)
+    gf = g.integers(0, 2**32, size=(s_g, w_g), dtype=np.uint32) | g.integers(0, 2**32, size=(s_g, w_g), dtype=np.uint32)
+    arrays["pct_global_planes"], arrays["pct_global_filt"] = gp, gf
+    arrays["pct_global_want"] = np.array(_percentile_words_oracle(gp, gf, PCT_GLOBAL_NTH), dtype=np.int64)
     arrays.update(_nonexclusive(smoke, arrays["planes"]))
     arrays.update(_tier_payloads(smoke))
     for name, a in arrays.items():
@@ -379,18 +451,31 @@ def run_arm(checkout: str, data: str) -> int:
     fill = torch.empty(EXPAND_ROWS * 32768, dtype=torch.int32, device=dev)
     cases["fill_16mib"] = (lambda: fill.zero_(), [np.zeros(fill.numel(), np.int32)])
     depth = planes.shape[1] - 1
-    for name, (filt_name, nth, shards_cut, words) in PCT_CASES.items():
+    for name, (filt_name, nth, shards_cut, words, which) in PCT_CASES.items():
         pl = planes if words is None else planes[:shards_cut, :, :words]
+        if which == "not-null":
+            pl = pl[:, depth:]
         filt = up(filt_name) if filt_name is not None else None
         kernel = getattr(cuda, "bsi_percentile", None)
         if kernel is not None:
             fn = lambda pl=pl, filt=filt, nth=nth, k=kernel: k(pl, filt, nth)  # noqa: E731
         else:
             fn = lambda pl=pl, filt=filt, nth=nth: ops.bsi_percentile_batched(  # noqa: E731
-                pl, filt, nth, bit_depth=depth, has_filter=filt is not None
+                pl, filt, nth, bit_depth=pl.shape[1] - 1, has_filter=filt is not None
             )
         want = load(name + "_want")
         cases[name] = (fn, [want[:-1], want[-1]])
+    gpl, gfl = up("pct_global_planes"), up("pct_global_filt")
+    gw = load("pct_global_want")
+    cases["pct_global"] = (lambda: cuda.bsi_percentile(gpl, gfl, PCT_GLOBAL_NTH), [gw[:-1], gw[-1]])
+    for name, (field, brand) in DISTINCT_CASES.items():
+        dpl = up(f"planes_{field}")
+        dfl = up(f"brand{brand}_filt") if brand is not None else None
+        ddepth = dpl.shape[1] - 1
+        cases[name] = (
+            lambda dpl=dpl, dfl=dfl, ddepth=ddepth: cuda.distinct_presence(dpl, dfl, ddepth),
+            [load(name + "_want")],
+        )
     torch.cuda.synchronize()
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
     out = {"arm": checkout}

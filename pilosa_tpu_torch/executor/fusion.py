@@ -556,7 +556,7 @@ class QueryFuser:
             val = sum(1 << j for j in range(depth) if int(out[j]))
             return ValCount(val + bsig.min, count)
 
-        # K10's step counters and outputs, and its [2, S, W] scratch on the global route
+        # K10's step counters and outputs, and its [S, W] scratch on the global route
         work = ops.cuda.percentile_scratch_bytes(planes)
         return _Unit(
             i, ("percentile", depth, filt is not None), (planes, filt, nth_bp), finish,

@@ -642,8 +642,8 @@ def distinct_presence(planes: torch.Tensor, filt, depth: int) -> torch.Tensor:
     return out
 
 
-# Columns one bsi_percentile launch counts: a step word keeps the sum in
-# its low 48 bits (kArrivalShift in bsi_percentile.cu).
+# Columns one bsi_percentile launch counts: each step word keeps its sum
+# in its low 48 bits (kArrivalShift in bsi_percentile.cu).
 PERCENTILE_MAX_BITS = 1 << 48
 
 def percentile_grid(device) -> tuple[int, int]:
@@ -661,25 +661,33 @@ def percentile_grid(device) -> tuple[int, int]:
 
 def percentile_on_chip(planes: torch.Tensor) -> bool:
     """Whether K10 keeps ``consider`` of the search over this [S, D+1, W]
-    plane view on chip (else in a [2, S, W] scratch in device memory):
-    the S x W words fit in what the grid holds, and every plane word lies
-    within the kernel's 32-bit vector offsets. The one route decision:
+    plane view on chip (else in an [S, W] scratch in device memory):
+    the S x W words fit in what the grid holds (4 16-byte vectors a
+    thread), and every plane word lies within the kernel's 32-bit vector
+    offsets. The one route decision:
     the launch and fusion's admission charge both ask it."""
     s, d1, w = planes.shape
     last = ((s - 1) * planes.stride(0) + (d1 - 1) * planes.stride(1) + w) // 4
     return s * w <= percentile_grid(planes.device)[1] and last < 1 << 32
 
 
+def percentile_counter_words(depth: int) -> int:
+    """K10's u64 step-word slots for a depth: three words a barrier (one
+    barrier for the count, then one per two bits), each in a 128-byte
+    line of its own (16 slots; kCounterStride in bsi_percentile.cu)."""
+    return 3 * 16 * (1 + (depth + 1) // 2)
+
+
 def percentile_scratch_bytes(planes: torch.Tensor) -> int:
     """Device memory one K10 launch over ``planes`` ([S, D+1, W])
     allocates beyond its inputs: the step counters, the bits and the
-    count, and on the global route the [2, S, W] scratch. On a CPU
-    device, what the card's on-chip route takes (no grid to ask)."""
+    count, and on the global route the [S, W] scratch. On a CPU device,
+    what the card's on-chip route takes (no grid to ask)."""
     s, d1, w = planes.shape
-    small = 8 * d1 + (d1 - 1) + 4
+    small = 8 * percentile_counter_words(d1 - 1) + (d1 - 1) + 4
     if planes.device.type != "cuda" or s * w == 0 or percentile_on_chip(planes):
         return small
-    return small + 2 * s * w * 4
+    return small + s * w * 4
 
 
 def bsi_percentile(planes: torch.Tensor, filt, nth_bp: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -716,8 +724,8 @@ def bsi_percentile(planes: torch.Tensor, filt, nth_bp: int) -> tuple[torch.Tenso
     wv = w // 4
     nv = s * wv
     on_chip = percentile_on_chip(planes)
-    state = None if on_chip else torch.empty((2, s * w), dtype=torch.int32, device=device)
-    counters = torch.empty(depth + 1, dtype=torch.int64, device=device)
+    state = None if on_chip else torch.empty(s * w, dtype=torch.int32, device=device)
+    counters = torch.empty(percentile_counter_words(depth), dtype=torch.int64, device=device)
     lib = _build.library("bsi_percentile")
     err = lib.pilosa_bsi_percentile(
         planes.data_ptr(), plane_stride, shard_stride, fptr, fss, wv, nv, depth, int(nth_bp),

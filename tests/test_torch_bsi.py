@@ -288,6 +288,78 @@ def test_percentile_matches_jax(nth_bp, depth, shards, strided):
             assert want == ([True] * depth, 0)
 
 
+def _dying_stack(rng, depth, shards, side):
+    """Planes where one column stands alone on its side of the top plane
+    (set, or clear), so the search's first step keeps only it."""
+    stack = _planes(rng, depth, shards=shards)
+    lone = np.uint32(1 << 5)
+    stack[:, depth - 1] = 0 if side == "set" else 0xFFFFFFFF
+    stack[-1, depth - 1, W // 2] = lone if side == "set" else ~lone
+    stack[-1, depth, W // 2] |= lone
+    return stack
+
+
+# (depth, shards, filter kind, nth_bp): the shapes K10's two-bit steps,
+# its skipped vectors and its single-bit last step meet
+PERCENTILE_STEP_CASES = [
+    pytest.param(d, s, f, n, id=f"d{d}-s{s}-{f}-{n}")
+    for d in (2, 3, 5, 7, 8)
+    for s in (1, 3)
+    for f in ("sectors", "dies-set", "dies-clear")
+    for n in (0, 1, 5000, 10000)
+]
+
+
+@pytest.mark.parametrize("depth,shards,kind,nth_bp", PERCENTILE_STEP_CASES)
+def test_percentile_step_shapes_match_jax(depth, shards, kind, nth_bp):
+    """``bsi_percentile_plain`` and ``bsi_percentile_batched`` against the
+    JAX package, ==: even and odd depths, a filter that empties whole
+    32-byte sectors and (with 3 shards) a whole shard, and a ``consider``
+    that keeps one column after the first step (nth 10000 on the set
+    side, nth 0 on the clear side; other nth too), unfiltered."""
+    rng = np.random.default_rng(300 + depth * 10 + shards + nth_bp % 7)
+    if kind == "sectors":
+        stack = _planes(rng, depth, shards=shards)
+        f = _u32(rng, (shards, W))
+        f.reshape(shards, W // 8, 8)[:, 1::2] = 0
+        if shards > 1:
+            f[1] = 0
+        filt = f
+    else:
+        stack = _dying_stack(rng, depth, shards, kind.split("-")[1])
+        filt = None
+    has_filter = filt is not None
+    f = filt if has_filter else np.zeros((shards, W), dtype=np.uint32)
+    wb, wc = jops.bsi_percentile_batched(stack, f, np.int32(nth_bp), bit_depth=depth, has_filter=has_filter)
+    want = (np.asarray(wb).tolist(), int(wc))
+    gb, gc = tops.bsi_percentile_batched(_t(stack), _t(f), nth_bp, bit_depth=depth, has_filter=has_filter)
+    pb, pc = tops.bsi_percentile_plain(_t(stack), _t(filt) if has_filter else None, nth_bp)
+    assert (gb.tolist(), int(gc)) == want and (pb.tolist(), int(pc)) == want
+    if kind.startswith("dies") and (nth_bp, kind) in ((10000, "dies-set"), (0, "dies-clear")):
+        lone = [int(stack[-1, i, W // 2] >> 5 & 1) for i in range(depth)]
+        assert want[0] == [bool(b) for b in lone]
+
+
+@pytest.mark.parametrize("depth", [0, 2, 3, 4, 5])
+@pytest.mark.parametrize("has_filter", [False, True])
+def test_distinct_presence_register_depths_match_jax(depth, has_filter):
+    """Every depth of K9's register route the older case lacks, over
+    words with a single set bit, all-ones words and a filter that zeroes
+    whole words: ``bsi_distinct_presence`` (its plain version on the CPU)
+    against the JAX package, ==."""
+    rng = np.random.default_rng(depth * 2 + has_filter + 60)
+    stack = _planes(rng, depth, shards=3)
+    stack[0, depth, : W // 2] = (1 << (np.arange(W // 2) % 32)).astype(np.uint32)
+    stack[1, depth] = 0xFFFFFFFF
+    stack[2, depth] = 0
+    filt = _u32(rng, (3, W))
+    filt[:, ::2] = 0
+    want = np.asarray(jops.bsi_distinct_presence(stack, filt, bit_depth=depth, has_filter=has_filter))
+    got = tops.bsi_distinct_presence(_t(stack), _t(filt), bit_depth=depth, has_filter=has_filter)
+    assert np.array_equal(tops.words_to_numpy(got), want)
+    assert int(np.count_nonzero(want)) > 0
+
+
 @pytest.mark.parametrize("depth", [1, 6, 10])
 def test_distinct_presence_matches_jax(depth):
     rng = np.random.default_rng(depth + 40)

@@ -455,7 +455,7 @@ def test_bsi_percentile_matches_plain(dev, depth, s, w, with_filter):
 @pytest.mark.parametrize("with_filter", [False, True])
 def test_bsi_percentile_global_route(dev, with_filter):
     """Two shards past what the on-chip route holds, ``consider`` lives in
-    a [2, S, W] scratch in device memory: == the plain version."""
+    an [S, W] scratch in device memory: == the plain version."""
     w = 32768
     s = ops.cuda.percentile_grid(dev)[1] // w + 2
     g = torch.Generator(device=dev).manual_seed(5 + with_filter)
@@ -466,6 +466,108 @@ def test_bsi_percentile_global_route(dev, with_filter):
         filt = torch.randint(-(2**31), 2**31, (s, w), dtype=torch.int32, generator=g, device=dev)
         filt[3] = 0
     for nth in (1, 5000, 10000):
+        _percentile_once(planes, filt, nth)
+
+
+def _sector_filter(rng, s, w):
+    """A filter that empties whole 32-byte sectors (every other 8-word
+    run), one whole shard, and leaves single bits elsewhere in part."""
+    f = rng.integers(0, 2**32, size=(s, w), dtype=np.uint32)
+    f.reshape(s, w // 8, 8)[:, ::2] = 0
+    f[s // 2] = 0
+    f[-1, 8::64] = 1 << 7
+    return f
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4, 5, 7, 8, 13, 16, 23, 24])
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_bsi_percentile_two_bit_steps(dev, depth, with_filter):
+    """K10 decides two bits a barrier, and an odd depth ends with one
+    single-bit step: == the plain version at even and odd depths, with
+    all-ones and all-zero planes among random ones, k at 1 and at count
+    (nth 0 and 10000), and a filter that empties whole sectors and a
+    whole shard."""
+    rng = np.random.default_rng(700 + depth * 2 + with_filter)
+    s, w = 3, 4096
+    a = rng.integers(0, 2**32, size=(s, depth + 1, w), dtype=np.uint32)
+    if depth >= 2:
+        a[:, depth - 1] = 0xFFFFFFFF
+        a[:, depth // 2] = 0
+    planes = ops.words_from_numpy(a, dev)
+    filt = ops.words_from_numpy(_sector_filter(rng, s, w), dev) if with_filter else None
+    assert ops.cuda.percentile_on_chip(planes)
+    for nth in (0, 1, 2500, 5000, 9999, 10000):
+        _percentile_once(planes, filt, nth)
+
+
+@pytest.mark.parametrize("depth", [1, 6, 7, 24])
+@pytest.mark.parametrize("side", ["set", "clear"])
+def test_bsi_percentile_consider_dies_after_one_step(dev, depth, side):
+    """One column alone on its side of the top plane: the search takes
+    that side at the first step (nth 10000 for the set side, 0 for the
+    clear one), so every other vector of ``consider`` dies and no later
+    step reads it; the answer is that column's value. Also with the rest
+    filtered away."""
+    rng = np.random.default_rng(800 + depth + (side == "set"))
+    s, w = 5, 2048
+    a = rng.integers(0, 2**32, size=(s, depth + 1, w), dtype=np.uint32)
+    lone = np.uint32(1 << 19)
+    if side == "set":
+        a[:, depth - 1] = 0
+        a[3, depth - 1, 1001] = lone
+        nth = 10000
+    else:
+        a[:, depth - 1] = 0xFFFFFFFF
+        a[3, depth - 1, 1001] = ~lone
+        nth = 0
+    a[3, depth, 1001] |= lone
+    planes = ops.words_from_numpy(a, dev)
+    bits, count = _percentile_once(planes, None, nth)
+    want = [int(a[3, i, 1001] >> 19 & 1) for i in range(depth)]
+    assert bits.cpu().tolist() == [bool(b) for b in want]
+    f = np.zeros((s, w), dtype=np.uint32)
+    f[3, 1001] = lone
+    f[0, :64] = 0xFFFFFFFF
+    _percentile_once(planes, ops.words_from_numpy(f, dev), nth)
+
+
+@pytest.mark.parametrize("count", [1, (1 << 16) - 1, 1 << 16, (1 << 24) - 1, 1 << 24])
+@pytest.mark.parametrize("depth", [7, 8])
+def test_bsi_percentile_count_packing_edges(dev, count, depth):
+    """K10 sums a step's three counts in one step word below 2^16
+    considered columns, in two below 2^24, else in three: == the plain
+    version with exactly ``count`` columns considered on each side of
+    those edges, at an odd and an even depth."""
+    w = 32768
+    s = (count - 1) // (w * 32) + 1
+    rng = np.random.default_rng(count % 1000 + depth)
+    a = rng.integers(0, 2**32, size=(s, depth + 1, w), dtype=np.uint32)
+    nn = np.zeros(s * w, dtype=np.uint32)
+    nn[: count // 32] = 0xFFFFFFFF
+    if count % 32:
+        nn[count // 32] = (1 << (count % 32)) - 1
+    a[:, depth] = nn.reshape(s, w)
+    planes = ops.words_from_numpy(a, dev)
+    for nth in (1, 5000, 10000):
+        _, got = _percentile_once(planes, None, nth)
+        assert int(got) == count
+
+
+@pytest.mark.parametrize("depth", [7, 24])
+def test_bsi_percentile_global_route_odd_depth_and_sectors(dev, depth):
+    """The global route at an odd and an even depth under a filter that
+    empties whole sectors and a whole shard, and through a strided view:
+    == the plain version at nth 0, 1, 5000 and 10000."""
+    w = 32768
+    s = ops.cuda.percentile_grid(dev)[1] // w + 2
+    g = torch.Generator(device=dev).manual_seed(900 + depth)
+    wide = torch.randint(-(2**31), 2**31, (s, depth + 3, w), dtype=torch.int32, generator=g, device=dev)
+    planes = wide[:, 1 : depth + 2]
+    assert not ops.cuda.percentile_on_chip(planes)
+    filt = torch.randint(-(2**31), 2**31, (s, w), dtype=torch.int32, generator=g, device=dev)
+    filt.view(s, w // 8, 8)[:, 1::2] = 0
+    filt[s // 3] = 0
+    for nth in (0, 1, 5000, 10000):
         _percentile_once(planes, filt, nth)
 
 
@@ -672,11 +774,11 @@ def test_word_delta_2d_matches_plain(dev, s, m):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("depth", [0, 1, 5, 6, 7, 13, 20, 21, 24])
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4, 5, 6, 7, 13, 20, 21, 24])
 @pytest.mark.parametrize("with_filter", [False, True])
 def test_distinct_presence_matches_plain(dev, depth, with_filter):
-    """K9 == its plain version on every marking route (a per-thread mask
-    up to depth 6, shared memory up to 20, global atomics to 24), one
+    """K9 == its plain version on every route (a bit-sliced minterm split
+    in registers up to depth 6, shared memory up to 20, global atomics to 24), one
     launch: random values, a shard with no value, a sparse filter, and a
     plane stack read in place through its strides."""
     rng = np.random.default_rng(depth * 10 + with_filter)
@@ -696,6 +798,36 @@ def test_distinct_presence_matches_plain(dev, depth, with_filter):
     zeros = torch.zeros((s, w), dtype=torch.int32, device=dev)
     pub = ops.bsi_distinct_presence(planes, filt if with_filter else zeros, bit_depth=depth, has_filter=with_filter)
     assert torch.equal(pub, want)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec4", "vec1"])
+def test_distinct_presence_register_route_words(dev, depth, aligned):
+    """K9's register route at every depth it serves, with 16-byte vector
+    loads (aligned) and word loads (a view one word in): words with a
+    single set bit, all-ones words, a filter that zeroes whole words, and
+    no value at all; == the plain version."""
+    rng = np.random.default_rng(1000 + depth * 2 + aligned)
+    s, w = 4, 2048
+    a = rng.integers(0, 2**32, size=(s, depth + 1, w + 4), dtype=np.uint32)
+    nn = a[:, depth]
+    nn[0, : w // 2] = 1 << (np.arange(w // 2) % 32)
+    nn[1] = 0xFFFFFFFF
+    nn[2] = 0
+    if depth:
+        a[1, depth - 1, ::3] = 0xFFFFFFFF
+    wide = ops.words_from_numpy(a, dev)
+    planes = wide[..., :w] if aligned else wide[..., 1 : w + 1]
+    f = rng.integers(0, 2**32, size=(s, w), dtype=np.uint32)
+    f[:, ::2] = 0
+    f[3] = 0
+    for filt in (None, ops.words_from_numpy(f, dev), torch.zeros((s, w), dtype=torch.int32, device=dev)):
+        before = ops.cuda.DISTINCT_PRESENCE.launches
+        got = ops.cuda.distinct_presence(planes, filt, depth)
+        torch.cuda.synchronize()
+        assert ops.cuda.DISTINCT_PRESENCE.launches == before + 1
+        assert torch.equal(got, ops.bsi_distinct_presence_plain(planes, filt, depth))
+    assert not bool(ops.cuda.distinct_presence(planes[2:3], None, depth).any())
 
 
 def test_distinct_presence_at_the_ssb_shape_and_rejects(dev):

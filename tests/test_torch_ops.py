@@ -474,15 +474,146 @@ def test_bound_bsi_percentile(depth, filt_kind, nth):
     assert slow["bound_ms"] == pytest.approx(popcounts / smoke.POPC_PER_CLOCK_PER_SM * 1e3)
 
 
-@pytest.mark.parametrize("depth", [0, 6, 24])
+def _minmax_need_brute(a, f, is_min):
+    """(step words, step sectors) of K8's per-shard recurrences by numpy,
+    one shard and one step at a time."""
+    s, d1, w = a.shape
+    words = sectors = 0
+    for sh in range(s):
+        consider = a[sh, d1 - 1] if f is None else a[sh, d1 - 1] & f[sh]
+        for i in range(d1 - 2, -1, -1):
+            words += int(np.count_nonzero(consider))
+            sectors += int((consider.reshape(w // 8, 8) != 0).any(axis=1).sum())
+            x = consider & ~a[sh, i] if is_min else consider & a[sh, i]
+            if x.any():
+                consider = x
+    return words, sectors
+
+
+@pytest.mark.parametrize("depth", [0, 1, 9, 24])
+@pytest.mark.parametrize("filt_kind", [None, "sparse", "empty"])
+@pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
+def test_bound_bsi_minmax_counts_the_narrowing_search(depth, filt_kind, is_min):
+    """chip_smoke's bound of K8: the not-null plane and the filter read
+    whole, each shard's step plane only in the sectors where that shard's
+    candidates lie (Min keeps the clear side when any column has it, Max
+    the set side), the bits and counts written; a test per candidate word
+    a step and a popcount per word for the count."""
+    import types
+
+    smoke = _smoke()
+    rng = np.random.default_rng(depth * 5 + len(filt_kind or "") + is_min)
+    s, w = 3, 64
+    a = _u32(rng, (s, depth + 1, w))
+    f = None
+    if filt_kind == "sparse":
+        f = (rng.integers(0, 2**32, size=(s, w), dtype=np.uint32) * (rng.random((s, w)) < 0.2)).astype(np.uint32)
+    elif filt_kind == "empty":
+        f = np.zeros((s, w), dtype=np.uint32)
+    planes = _t(a)
+    filt = _t(f) if f is not None else None
+    words, sectors = _minmax_need_brute(a, f, is_min)
+    assert smoke.minmax_need(planes, filt, is_min) == {
+        "step_words": words, "step_sectors": sectors, "all_sectors": s * w // 8}
+    if depth >= 9 and filt_kind is None:
+        assert sectors < depth * s * w // 8
+    h100 = types.SimpleNamespace(sms=132, sm_clock_hz=1.98e9)
+    b = smoke.bound("bsi_minmax", (planes, filt, is_min), h100)
+    assert b["bytes"] == (1 + (f is not None)) * s * w * 4 + sectors * 32 + s * depth + s * 4
+    tests = s * w + words
+    assert b["popcount_ms"] == pytest.approx(tests / (132 * smoke.POPC_PER_CLOCK_PER_SM * 1.98e9) * 1e3)
+
+
+@pytest.mark.parametrize("depth", [0, 4, 6, 7])
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_bound_distinct_presence_counts_the_minterm_split(depth, with_filter):
+    """chip_smoke's bound of K9: not-null and filter whole, the planes at
+    the considered words, the presence words out; to 6 bits also the
+    2^(D+1) - 2 logical operations a considered word, the floor on a card
+    slow enough for it; deeper fields by bytes alone."""
+    import types
+
+    smoke = _smoke()
+    rng = np.random.default_rng(depth * 3 + with_filter + 90)
+    s, w = 2, 64
+    a = _u32(rng, (s, depth + 1, w))
+    a[:, depth, ::3] = 0
+    f = _u32(rng, (s, w)) if with_filter else None
+    if f is not None:
+        f[:, 1::4] = 0
+    considered = a[:, depth] if f is None else a[:, depth] & f
+    words = int(np.count_nonzero(considered))
+    planes, filt = _t(a), (_t(f) if f is not None else None)
+    h100 = types.SimpleNamespace(sms=132, sm_clock_hz=1.98e9)
+    b = smoke.bound("distinct_presence", (planes, filt, depth), h100)
+    nwords = max(((1 << depth) + 31) // 32, 1)
+    assert b["bytes"] == (1 + with_filter) * s * w * 4 + words * depth * 4 + nwords * 4
+    assert b["bound_by"] == "bytes"
+    ops_ = words * ((2 << depth) - 2) if depth <= 6 else 0
+    assert b["popcount_ms"] == pytest.approx(ops_ / (132 * smoke.INT32_PER_CLOCK_PER_SM * 1.98e9) * 1e3)
+    slow = smoke.bound("distinct_presence", (planes, filt, depth), types.SimpleNamespace(sms=1, sm_clock_hz=1.0))
+    assert slow["bound_by"] == ("operations" if 0 < depth <= 6 else "bytes")
+
+
+@pytest.mark.parametrize(
+    "report,want",
+    [("", 0),
+     ("ptxas info    : Used 64 registers, used 1 barriers, 800 bytes smem\n"
+      "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", 0),
+     ("    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads", 20)],
+)
+def test_smoke_spill_bytes_reads_ptxas(report, want):
+    """chip_smoke.spill_bytes sums every kernel's spill stores and loads in
+    ptxas -v output (a stack frame alone is no spill)."""
+    assert _smoke().spill_bytes(report) == want
+
+
+def test_recorder_counts_fusion_shapes():
+    """chip_smoke's Recorder keeps, for each kernel that launches on the
+    fusion path, each shape's launches there and the arguments of its
+    first launch (up to its limit), and nothing for other paths."""
+    import types
+
+    smoke = _smoke()
+    names = ("dense_scores", "sparse_stacked_scores", "tree_count", "groupby_reduce", "bsi_range",
+             "expand_blocks", "word_delta_", "word_delta", "bsi_minmax", "distinct_presence", "bsi_percentile")
+    fake = types.SimpleNamespace(**{n: (lambda *a: None) for n in names})
+    rec = smoke.Recorder(fake)
+    planes = torch.zeros((2, 5, 64), dtype=torch.int32)
+    filt = torch.zeros((2, 64), dtype=torch.int32)
+    rec.path = "ssb"
+    fake.bsi_range(planes, (0x11, 0, 0, 0x2), 0)
+    rec.path = "fusion"
+    for _ in range(3):
+        fake.bsi_range(planes, (0x11, 0, 0, 0x2), 0)
+    fake.bsi_range(planes[:, 1:], (0x1, 0, 0), 0)
+    fake.groupby_reduce([], filt, planes)
+    fake.groupby_reduce([], filt, planes)
+    fake.bsi_minmax(planes, None, True)
+    fake.bsi_minmax(planes, filt, True)
+    fake.bsi_minmax(planes, filt, False)
+    fake.distinct_presence(planes, None, 4)
+    k5 = rec.fusion_shapes["bsi_range"]
+    assert sorted(n for n, _ in k5.values()) == [1, 3]
+    assert all(kept is not None for _, kept in k5.values())
+    assert [n for n, _ in rec.fusion_shapes["groupby_reduce"].values()] == [2]
+    assert sorted(n for n, _ in rec.fusion_shapes["bsi_minmax"].values()) == [1, 1, 1]
+    assert [n for n, _ in rec.fusion_shapes["distinct_presence"].values()] == [1]
+    assert not rec.fusion_shapes["bsi_percentile"] and "dense_scores" not in rec.fusion_shapes
+    assert set(rec.fusion_shapes) == set(smoke.FUSION_SHAPE_KERNELS)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 6, 7, 24])
 def test_percentile_scratch_bytes_on_cpu(depth):
     """The fused percentile unit's admission charge off the card: K10's
-    step counters and outputs as on its on-chip route, no [2, S, W]
-    working set."""
+    step counters (three u64 words a barrier, each in a 128-byte line: the
+    count, then one barrier per two bits) and outputs as on its on-chip
+    route, no [S, W] working set."""
     from pilosa_tpu_torch.ops import cuda
 
     planes = torch.zeros((), dtype=torch.int32).expand(58, depth + 1, 32768)
-    assert cuda.percentile_scratch_bytes(planes) == 8 * (depth + 1) + depth + 4
+    assert cuda.percentile_scratch_bytes(planes) == 128 * 3 * (1 + (depth + 1) // 2) + depth + 4
 
 
 @pytest.mark.parametrize("n_items", [1, 3, 5, 8, 16])
