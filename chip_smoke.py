@@ -3088,8 +3088,9 @@ PATH_OF = {
 
 
 # kernels whose build must report no spill: their design keeps per-thread
-# state (K10's planes, K9's accumulators) in registers
-NO_SPILL = ("bsi_percentile", "distinct_presence")
+# state (K10's planes, K9's accumulators, K5's b, k1 and k2, K8's
+# consider and step planes) in registers
+NO_SPILL = ("bsi_percentile", "distinct_presence", "bsi_range", "bsi_minmax")
 
 
 def spill_bytes(ptxas: str) -> int:

@@ -70,7 +70,21 @@ wrappers on the same seeded inputs, drawn once by this process:
                the Distinct kernel (K9, ``cuda.distinct_presence``) as
                ``chip_smoke.py`` queries it: Distinct(field=lo_quantity)
                (6 bits), Distinct(field=lo_discount) (4 bits), and
-               lo_discount under Row(p_brand1=7), over the 58 shards.
+               lo_discount under Row(p_brand1=7), over the 58 shards;
+  range_ssb    the range kernel (K5, ``cuda.bsi_range``) at its held
+               launch: Range(lo_revenue == x) over the 58 shards, every
+               one of the 24 planes and the not-null plane read;
+  range_ssb_leaf6 Range(lo_quantity < 25): the not-null plane and 5 of
+               lo_quantity's 6 planes, the 6-plane leaf shape that carries
+               most of the fusion path's range launches;
+  range_pass_floor a program that reads one plane (lo_revenue's bit 23)
+               besides the not-null plane: a pass whose bytes are
+               small, so the time beyond them is the pass's floor;
+  minmax_ssb   Min(field=lo_revenue) per shard (K8, ``cuda.bsi_minmax``)
+               over the 58 shards under Q3.2's filter;
+  minmax_ssb_unfiltered Max(field=lo_revenue) per shard, no filter;
+  minmax_step_floor Min over one shard's first 1024 words (a strided
+               view of the planes): the launch and its 24 plane steps.
 The ssb columns are drawn as ``chip_smoke.py`` draws them
 (``ssb_columns``) and packed to words with numpy.
 
@@ -127,10 +141,25 @@ DISTINCT_CASES = {
     "distinct_ssb_discount": ("lo_discount", None),
     "distinct_ssb_discount_brand7": ("lo_discount", 7),
 }
+# (field, operator, base predicate) of the range cases: the program of
+# ``ops.bsi.range_program``; an operator of None reads the one plane named
+# by the predicate and keeps the not-null columns that have its bit set
+RANGE_CASES = {
+    "range_ssb": ("lo_revenue", "==", "x"),
+    "range_ssb_leaf6": ("lo_quantity", "<", 24),
+    "range_pass_floor": ("lo_revenue", None, 23),
+}
+# (Min or not, filter or None, shards, words) of the Min/Max cases; None
+# shards and words: every shard, whole
+MINMAX_CASES = {
+    "minmax_ssb": (True, "q32_filt", None, None),
+    "minmax_ssb_unfiltered": (False, None, None, None),
+    "minmax_step_floor": (True, None, 1, 1024),
+}
 CASES = ("chain", "one") + tuple(f"dense_q{q}" for q in DENSE_QS) + (
     "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive") + tuple(
     f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib") + tuple(
-    PCT_CASES) + ("pct_global",) + tuple(DISTINCT_CASES)
+    PCT_CASES) + ("pct_global",) + tuple(DISTINCT_CASES) + tuple(RANGE_CASES) + tuple(MINMAX_CASES)
 
 
 def _smoke():
@@ -303,6 +332,42 @@ def _percentile_words_oracle(planes, filt, nth_bp: int) -> list:
     return bits + [count]
 
 
+def range_program_of(bsi, op, pred: int, depth: int):
+    """(code, out_sel) of a range case: ``bsi.range_program`` for an
+    operator, else the one-plane program that keeps plane ``pred``."""
+    if op is not None:
+        return bsi.range_program(op, depth, pred)
+    code = [bsi.NOP] * depth
+    code[pred] = bsi.B_AND
+    return tuple(code), bsi.OUT_B
+
+
+def _range_columns(vals, op, pred: int) -> np.ndarray:
+    """The columns a range case keeps, by numpy over the base values."""
+    if op is None:
+        return (vals >> pred) & 1 == 1
+    return {"==": vals == pred, "<": vals < pred}[op]
+
+
+def _minmax_oracle(vals, sel, is_min: bool, depth: int):
+    """(bits i64[S, D], count i64[S]) of each shard's Min (or Max) over the
+    selected columns (vals, sel: [S, columns]); a shard with none gives what
+    the recurrence gives an empty set (every bit set for Min, none for Max;
+    count 0)."""
+    shards = vals.shape[0]
+    bits = np.zeros((shards, depth), dtype=np.int64)
+    count = np.zeros(shards, dtype=np.int64)
+    for s in range(shards):
+        v = vals[s][sel[s]]
+        if v.size == 0:
+            bits[s] = 1 if is_min else 0
+            continue
+        x = int(v.min() if is_min else v.max())
+        bits[s] = [(x >> i) & 1 for i in range(depth)]
+        count[s] = int((v == x).sum())
+    return bits, count
+
+
 def _presence_words(values, depth: int) -> np.ndarray:
     """The presence bitmap of ``values`` over [0, 2^depth) as int32 words."""
     pres = np.zeros(max(1 << depth, 32), dtype=bool)
@@ -371,6 +436,27 @@ def draw_inputs(smoke, out_dir: str) -> None:
             arrays[f"brand{brand}_filt"] = _pack(m, shards, sw)
             vals = vals[m]
         arrays[name + "_want"] = _presence_words(vals, d)
+    x = int(rev[123_457])  # chip_smoke.py's Range(lo_revenue == x)
+    arrays["range_x"] = np.array([x], dtype=np.int64)
+    for name, (field, op, pred) in RANGE_CASES.items():
+        lo_f, _ = smoke.SSB_INT_FIELDS[field]
+        vals = c[field].astype(np.int64) - lo_f
+        pred = x if pred == "x" else pred
+        arrays[name + "_want"] = _pack(_range_columns(vals, op, pred), shards, sw).view("<i4")
+    # the columns as [S, SW], those past the last row not-null nowhere
+    rev_s = np.zeros(shards * sw, dtype=np.int64)
+    rev_s[: rev.size] = rev
+    rev_s = rev_s.reshape(shards, sw)
+    for name, (is_min, filt, shards_cut, words) in MINMAX_CASES.items():
+        sel = np.zeros(shards * sw, dtype=bool)
+        sel[: rev.size] = q32_sel if filt is not None else True
+        sel = sel.reshape(shards, sw)
+        n_sh = shards if shards_cut is None else shards_cut
+        width = sw if words is None else words * 32
+        arrays[name + "_bits"], arrays[name + "_count"] = _minmax_oracle(
+            rev_s[:n_sh, :width], sel[:n_sh, :width], is_min, depth
+        )
+    del rev_s
     del c, bits, rev, sel
     g = np.random.default_rng(1906)
     s_g, d1_g, w_g = PCT_GLOBAL_SHAPE
@@ -475,6 +561,23 @@ def run_arm(checkout: str, data: str) -> int:
         cases[name] = (
             lambda dpl=dpl, dfl=dfl, ddepth=ddepth: cuda.distinct_presence(dpl, dfl, ddepth),
             [load(name + "_want")],
+        )
+    bsi = importlib.import_module("pilosa_tpu_torch.ops.bsi")
+    for name, (field, op, pred) in RANGE_CASES.items():
+        rpl = planes if field == "lo_revenue" else up(f"planes_{field}")
+        rdepth = rpl.shape[1] - 1
+        pred = int(load("range_x")[0]) if pred == "x" else pred
+        code, out_sel = range_program_of(bsi, op, pred, rdepth)
+        cases[name] = (
+            lambda rpl=rpl, code=code, out_sel=out_sel: cuda.bsi_range(rpl, code, out_sel),
+            [load(name + "_want")],
+        )
+    for name, (is_min, filt_name, shards_cut, words) in MINMAX_CASES.items():
+        mpl = planes if words is None else planes[:shards_cut, :, :words]
+        mfl = up(filt_name) if filt_name is not None else None
+        cases[name] = (
+            lambda mpl=mpl, mfl=mfl, is_min=is_min: cuda.bsi_minmax(mpl, mfl, is_min),
+            [load(name + "_bits"), load(name + "_count")],
         )
     torch.cuda.synchronize()
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)

@@ -408,8 +408,13 @@ class Executor:
         # distinct query shapes)
         self._tree_progs: dict[str, ops.TreeProgram] = {}
         self._tree_mu = threading.Lock()
-        self._read_pool = None  # lazy; see _execute()
+        self._read_pool = None  # lazy; see _execute_calls()
         self._read_pool_mu = threading.Lock()
+        # checkouts of the read pool, so close() can drain them; once
+        # closing, checkouts get None (their calls run serially inline)
+        self._read_pool_cv = threading.Condition(self._read_pool_mu)
+        self._read_pool_users = 0
+        self._read_pool_closing = False
         # optional device health gate (executor/devicehealth.py):
         # serving executors pass one so a wedged card degrades reads to
         # the CPU roaring path instead of hanging them; bare executors
@@ -556,18 +561,39 @@ class Executor:
                 with trace.activate(parent), _deadline().activate(pdl), trace.attrib_activate(attrib):
                     return self._execute_call(index_name, call, shards, opt)
 
-            return list(self._pool().map(run_call, calls))
+            pool = self._read_pool_acquire()
+            if pool is None:
+                # close() has begun: run serially inline rather than
+                # submit to a pool that is shutting down
+                return [run_call(c) for c in calls]
+            try:
+                return list(pool.map(run_call, calls))
+            finally:
+                self._read_pool_release()
         return [self._execute_call(index_name, call, shards, opt) for call in calls]
 
-    def _pool(self):
-        with self._read_pool_mu:
+    def _read_pool_acquire(self):
+        """Check out the shared read pool (built lazily), or None once
+        close() has begun. The count of checkouts lets close() drain the
+        ``pool.map`` users before it shuts the pool down, and nothing
+        builds a pool after close()."""
+        with self._read_pool_cv:
+            if self._read_pool_closing:
+                return None
             if self._read_pool is None:
                 from concurrent.futures import ThreadPoolExecutor
 
                 self._read_pool = ThreadPoolExecutor(
                     max_workers=16, thread_name_prefix="pql-read"
                 )
+            self._read_pool_users += 1
             return self._read_pool
+
+    def _read_pool_release(self) -> None:
+        with self._read_pool_cv:
+            self._read_pool_users -= 1
+            if self._read_pool_users == 0:
+                self._read_pool_cv.notify_all()
 
     @staticmethod
     def _needs_shards(calls: list[Call]) -> bool:
@@ -1934,11 +1960,19 @@ class Executor:
                 raise ValueError("invalid BSI group value type")
             f.set_value(col_id, value)
 
-    def close(self) -> None:
-        with self._read_pool_mu:
+    def close(self, drain: float = 5.0) -> None:
+        """Shut the read pool down (called from Server.close). Checkouts
+        are refused from here on, so later multi-call reads run their
+        calls serially inline; those in flight get up to ``drain``
+        seconds to finish before the pool shuts down under them."""
+        t0 = time.monotonic()
+        with self._read_pool_cv:
+            self._read_pool_closing = True
+            while self._read_pool_users > 0 and time.monotonic() - t0 < drain:
+                self._read_pool_cv.wait(timeout=0.05)
             pool, self._read_pool = self._read_pool, None
         if pool is not None:
-            pool.shutdown(wait=True)
+            pool.shutdown(wait=False)
 
 
 # Lazy-scoring chunk schedule, shared by both providers: a small head

@@ -421,7 +421,7 @@ class _RangeProg(ctypes.Structure):
 def bsi_range(planes: torch.Tensor, code, out_sel: int) -> torch.Tensor:
     """K5: one BSI range row per shard from a [S, D+1, W] plane stack
     (plane D is not-null) and a per-plane opcode program (ops/bsi.py
-    range_program) -> i32[S, W]."""
+    range_program) -> i32[S, W]. One launch of a persistent grid."""
     s, d1, w = planes.shape
     depth = d1 - 1
     if not 0 <= depth <= BSI_MAX_DEPTH or len(code) != depth:
@@ -549,9 +549,10 @@ def word_delta_(words, shard_idx, word_idx, or_mask, andnot_mask) -> torch.Tenso
     return words
 
 
-# Widest shard one bsi_minmax launch takes: a CTA keeps three slices of
-# W / 8 words (``consider`` and two plane stages), 48 bytes per 32 words
-# of the shard, within 200 KiB of shared memory.
+# Widest shard one bsi_minmax launch takes (136,512 words). A CTA of the
+# shard's cluster holds W / 8 of its words: in registers up to a shard of
+# 32768 words, past that in shared memory, 16 bytes for 4 words, well
+# within the 200 KiB the kernel may ask for.
 BSI_MINMAX_MAX_WORDS = 32 * (200 * 1024 // 48)
 
 

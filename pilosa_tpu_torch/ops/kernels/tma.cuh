@@ -4,6 +4,8 @@
 // and issues one cp.async.bulk per contiguous piece; the copy engine moves
 // them without registers or load instructions, and the barrier's phase
 // flips when every byte has landed. Consumers wait on the phase's parity.
+// Where a stage is refilled, its consumers release it by plain arrivals on
+// a second barrier, whose phase the producer waits on first.
 // Addresses and sizes must be multiples of 16 bytes.
 #pragma once
 
@@ -29,6 +31,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// One plain arrival (a consumer releasing a stage it has read).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Global -> shared bulk copy completing on ``bar``.

@@ -18,6 +18,8 @@ Every query runs through ``pilosa_tpu.executor.Executor(device_policy=
 """
 
 import shutil
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -331,3 +333,52 @@ def test_auto_policy_counts_what_the_call_reads(q, call, shards, ref_routed, por
         h.close()
     assert answers["ref"] == answers["port"]
     assert routed == {"ref": ref_routed, "port": port_routed}
+
+
+class TestReadPoolRace:
+    """The read pool's close (the reference's TestReadPoolRace,
+    tests/test_dispatch.py): close() drains the pool's checkouts, later
+    checkouts get none and run their calls serially inline, and nothing
+    builds a pool again."""
+
+    def test_close_during_concurrent_execution_is_clean(self, sides):
+        # fusion off, so every multi-call read maps its calls on the pool
+        ex = pilosa_tpu_torch.Executor(
+            sides.th, device="cpu", device_policy="always", fusion_enabled=False
+        )
+        q = (
+            "Count(Union(Row(f=3), Xor(Row(f=4), Row(f=5)), Difference(Row(f=6), Row(f=7))))"
+            "Count(Intersect(Row(f=1), Row(f=2)))"
+            "TopN(f, Row(f=1), n=3)"
+        )
+        want = _plain(sides.cpu.execute("tall", q))
+        stop = time.monotonic() + 2.0
+        errors, done = [], []
+
+        def reader():
+            try:
+                while time.monotonic() < stop:
+                    assert _plain(ex.execute("tall", q)) == want
+                done.append(True)
+            except Exception as e:  # pragma: no cover - the regression
+                errors.append(e)
+
+        ts = [threading.Thread(target=reader) for _ in range(6)]
+        for t in ts:
+            t.start()
+        time.sleep(0.3)
+        ex.close()  # mid-traffic: drains, then later reads run inline
+        for t in ts:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert not errors, errors[0]
+        assert len(done) == 6
+        assert ex._read_pool is None
+
+    def test_read_after_close_builds_no_pool(self, sides):
+        ex = pilosa_tpu_torch.Executor(sides.th, device="cpu", device_policy="never")
+        q = "Row(f=1)Row(f=2)"
+        want = _plain(sides.cpu.execute("tall", q))
+        ex.close()
+        assert _plain(ex.execute("tall", q)) == want
+        assert ex._read_pool is None

@@ -344,6 +344,36 @@ def test_bsi_range_matches_plain(dev, depth, op):
     assert torch.equal(ops.bsi_range(planes[2], op, depth, 1, 1), ops.bsi_range(planes, op, depth, 1, 1)[2])
 
 
+@pytest.mark.parametrize("depth", [0, 1, 5, 6, 7, 25, 63])
+@pytest.mark.parametrize("s,w", [(1, 4), (1, 32768), (3, 4100)])
+def test_bsi_range_programs_depths_and_views(dev, depth, s, w):
+    """K5 == plain for programs of every opcode pair (zero-opcode planes
+    among them, none read) under each output selector, through a strided
+    view (plane and shard strides past the stack, a 16-byte offset), with
+    tiles that end at a shard's edge and runs of the ring that cross
+    tiles."""
+    rng = np.random.default_rng(depth * 31 + s + w)
+    wide = _words(rng, (s, depth + 3, w + 8), dev, ones_rows=2)
+    planes = wide[:, 1 : depth + 2, 4 : 4 + w]
+    for out_sel in range(4):
+        for density in (0.0, 0.3, 1.0):
+            code = tuple(
+                int(rng.integers(0, 7)) | int(rng.integers(0, 7)) << 4 if rng.random() < density else 0
+                for _ in range(depth)
+            )
+            before = ops.cuda.BSI_RANGE.launches
+            got = ops.cuda.bsi_range(planes, code, out_sel)
+            torch.cuda.synchronize()
+            assert ops.cuda.BSI_RANGE.launches == before + 1
+            assert torch.equal(got, ops.bsi_range_plain(planes, code, out_sel)), (out_sel, code)
+    for op in ("==", "!=", "<", "<=", ">", ">=", "><"):
+        top = (1 << depth) - 1
+        for pred in sorted({0, top, int(rng.integers(0, top + 1))}):
+            code, out_sel = ops.range_program(op, depth, pred, top)
+            got = ops.cuda.bsi_range(planes, code, out_sel)
+            assert torch.equal(got, ops.bsi_range_plain(planes, code, out_sel)), (op, pred)
+
+
 def test_bsi_device_recurrences_on_card(dev):
     """Min/Max run on K8 (one shard, a batch folded, the per-shard form),
     Percentile on K10 (one launch, no tree count), Distinct on K9; all
@@ -415,6 +445,65 @@ def test_bsi_minmax_strided_and_rejects(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError):
         ops.cuda.bsi_minmax(torch.zeros((2, 5, 2048 + 16), dtype=torch.int32, device=dev), None, True)
+
+
+def _bsi_planes(vals, nn, depth: int) -> np.ndarray:
+    """u32[S, D+1, W] planes of per-column values vals u64[S, 32 W] where
+    nn (bool, same shape) is set; plane D the not-null plane."""
+    rows = [((vals >> np.uint64(i)) & np.uint64(1)).astype(bool) & nn for i in range(depth)] + [nn]
+    return np.stack([np.packbits(b, axis=1, bitorder="little").view(np.uint32) for b in rows], axis=1)
+
+
+MINMAX_EDGES = ("one_survivor", "all_zero", "all_top", "no_not_null", "zero_filter", "sparse_filter")
+
+
+@pytest.mark.parametrize("case", MINMAX_EDGES)
+@pytest.mark.parametrize("depth", [0, 1, 5, 24, 63])
+@pytest.mark.parametrize("w", [96, 32768, 65536, ops.cuda.BSI_MINMAX_MAX_WORDS])
+def test_bsi_minmax_edges(dev, case, depth, w):
+    """K8 == plain, Min and Max, on both routes (registers up to 32768
+    words a shard, shared memory past it): the extremes of the value range
+    held by one column each (every other vector dies within a step or
+    two), every value 0 or every value 2^D - 1, a shard without a
+    not-null bit, an all-zero filter, a filter of a few columns; odd and
+    even depths, 0 and 63."""
+    s = 3
+    rng = np.random.default_rng(depth * 1000 + w + MINMAX_EDGES.index(case))
+    top = np.uint64((1 << depth) - 1)
+    cols = 32 * w
+    vals = rng.integers(0, 2**63, size=(s, cols), dtype=np.uint64) & top
+    nn = rng.random((s, cols)) < 0.75
+    filt = None
+    if case == "one_survivor":
+        vals[:, 1:-1] = np.clip(vals[:, 1:-1], 1, max(int(top) - 1, 1)) if depth > 1 else vals[:, 1:-1]
+        vals[:, 0], vals[:, -1] = 0, top
+        nn[:, 0] = nn[:, -1] = True
+    elif case == "all_zero":
+        vals[:] = 0
+    elif case == "all_top":
+        vals[:] = top
+    elif case == "no_not_null":
+        nn[1] = False
+    elif case == "zero_filter":
+        filt = np.zeros((s, w), dtype=np.uint32)
+    else:
+        f = np.zeros((s, cols), dtype=bool)
+        f[:, rng.integers(0, cols, size=5)] = True
+        filt = np.packbits(f, axis=1, bitorder="little").view(np.uint32)
+    planes = ops.words_from_numpy(_bsi_planes(vals, nn, depth), dev)
+    ft = ops.words_from_numpy(filt, dev) if filt is not None else None
+    for is_min in (True, False):
+        got = ops.cuda.bsi_minmax(planes, ft, is_min)
+        want = ops.bsi_minmax_plain(planes, ft, is_min)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), is_min
+    # the same stack through a strided view
+    wide = torch.zeros((s, depth + 3, w + 32), dtype=torch.int32, device=dev)
+    wide[:, 1 : depth + 2, 16 : 16 + w] = planes
+    view = wide[:, 1 : depth + 2, 16 : 16 + w]
+    for is_min in (True, False):
+        got = ops.cuda.bsi_minmax(view, ft, is_min)
+        want = ops.bsi_minmax_plain(planes, ft, is_min)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), ("view", is_min)
 
 
 def _percentile_once(planes, filt, nth):

@@ -633,3 +633,38 @@ def test_smoke_client_streams(n_items):
         for it in s:
             assert owner.setdefault(it, ci) == ci
     assert set(owner) == set(items)
+
+
+def _kernel_constants(source: str) -> dict:
+    """``constexpr int name = value;`` lines of a kernel source, evaluated
+    (products of integers only)."""
+    import os
+    import re
+
+    from pilosa_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.KERNEL_DIR, source)) as f:
+        text = f.read()
+    out = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([\w\s*]+);", text):
+        val = 1
+        for factor in expr.split("*"):
+            factor = factor.strip()
+            val *= out[factor] if factor in out else int(factor)
+        out[name] = val
+    return out
+
+
+def test_minmax_routes_agree_with_the_kernel():
+    """K8 holds ``consider`` in registers for a whole shard of 2^20
+    columns (the staged width), and its shared route takes every width
+    the wrapper accepts (at most 32 vectors a thread, within the kernel's
+    shared memory), so no width the wrapper lets through is refused at
+    launch."""
+    from pilosa_tpu_torch import SHARD_WIDTH
+    from pilosa_tpu_torch.ops import cuda
+
+    k = _kernel_constants("bsi_minmax.cu")
+    assert k["kCluster"] * k["kRegMaxVectors"] * 4 == SHARD_WIDTH // 32
+    sv = cuda.BSI_MINMAX_MAX_WORDS // 32
+    assert sv <= k["kSmemMaxVec"] * k["kSmemThreads"] and sv * 16 <= k["kDynBudget"]
