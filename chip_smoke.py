@@ -111,7 +111,10 @@ binned on the card. The percentile search is also checked and timed
 on its global route, on a seeded stack just past what its on-chip route
 holds. The tree count is also checked and timed at
 its most launched shape, a one-leaf count of one shard row; the dense
-scorer at the widest batch (Q) of the dense phases; the GroupBy kernel
+scorer at the widest batch (Q) of the dense phases; the block-sparse
+scorer at its largest launch at every batch width Q it launched with on
+any path (each with its launches at that Q), and once at Q = 32 (the
+batcher's widest batch) on the server's largest staged bundle; the GroupBy kernel
 at the count-only ssb panel and at a dense, non-exclusive shape (no
 filter, two 8-row set fields whose columns sit in several rows each,
 drawn from a seed), the worst case of a kernel that visits only the
@@ -1093,7 +1096,11 @@ def _copy_tensors(args, fn):
             return memo[key]
         if isinstance(x, (list, tuple)):
             return type(x)(copy(v) for v in x)
+        if isinstance(x, SparseGroups):
+            return SparseGroups(copy(x.order), copy(x.items), x.nb, x.num_rows, x.n_shards, x.slots)
         return x
+
+    from pilosa_tpu_torch.ops.packed import SparseGroups
 
     return copy(args)
 
@@ -1320,6 +1327,12 @@ class Recorder:
         # a one-leaf tree count of one shard row (32,768 words), the
         # tree count's most launched shape
         self.tree_one_leaf = None
+        # K2's largest launch at each batch width Q over every path, and
+        # the server path's largest launch by blocks (its largest bundle)
+        self.sparse_by_q: dict[int, tuple] = {}
+        self._sparse_q_size: dict[int, int] = {}
+        self.sparse_server_bundle = None
+        self._server_blocks = 0
         # each kernel on the fusion path, by shape: {key: [launches, kept
         # arguments of the first launch or None past FUSION_SHAPES_KEPT]}
         self.fusion_shapes: dict[str, dict] = {name: {} for name in FUSION_SHAPE_KERNELS}
@@ -1347,6 +1360,8 @@ class Recorder:
             self.args = {k: _offload(v) for k, v in self.args.items()}
             self.expand_kind_args = {k: _offload(v) for k, v in self.expand_kind_args.items()}
             self.dense_widest_q = _offload(self.dense_widest_q)
+            self.sparse_by_q = {q: _offload(v) for q, v in self.sparse_by_q.items()}
+            self.sparse_server_bundle = _offload(self.sparse_server_bundle)
             self.tree_one_leaf = _offload(self.tree_one_leaf)
             self.groupby_count_only = _offload(self.groupby_count_only)
             for shapes in self.fusion_shapes.values():
@@ -1354,7 +1369,9 @@ class Recorder:
                     entry[1] = _offload(entry[1])
 
     def _wrap(self, name, fn, size):
-        def wrapped(*args):
+        def wrapped(*args, **kw):
+            if kw:  # K2's grouping, its last parameter, kept with the rest
+                args = args + (kw.pop("groups"),)
             n = size(*args)
             with self._mu:
                 if n > self._size.get(name, -1):
@@ -1401,9 +1418,17 @@ class Recorder:
                     self.dense_widest_q = _keep((srcs, mat))
         return (srcs.numel() + mat.numel()) * 4
 
-    @staticmethod
-    def _sparse_bytes(srcs, blocks, *rest):
-        return blocks.numel() * 4 * srcs.shape[0]
+    def _sparse_bytes(self, srcs, blocks, *rest):
+        q = _sparse_qsw(srcs)[0]
+        n = blocks.numel() * 4 * q
+        with self._mu:
+            if n > self._sparse_q_size.get(q, -1):
+                self._sparse_q_size[q] = n
+                self.sparse_by_q[q] = _keep((srcs, blocks) + rest)
+            if self.path == "server" and blocks.numel() > self._server_blocks:
+                self._server_blocks = blocks.numel()
+                self.sparse_server_bundle = _keep((srcs, blocks) + rest)
+        return n
 
     def _tree_bytes(self, leaves_by_query, program):
         if self.tree_one_leaf is None and program.nleaves == 1 and len(leaves_by_query) == 1:
@@ -1592,6 +1617,14 @@ def bound_dense_work(name: str, args, card: Card) -> float | None:
     return None
 
 
+def _sparse_qsw(srcs) -> tuple[int, int, int]:
+    """(Q, S, W) of K2's sources: i32[Q, S, W] or a list of Q i32[S, W]
+    stacks."""
+    if hasattr(srcs, "shape"):
+        return tuple(srcs.shape)
+    return (len(srcs),) + tuple(srcs[0].shape)
+
+
 def bound(name: str, args, card: Card) -> dict:
     """The least time the card could take for the function on these
     inputs: the larger of its bytes (each input read once, each output
@@ -1626,8 +1659,8 @@ def bound(name: str, args, card: Card) -> dict:
         ops_s = _popc_s(dense_need(srcs) * mat.shape[0], card)
         tensor_cores = True
     elif name == "sparse_stacked_scores":
-        srcs, blocks, brow, bslot, bshard, num_rows = args
-        q, s, w = srcs.shape
+        srcs, blocks, brow, bslot, bshard, num_rows = args[:6]
+        q, s, w = _sparse_qsw(srcs)
         valid = (brow >= 0) & (brow < num_rows) & (bslot >= 0) & (bslot < w // 2048)
         shard = bshard if bshard is not None else torch.zeros_like(brow)
         valid &= (shard >= 0) & (shard < s)
@@ -1859,10 +1892,12 @@ def _held(name: str, kernel_fn, plain_fn, args, flush, card: Card) -> dict:
     }
 
 
-def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Card) -> list[dict]:
+def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Card,
+                  sparse_q_launches: dict) -> list[dict]:
     """Each kernel at its largest main-path arguments against its plain
     version on the card (== on every output), then both timed.
-    ``launches`` and ``batched`` hold each kernel's counts on its path."""
+    ``launches`` and ``batched`` hold each kernel's counts on its path,
+    ``sparse_q_launches`` K2's launches at each Q over every path."""
     import torch
 
     from pilosa_tpu_torch.ops import bsi, cuda, delta, packed
@@ -1870,7 +1905,8 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
     kernels = {k.name: k for k in cuda.KERNELS}
     plain = {
         "dense_scores": packed.intersection_counts_matrix_plain,
-        "sparse_stacked_scores": packed.sparse_stacked_scores_plain,
+        # the kept grouping is the kernel's argument alone
+        "sparse_stacked_scores": lambda *a: packed.sparse_stacked_scores_plain(*a[:6]),
         "tree_count": packed.tree_count_plain,
         "groupby_reduce": packed.groupby_reduce_plain,
         "bsi_range": bsi.bsi_range_plain,
@@ -1958,12 +1994,49 @@ def check_kernels(rec: Recorder, launches: dict, batched: dict, device, card: Ca
             rows[-1]["global_route"] = _held(name, kernel_fn, plain_fn, percentile_global_inputs(device), flush, card)
             if rows[-1]["global_route"]["shape"]["on_chip"]:
                 raise AssertionError("bsi_percentile's global-route inputs fit on chip")
+        if name == "sparse_stacked_scores":
+            rows[-1]["share_of_bound"] = b["bound_ms"] / ms
+            rows[-1]["by_q"] = _sparse_by_q(rec, kernel_fn, plain_fn, sparse_q_launches, flush, card)
+            rows[-1]["q32_largest_bundle"] = _sparse_q32(rec, kernel_fn, plain_fn, flush, card)
         if name == "tree_count":
             rows[-1]["share_of_bound"] = b["bound_ms"] / ms
             rows[-1]["ms_as_before"] = time_ms(lambda: kernel_fn(*args), 20, flush, as_before=True)
             rows[-1]["one_leaf_32768"] = _tree_one_leaf(rec, kernel_fn, plain_fn, flush, card)
         log(f"{name}: == plain; {ms:.3f} ms (bound {b['bound_ms']:.3f} by {b['bound_by']}, plain {plain_ms:.3f})")
     return rows
+
+
+def _sparse_by_q(rec, kernel_fn, plain_fn, q_launches: dict, flush, card: Card) -> dict:
+    """K2 at its largest launch at each batch width Q it launched with on
+    any path: == plain, timed, its bound, and its launches at that Q over
+    every path."""
+    out = {}
+    for q in sorted(rec.sparse_by_q):
+        row = _held("sparse_stacked_scores", kernel_fn, plain_fn, rec.sparse_by_q[q], flush, card)
+        row["launches"] = q_launches.get(q, 0)
+        out[str(q)] = row
+    if not set(q_launches) <= set(rec.sparse_by_q):
+        raise AssertionError(f"K2 kept widths {sorted(rec.sparse_by_q)}, launched at {sorted(q_launches)}")
+    return out
+
+
+# the batcher's widest batch (executor.MAX_BATCH): the north star's c32 depth
+SPARSE_Q_WIDEST = 32
+
+
+def _sparse_q32(rec, kernel_fn, plain_fn, flush, card: Card) -> dict:
+    """One K2 launch at Q = 32 on the server's largest staged bundle, with
+    its grouping: that launch's sources and more made from them by
+    rotating each word axis, == plain and timed."""
+    import torch
+
+    if rec.sparse_server_bundle is None:
+        raise AssertionError("no sparse_stacked_scores launch on the server path")
+    srcs, *rest = _on_card(rec.sparse_server_bundle)
+    stacks = list(srcs.unbind(0)) if hasattr(srcs, "shape") else list(srcs)
+    wide = [torch.roll(stacks[j % len(stacks)], shifts=4 * 97 * j, dims=1).contiguous()
+            for j in range(SPARSE_Q_WIDEST)]
+    return _held("sparse_stacked_scores", kernel_fn, plain_fn, (wide, *rest), flush, card)
 
 
 def _fusion_shapes(rec: Recorder, name: str, kernel_fn, plain_fn, flush, card: Card) -> dict:
@@ -2093,7 +2166,7 @@ def _shape(name: str, args) -> dict:
     if name == "dense_scores":
         return {"Q": args[0].shape[0], "R": args[1].shape[0], "W": args[1].shape[1]}
     if name == "sparse_stacked_scores":
-        q, s, w = args[0].shape
+        q, s, w = _sparse_qsw(args[0])
         return {"Q": q, "S": s, "W": w, "B": args[1].shape[0], "num_rows": args[5]}
     if name == "groupby_reduce":
         dims, filt, planes = args
@@ -2269,12 +2342,12 @@ class FusedLaunchWatch:
             watch.fetches += 1
             return fetch(buf)
 
-        def kept_mat(srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk):
+        def kept_mat(srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk, groups=None):
             watch.mat_calls += 1
             if blocks.numel() > watch._mat_size:
                 watch._mat_size = blocks.numel()
-                watch.mat_args = _keep((srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk))
-            return mat(srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk)
+                watch.mat_args = _keep((srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk, groups))
+            return mat(srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk, groups=groups)
 
         self.offload = lambda: setattr(self, "mat_args", _offload(self.mat_args))
         QueryFuser._enqueue = strict_enqueue
@@ -2415,14 +2488,14 @@ def stacked_mat_row(watch, flush, card: Card) -> dict:
 
     if watch.mat_args is None:
         raise AssertionError("no fused TopN head scored")
-    mat_args = _on_card(watch.mat_args)
+    *mat_args, groups = _on_card(watch.mat_args)
     srcs, blocks, brow, bslot, bshard, num_rows, n_shards, chunk = mat_args
 
     def plain():
         flat = packed.sparse_stacked_scores_plain(srcs.unsqueeze(0), blocks, brow, bslot, bshard, num_rows)[0]
         return flat[: n_shards * chunk].reshape(n_shards, chunk)
 
-    got = ops.sparse_intersection_counts_stacked_mat(*mat_args)
+    got = ops.sparse_intersection_counts_stacked_mat(*mat_args, groups=groups)
     if not torch.equal(got, plain()):
         raise AssertionError("sparse_intersection_counts_stacked_mat differs from its plain version")
     b = bound("sparse_stacked_scores", (srcs.unsqueeze(0), blocks, brow, bslot, bshard, num_rows), card)
@@ -2433,7 +2506,7 @@ def stacked_mat_row(watch, flush, card: Card) -> dict:
         "replaces": "pilosa_tpu/ops/packed.py:155",
         "launches": watch.mat_calls,
         "max_abs_err": 0,
-        "ms": time_ms(lambda: ops.sparse_intersection_counts_stacked_mat(*mat_args), 20, flush),
+        "ms": time_ms(lambda: ops.sparse_intersection_counts_stacked_mat(*mat_args, groups=groups), 20, flush),
         "plain_ms": time_ms(plain, 3, flush),
         "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"],
@@ -3087,10 +3160,11 @@ PATH_OF = {
 }
 
 
-# kernels whose build must report no spill: their design keeps per-thread
+# sources whose build must report no spill: their design keeps per-thread
 # state (K10's planes, K9's accumulators, K5's b, k1 and k2, K8's
-# consider and step planes) in registers
-NO_SPILL = ("bsi_percentile", "distinct_presence", "bsi_range", "bsi_minmax")
+# consider and step planes, K2's MMA accumulators and tile rows) in
+# registers; K2 (sparse_stacked_scores) is built from sparse_scores.cu
+NO_SPILL = ("bsi_percentile", "distinct_presence", "bsi_range", "bsi_minmax", "sparse_scores")
 
 
 def spill_bytes(ptxas: str) -> int:
@@ -3119,22 +3193,20 @@ def main() -> int:
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
-    # 1. build
-    t0 = time.monotonic()
-    build = cuda.build_kernels()
-    build_s = time.monotonic() - t0
-    for name, ent in build.items():
-        report = [ln for ln in ent["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
-        log(f"built {name} in {ent['seconds']:.1f} s: " + " | ".join(report))
-    for name in NO_SPILL:
-        if build[name]["cached"]:
-            log(f"{name}: built before this run, its spills not checked")
-        elif spill_bytes(build[name]["ptxas"]):
-            raise AssertionError(f"{name}: ptxas reports {spill_bytes(build[name]['ptxas'])} spill bytes")
-    card = card_line()
-    print(card, flush=True)
-    card_info = Card()
-    log(f"kernels built in {build_s:.1f} s on {kind}, {card_info.sms} SMs, SM clock {card_info.sm_clock_hz / 1e6:.0f} MHz")
+    # 1. build: one nvcc process a source, waited on by a thread while
+    # the data is written
+    build_box: dict = {}
+
+    def build_kernels() -> None:
+        t1 = time.monotonic()
+        try:
+            build_box["log"] = cuda.build_kernels()
+        except BaseException as e:  # re-raised once the data is written
+            build_box["error"] = e
+        build_box["seconds"] = time.monotonic() - t1
+
+    builder = threading.Thread(target=build_kernels)
+    builder.start()
 
     root = tempfile.mkdtemp(prefix="pilosa_tpu_torch_smoke_")
     holder = dev = cpu = None
@@ -3148,10 +3220,28 @@ def main() -> int:
             ssb_workload(o)
             return o, time.monotonic() - t1
 
-        built, (ssb, ssb_oracle_s) = build_data(
-            root, DENSE_ROWS, TALL_SHARDS, TAIL_ROWS_PER_SHARD, SSB_ROWS, during=make_oracle
-        )
+        try:
+            built, (ssb, ssb_oracle_s) = build_data(
+                root, DENSE_ROWS, TALL_SHARDS, TAIL_ROWS_PER_SHARD, SSB_ROWS, during=make_oracle
+            )
+        finally:
+            builder.join()
         log(f"data written: {built}; ssb oracle: {len(ssb.queries)} answers in {ssb_oracle_s:.1f} s")
+        if "error" in build_box:
+            raise build_box["error"]
+        build, build_s = build_box["log"], build_box["seconds"]
+        for name, ent in build.items():
+            report = [ln for ln in ent["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
+            log(f"built {name} in {ent['seconds']:.1f} s: " + " | ".join(report))
+        for name in NO_SPILL:
+            if build[name]["cached"]:
+                log(f"{name}: built before this run, its spills not checked")
+            elif spill_bytes(build[name]["ptxas"]):
+                raise AssertionError(f"{name}: ptxas reports {spill_bytes(build[name]['ptxas'])} spill bytes")
+        card = card_line()
+        print(card, flush=True)
+        card_info = Card()
+        log(f"kernels built in {build_s:.1f} s on {kind}, {card_info.sms} SMs, SM clock {card_info.sm_clock_hz / 1e6:.0f} MHz")
         holder = pilosa_tpu_torch.holder_from_dir(root)
         for index in ("dense", "tall"):
             for frag in holder.view(index, "f", "standard").fragments.values():
@@ -3288,7 +3378,11 @@ def main() -> int:
         # 5. each kernel against its plain version, at its main-path arguments
         own = {name: launches[path][name] for name, path in PATH_OF.items()}
         own_batched = {name: batched[path][name] for name, path in PATH_OF.items()}
-        kernels = check_kernels(rec, own, own_batched, device, card_info)
+        sparse_q_launches: dict = {}
+        for by_q in launches_by_q.values():
+            for q, n in by_q["sparse_stacked_scores"].items():
+                sparse_q_launches[q] = sparse_q_launches.get(q, 0) + n
+        kernels = check_kernels(rec, own, own_batched, device, card_info, sparse_q_launches)
         phases["fusion"]["stacked_mat"] = stacked_mat_row(
             watch, torch.zeros(64 << 20, dtype=torch.int32, device=device), card_info
         )

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
 
-    python3 kernel_ab_probe.py DIR [DIR ...]
+    python3 kernel_ab_probe.py [--only PREFIX[,PREFIX...]] DIR [DIR ...]
 
 Each DIR is the root of a checkout of the repository ("." is this one),
 for example a parent commit unpacked with ``git archive`` into a
@@ -84,7 +84,28 @@ wrappers on the same seeded inputs, drawn once by this process:
                over the 58 shards under Q3.2's filter;
   minmax_ssb_unfiltered Max(field=lo_revenue) per shard, no filter;
   minmax_step_floor Min over one shard's first 1024 words (a strided
-               view of the planes): the launch and its 24 plane steps.
+               view of the planes): the launch and its 24 plane steps;
+  sparse_tall_q1 / sparse_tall_q8 / sparse_tall_q32 the block-sparse
+               scorer (K2, ``cuda.sparse_stacked_scores``) at the server's
+               held bundle: bench_tall.py config 4's 64 shards, each with
+               its 32 hot rows (50,000 bits a shard, every container set)
+               and 96 singleton rows (one bit) as the TopN chunk's 128
+               candidates, laid out as the stager lays them (shard, then
+               candidate, then slot: B = 38,912), against Q = 1, 8 and 32
+               sources that are hot rows of the same shards, stacked as
+               i32[Q, 64, 32768];
+  sparse_batch_q8 / sparse_batch_q32 the same through the batch entry
+               point (``ops.sparse_intersection_counts_stacked_batch_list``)
+               with Q separate source tensors, as the batcher calls it;
+  sparse_head_q1 the fused TopN head (``ops.sparse_intersection_counts_
+               stacked_mat``, Q = 1, 64 shards x 128 candidates).
+               A checkout whose API takes a grouping of the bundle
+               (``groups``) gets it (``ops.sparse_groups``) before the
+               timing, as the stager stages it with the bundle, and
+               its arm line carries ``sparse_group_ms``: the host time
+               of making that grouping from the bundle's host arrays.
+``--only`` runs the cases whose names start with one of the prefixes
+(and draws only their inputs).
 The ssb columns are drawn as ``chip_smoke.py`` draws them
 (``ssb_columns``) and packed to words with numpy.
 
@@ -118,6 +139,8 @@ DISTINCT = 12
 TREE = ("Union", (("Intersect", (("leaf", 0), ("leaf", 1))), ("Intersect", (("leaf", 2), ("leaf", 3))), ("leaf", 4)))
 PICKS = ((0, 1, 2, 3, 4), (0, 5, 6, 3, 7), (8, 1, 9, 3, 10), (0, 11, 2, 3, 4))
 ITERS = 30
+# host timings of K2's grouping a sparse arm makes (median)
+GROUP_ITERS = 9
 DENSE_SHAPE = (4096, 32768)
 DENSE_QS = (1, 4, 8, 32)
 # AND of this many uniform words: each bit set with probability 1/64
@@ -156,10 +179,21 @@ MINMAX_CASES = {
     "minmax_ssb_unfiltered": (False, None, None, None),
     "minmax_step_floor": (True, None, 1, 1024),
 }
+# bench_tall.py config 4 (bench_tall.py:46-73) as the TopN chunk stages it:
+# shards, hot rows a shard (every container set), their bits a shard, the
+# singleton candidates that fill the 128-candidate chunk
+SPARSE_SHARDS = 64
+SPARSE_HOT = 32
+SPARSE_HOT_BITS = 50_000
+SPARSE_CHUNK = 128
+SPARSE_QS = (1, 2, 4, 8, 32)
+SPARSE_BATCH_QS = (8, 32)
+SPARSE_CASES = tuple(f"sparse_tall_q{q}" for q in SPARSE_QS) + tuple(
+    f"sparse_batch_q{q}" for q in SPARSE_BATCH_QS) + ("sparse_head_q1",)
 CASES = ("chain", "one") + tuple(f"dense_q{q}" for q in DENSE_QS) + (
     "groupby_q32", "groupby_count_only", "sum", "groupby_nonexclusive") + tuple(
     f"expand_{k}" for k in EXPAND_KINDS) + ("delta_refresh", "delta_copy", "fill_16mib") + tuple(
-    PCT_CASES) + ("pct_global",) + tuple(DISTINCT_CASES) + tuple(RANGE_CASES) + tuple(MINMAX_CASES)
+    PCT_CASES) + ("pct_global",) + tuple(DISTINCT_CASES) + tuple(RANGE_CASES) + tuple(MINMAX_CASES) + SPARSE_CASES
 
 
 def _smoke():
@@ -375,9 +409,53 @@ def _presence_words(values, depth: int) -> np.ndarray:
     return np.packbits(pres, bitorder="little").view("<u4").view("<i4")
 
 
-def draw_inputs(smoke, out_dir: str) -> None:
-    """Every input and expected answer of the dense and GroupBy cases,
-    saved as .npy files in ``out_dir``."""
+def _sparse_inputs(smoke) -> dict:
+    """The K2 cases' bundle, sources and numpy's scores: blocks u32[B,
+    2048], block row / slot / shard i32[B], the hot rows' words u32[HOT,
+    S, W] (source q is hot row q), and i64[max Q, S x CHUNK] scores."""
+    rng = np.random.default_rng(1202)
+    sw, slots, cw = smoke.SW, smoke.SW >> 16, 2048
+    w = sw // 32
+    hot = np.zeros((SPARSE_HOT, SPARSE_SHARDS, w), dtype=np.uint32)
+    blocks, rows, bslot, bshard = [], [], [], []
+    for s in range(SPARSE_SHARDS):
+        for h in range(SPARSE_HOT):
+            cols = rng.integers(0, sw, size=SPARSE_HOT_BITS)
+            np.bitwise_or.at(hot[h, s], cols >> 5, np.uint32(1) << (cols & 31).astype(np.uint32))
+        # hot candidates: every slot; singletons: one bit in one slot
+        blocks.append(hot[:, s].reshape(SPARSE_HOT * slots, cw))
+        rows.append(np.repeat(np.arange(SPARSE_HOT), slots))
+        bslot.append(np.tile(np.arange(slots), SPARSE_HOT))
+        single = SPARSE_CHUNK - SPARSE_HOT
+        col = rng.integers(0, sw, size=single)
+        blk = np.zeros((single, cw), dtype=np.uint32)
+        blk[np.arange(single), (col & 0xFFFF) >> 5] = np.uint32(1) << (col & 31).astype(np.uint32)
+        blocks.append(blk)
+        rows.append(SPARSE_HOT + np.arange(single))
+        bslot.append(col >> 16)
+        bshard.append(np.full(SPARSE_HOT * slots + single, s))
+    blocks = np.concatenate(blocks)
+    bshard = np.concatenate(bshard).astype(np.int32)
+    bslot = np.concatenate(bslot).astype(np.int32)
+    brow = (np.concatenate(rows) + bshard * SPARSE_CHUNK).astype(np.int32)
+    num_rows = SPARSE_SHARDS * SPARSE_CHUNK
+    want = np.zeros((max(SPARSE_QS), num_rows), dtype=np.int64)
+    b64 = blocks.view(np.uint64)
+    for q in range(max(SPARSE_QS)):
+        src = hot[q % SPARSE_HOT].reshape(SPARSE_SHARDS, slots, cw)[bshard, bslot].view(np.uint64)
+        want[q] = np.bincount(brow, weights=np.bitwise_count(b64 & src).sum(axis=1), minlength=num_rows)
+    return {"sp_blocks": blocks, "sp_brow": brow, "sp_bslot": bslot, "sp_bshard": bshard,
+            "sp_hot": hot, "sp_want": want}
+
+
+def draw_inputs(smoke, out_dir: str, cases=CASES) -> None:
+    """Every input and expected answer of ``cases``, saved as .npy files
+    in ``out_dir``."""
+    if any(c in SPARSE_CASES for c in cases):
+        for name, a in _sparse_inputs(smoke).items():
+            np.save(os.path.join(out_dir, name + ".npy"), a)
+    if all(c in SPARSE_CASES for c in cases):
+        return
     rng = np.random.default_rng(1404)
     mat = _sparse_words(rng, DENSE_SHAPE)
     srcs = _sparse_words(rng, (max(DENSE_QS), DENSE_SHAPE[1]))
@@ -471,8 +549,57 @@ def draw_inputs(smoke, out_dir: str) -> None:
         np.save(os.path.join(out_dir, name + ".npy"), a)
 
 
-def run_arm(checkout: str, data: str) -> int:
-    """One arm: ``checkout``'s kernels. Prints {"arm", ...} last."""
+def _sparse_cases(ops, dev, load, extra: dict) -> dict:
+    """The K2 cases on this checkout's wrappers; the grouping made before
+    the timing where its API takes one. Where it does, ``extra`` gets
+    ``sparse_group_ms``: the host milliseconds (median of GROUP_ITERS) of
+    making the bundle's grouping from its host index arrays, as the
+    stager makes it when it stages the bundle."""
+    import inspect
+    import time
+
+    import torch
+
+    blocks = ops.words_from_numpy(load("sp_blocks"), dev)
+    idx = [torch.from_numpy(load(k)).to(dev) for k in ("sp_brow", "sp_bslot", "sp_bshard")]
+    hot = load("sp_hot")
+    want = load("sp_want")
+    num_rows = SPARSE_SHARDS * SPARSE_CHUNK
+    srcs = [ops.words_from_numpy(hot[q % SPARSE_HOT], dev) for q in range(max(SPARSE_QS))]
+    kw = {}
+    if "groups" in inspect.signature(ops.cuda.sparse_stacked_scores).parameters:
+        host = [load(k) for k in ("sp_brow", "sp_bslot", "sp_bshard")]
+        slots = hot.shape[2] // 2048
+        took = []
+        for _ in range(GROUP_ITERS):
+            t0 = time.perf_counter()
+            ops.sparse_groups(*host, num_rows, SPARSE_SHARDS, slots, device=dev)
+            took.append((time.perf_counter() - t0) * 1e3)
+        extra["sparse_group_ms"] = float(np.median(took))
+        kw["groups"] = ops.sparse_groups(*idx, num_rows, SPARSE_SHARDS, slots)
+    cases = {}
+    for q in SPARSE_QS:
+        stacked = torch.stack(srcs[:q])
+        cases[f"sparse_tall_q{q}"] = (
+            lambda stacked=stacked: ops.cuda.sparse_stacked_scores(stacked, blocks, *idx, num_rows, **kw),
+            [want[:q]],
+        )
+    for q in SPARSE_BATCH_QS:
+        cases[f"sparse_batch_q{q}"] = (
+            lambda q=q: ops.sparse_intersection_counts_stacked_batch_list(srcs[:q], blocks, *idx, num_rows, **kw),
+            [want[:q]],
+        )
+    cases["sparse_head_q1"] = (
+        lambda: ops.sparse_intersection_counts_stacked_mat(
+            srcs[0], blocks, *idx, num_rows, SPARSE_SHARDS, SPARSE_CHUNK, **kw),
+        [want[0].reshape(SPARSE_SHARDS, SPARSE_CHUNK)],
+    )
+    return cases
+
+
+def run_arm(checkout: str, data: str, names=CASES) -> int:
+    """One arm: ``checkout``'s kernels at ``names``. Prints {"arm", ...}
+    last."""
     sys.path.insert(0, checkout)
     import torch
 
@@ -492,6 +619,11 @@ def run_arm(checkout: str, data: str) -> int:
     def up(name):
         return ops.words_from_numpy(load(name), dev)
 
+    cases, extra = {}, {}
+    if any(c in SPARSE_CASES for c in names):
+        cases.update(_sparse_cases(ops, dev, load, extra))
+    if all(c in SPARSE_CASES for c in names):
+        return _time_arm(checkout, smoke, dev, cases, names, extra)
     pool, chain_want, one_want = _tree_inputs()
     leaves = [ops.words_from_numpy(a, dev) for a in pool]
     chain_args = ([[leaves[i] for i in p] for p in PICKS], ops.TreeProgram(TREE))
@@ -503,7 +635,7 @@ def run_arm(checkout: str, data: str) -> int:
     sum_args = ([], None, planes)
     nx = ([up("nx_dim0"), up("nx_dim1")], None, planes[:, : smoke.NONEXCL_PLANES])
     cuda = ops.cuda
-    cases = {
+    cases |= {
         "chain": (lambda: cuda.tree_count(*chain_args), [chain_want]),
         "one": (lambda: cuda.tree_count(*one_args), [[one_want]]),
         "groupby_q32": (lambda: cuda.groupby_reduce(*q32), [load("q32_counts"), load("q32_plane_counts")]),
@@ -579,10 +711,16 @@ def run_arm(checkout: str, data: str) -> int:
             lambda mpl=mpl, mfl=mfl, is_min=is_min: cuda.bsi_minmax(mpl, mfl, is_min),
             [load(name + "_bits"), load(name + "_count")],
         )
+    return _time_arm(checkout, smoke, dev, cases, names, extra)
+
+
+def _time_arm(checkout: str, smoke, dev, cases: dict, names, extra: dict) -> int:
+    import torch
+
     torch.cuda.synchronize()
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
-    out = {"arm": checkout}
-    for name in CASES:
+    out = {"arm": checkout, **extra}
+    for name in names:
         fn, want = cases[name]
         got = fn()
         got = got if isinstance(got, tuple) else (got,)
@@ -597,8 +735,16 @@ def run_arm(checkout: str, data: str) -> int:
 
 
 def main(argv: list[str]) -> int:
+    names = CASES
+    if len(argv) >= 2 and argv[0] == "--only":
+        prefixes = tuple(argv[1].split(","))
+        names = tuple(c for c in CASES if c.startswith(prefixes))
+        if not names:
+            print(f"kernel_ab_probe.py: no case starts with {argv[1]}", file=sys.stderr)
+            return 2
+        argv = argv[2:]
     if len(argv) >= 3 and argv[0] == "--arm":
-        return run_arm(os.path.abspath(argv[1]), argv[2])
+        return run_arm(os.path.abspath(argv[1]), argv[2], names)
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -611,11 +757,12 @@ def main(argv: list[str]) -> int:
     print(smoke.card_line(), flush=True)
     data = tempfile.mkdtemp(prefix="kernel_ab_probe_")
     try:
-        draw_inputs(smoke, data)
+        draw_inputs(smoke, data, names)
         rows = []
         for d in argv:
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--arm", os.path.abspath(d), data],
+                [sys.executable, os.path.abspath(__file__), "--only", ",".join(names), "--arm",
+                 os.path.abspath(d), data],
                 capture_output=True, text=True, timeout=900,
             )
             if proc.returncode != 0:
@@ -626,7 +773,10 @@ def main(argv: list[str]) -> int:
             rows.append(row)
     finally:
         shutil.rmtree(data, ignore_errors=True)
-    print(json.dumps({"summary": [{"arm": r["arm"], **{k: r[k]["ms"] for k in CASES}} for r in rows]}))
+    extras = ("sparse_group_ms",)
+    print(json.dumps({"summary": [
+        {"arm": r["arm"], **{k: r[k]["ms"] for k in names}, **{k: r[k] for k in extras if k in r}} for r in rows
+    ]}))
     return 0
 
 

@@ -256,12 +256,12 @@ def _make_chain_scorer(ex: "Executor") -> BatchedScorer:
 
 def _make_stacked_scorer() -> BatchedScorer:
     """Coalescing scorer for the cross-shard stacked-sparse TopN path;
-    num_rows rides in the staged tuple."""
+    num_rows rides in the staged bundle, and so does its grouping."""
     return BatchedScorer(
         max_batch=MAX_BATCH,
-        single_fn=lambda src, st: ops.sparse_intersection_counts_stacked(src, *st),
+        single_fn=lambda src, st: ops.sparse_intersection_counts_stacked(src, *st, groups=st.groups),
         batch_fn=lambda srcs, st: ops.sparse_intersection_counts_stacked_batch_list(
-            srcs, *st
+            srcs, *st, groups=st.groups
         ),
     )
 
@@ -2153,13 +2153,13 @@ class _StackedLazyScores(_ChunkedLazyScores):
         return self._ex.stager.sparse_rows_stacked(self._frags, ids_by_shard, size)
 
     def _score(self, staged, size: int):
-        blocks, brow, bslot, bshard, num_rows = staged
+        blocks, brow = staged[0], staged[1]
         # key on the staged tensors' identity (same live objects ⇔ same
         # snapshot — the BatchedScorer contract), so concurrent queries
         # over this chunk share one kernel launch and one fetch
         scores = self._ex.stacked_scorer.score(
             (id(blocks), id(brow)),
-            (blocks, brow, bslot, bshard, num_rows),
+            staged,
             self._resolved_srcs(),
         )
         return _fetch(scores)[: len(self._frags) * size].reshape(len(self._frags), size)
@@ -2216,9 +2216,9 @@ class _LazyScores:
         frag = self._frag
         occupied = frag.sparse_block_count(list(ids))
         if occupied * 2 < len(ids) * (SHARD_WIDTH >> 16):
-            blocks, brow, bslot, num_rows = self._ex.stager.sparse_rows(frag, ids)
+            staged = self._ex.stager.sparse_rows(frag, ids)
             scores = _fetch(
-                ops.sparse_intersection_counts(self._src, blocks, brow, bslot, num_rows)
+                ops.sparse_intersection_counts(self._src, *staged, groups=staged.groups)
             )
         else:
             # key on the staged tensor's identity (not frag.generation,

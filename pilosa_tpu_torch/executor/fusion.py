@@ -409,10 +409,10 @@ class QueryFuser:
                 part[d[1] :].copy_(count.reshape(1))
             else:  # topn head chunk
                 _, n_shards, chunk = d[1], d[2], d[3]
-                srcs, blocks, brow, bslot, bshard = u.inputs
+                srcs, blocks, brow, bslot, bshard, groups = u.inputs
                 part.view(n_shards, chunk).copy_(
                     ops.sparse_intersection_counts_stacked_mat(
-                        srcs, blocks, brow, bslot, bshard, d[1], n_shards, chunk
+                        srcs, blocks, brow, bslot, bshard, d[1], n_shards, chunk, groups=groups
                     )
                 )
         return buf
@@ -597,7 +597,7 @@ class QueryFuser:
             return _Unit(i, None, (), finish)
         blocks, brow, bslot, bshard, num_rows = staged
         return _Unit(
-            i, ("topn", num_rows, n_shards, size), (srcs, blocks, brow, bslot, bshard), finish,
+            i, ("topn", num_rows, n_shards, size), (srcs, blocks, brow, bslot, bshard, staged.groups), finish,
             extra_bytes=8 * num_rows,
         )
 

@@ -686,19 +686,27 @@ class DeviceStager:
         (blocks i32[B, 2048], block_row i32[B], block_slot i32[B],
         num_rows = len(row_ids)), exactly the set containers of the
         candidates: bytes staged scale with set containers, not
-        candidates × 128 KB. No delta path (see _sparse_fallback_for)."""
+        candidates × 128 KB. An ``ops.SparseBundle``: its ``groups`` is
+        K2's grouping of the blocks. No delta path (see
+        _sparse_fallback_for)."""
 
         def build():
             gen = frag.generation
             blocks, brow, bslot = frag.sparse_row_blocks(list(row_ids))
             num_rows = len(row_ids)
-            dev = (
-                self._to_device(blocks),
-                self._to_device(brow.astype(np.int32)),
-                self._to_device(bslot.astype(np.int32)),
-                num_rows,
+            groups = ops.sparse_groups(
+                brow, bslot, None, num_rows, 1, ops.CONTAINERS_PER_ROW, device=self.device
             )
-            return dev, blocks.nbytes + brow.nbytes + bslot.nbytes, gen
+            dev = ops.SparseBundle(
+                (
+                    self._to_device(blocks),
+                    self._to_device(brow.astype(np.int32)),
+                    self._to_device(bslot.astype(np.int32)),
+                    num_rows,
+                ),
+                groups,
+            )
+            return dev, blocks.nbytes + brow.nbytes + bslot.nbytes + groups.nbytes, gen
 
         return self._get_or_build(
             self._key(frag, "sparse_rows", (row_ids,)),
@@ -815,8 +823,9 @@ class DeviceStager:
         shard i32[B], num_rows) bundle, where global_row = shard_index
         * chunk + local candidate index. One kernel launch then scores
         the whole index's chunk (ops.sparse_intersection_counts_stacked).
-        The value is None when no shard has candidate blocks. No delta
-        path (see _sparse_fallback_for)."""
+        An ``ops.SparseBundle``: its ``groups`` is K2's grouping of the
+        blocks by (shard, slot). The value is None when no shard has
+        candidate blocks. No delta path (see _sparse_fallback_for)."""
 
         def build():
             gens = self._stack_gen(frags)
@@ -838,14 +847,20 @@ class DeviceStager:
             brow = np.concatenate(rows)
             bslot = np.concatenate(slots)
             bshard = np.concatenate(shardix)
-            dev = (
-                self._to_device(blocks),
-                self._to_device(brow),
-                self._to_device(bslot),
-                self._to_device(bshard),
-                num_rows,
+            groups = ops.sparse_groups(
+                brow, bslot, bshard, num_rows, len(frags), ops.CONTAINERS_PER_ROW, device=self.device
             )
-            nbytes = blocks.nbytes + brow.nbytes + bslot.nbytes + bshard.nbytes
+            dev = ops.SparseBundle(
+                (
+                    self._to_device(blocks),
+                    self._to_device(brow),
+                    self._to_device(bslot),
+                    self._to_device(bshard),
+                    num_rows,
+                ),
+                groups,
+            )
+            nbytes = blocks.nbytes + brow.nbytes + bslot.nbytes + bshard.nbytes + groups.nbytes
             return dev, nbytes, gens
 
         return self._get_or_build(

@@ -61,9 +61,9 @@ _SIGNATURES = {
         ("pilosa_dense_scores", [_P, _P, _P, _I, _I, _LL, _I, _P]),
     ),
     "sparse_scores": (
-        # srcs, blocks, block_row, block_slot, block_shard, out,
-        # q, s, w, nb, num_rows, device, stream
-        ("pilosa_sparse_scores", [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P]),
+        # srcs (host SparseSrcs*), blocks, block_row, order, items,
+        # n_items, out, q, num_rows, device, stream
+        ("pilosa_sparse_scores", [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
     ),
     "tree_count": (
         # leaf_ptrs (host u64[ndistinct]), refs (host u8[q * nleaves]),

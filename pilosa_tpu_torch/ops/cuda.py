@@ -195,49 +195,108 @@ def dense_scores(srcs: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# Source stacks one sparse_scores launch takes by pointer (SS_MAX_Q in
+# sparse_scores.cu); a wider batch takes further launches.
+SPARSE_MAX_Q = 32
+
+
+class _SparseSrcs(ctypes.Structure):
+    # SparseSrcs in sparse_scores.cu: each query's [S, W] source stack by
+    # its base pointer and shard stride in words
+    _fields_ = [
+        ("base", ctypes.c_void_p * SPARSE_MAX_Q),
+        ("shard_stride", ctypes.c_longlong * SPARSE_MAX_Q),
+    ]
+
+
+def _source_stacks(srcs) -> list:
+    """Each query's i32[S, W] source stack: the rows of an i32[Q, S, W]
+    tensor or the tensors of a sequence, as views (nothing is copied).
+    Each must have a dense word axis, a shard stride of whole 16-byte
+    vectors and a 16-byte aligned start: the kernel copies 8 KiB
+    containers of it with cp.async.bulk."""
+    stacks = list(srcs.unbind(0)) if isinstance(srcs, torch.Tensor) and srcs.dim() == 3 else list(srcs)
+    if not stacks:
+        return stacks
+    shape = tuple(stacks[0].shape)
+    for t in stacks:
+        if not isinstance(t, torch.Tensor) or t.dim() != 2 or tuple(t.shape) != shape:
+            raise ValueError(f"sources must be i32[S, W] of one shape, got {getattr(t, 'shape', t)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"sources must be int32, got {t.dtype}")
+        if t.device.type != "cuda":
+            raise ValueError(f"sources must be CUDA tensors, got {t.device}")
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError("sources must have a dense word axis")
+        if t.data_ptr() % 16 or t.stride(0) % 4:
+            raise ValueError("sources must be 16-byte aligned per shard for bulk copies")
+    if shape[1] % 2048:
+        raise ValueError(f"source words per shard must be a multiple of 2048, got {shape[1]}")
+    return stacks
+
+
 def sparse_stacked_scores(
-    srcs: torch.Tensor,
+    srcs,
     blocks: torch.Tensor,
     block_row: torch.Tensor,
     block_slot: torch.Tensor,
     block_shard,
     num_rows: int,
+    groups=None,
 ) -> torch.Tensor:
     """K2: block-sparse scoring -> i32[Q, num_rows]. srcs i32[Q, S, W]
-    (W a multiple of 2048), blocks i32[B, 2048], index arrays i32[B]
-    (block_shard None = shard 0)."""
-    _check_words(srcs, "srcs")
+    or a sequence of Q i32[S, W] stacks (W a multiple of 2048; taken by
+    pointer, see ``_source_stacks``), blocks i32[B, 2048], index arrays
+    i32[B] (block_shard None = shard 0). ``groups`` is the bundle's
+    ``ops.SparseGroups`` (the stager makes it with the bundle); None
+    makes it here, in one step: ``ops.sparse_groups`` copies the index
+    arrays to the host, which waits for the stream. Up to SPARSE_MAX_Q
+    queries a launch."""
+    from pilosa_tpu_torch.ops.packed import sparse_groups
+
+    stacks = _source_stacks(srcs)
     _check_words(blocks, "blocks")
     idx = [block_row, block_slot] + ([block_shard] if block_shard is not None else [])
     for t, what in zip(idx, ("block_row", "block_slot", "block_shard")):
         _check_words(t, what)
         if t.dim() != 1 or t.shape[0] != blocks.shape[0]:
             raise ValueError(f"{what} must be i32[B], got {tuple(t.shape)}")
-    _same_device(blocks.device, srcs, *idx)
-    if srcs.dim() != 3 or srcs.shape[2] % 2048:
-        raise ValueError(f"srcs must be i32[Q, S, W], W % 2048 == 0: {tuple(srcs.shape)}")
+    device = blocks.device
+    _same_device(device, *stacks, *idx)
     if blocks.dim() != 2 or blocks.shape[1] != 2048:
         raise ValueError(f"blocks must be i32[B, 2048], got {tuple(blocks.shape)}")
-    q, s, w = srcs.shape
+    q = len(stacks)
     nb = blocks.shape[0]
     # integer atomics give the same sum in any order; they add into zeros
-    out = torch.zeros((q, num_rows), dtype=torch.int32, device=blocks.device)
-    if q == 0 or nb == 0 or num_rows == 0 or s == 0:
+    out = torch.zeros((q, num_rows), dtype=torch.int32, device=device)
+    if q == 0 or nb == 0 or num_rows == 0 or stacks[0].shape[0] == 0:
+        return out
+    s, w = stacks[0].shape
+    if groups is None:
+        groups = sparse_groups(block_row, block_slot, block_shard, num_rows, s, w // 2048)
+    made_for = (groups.nb, groups.num_rows, groups.n_shards, groups.slots)
+    if made_for != (nb, num_rows, s, w // 2048):
+        raise ValueError(f"grouping made for (B, rows, S, slots) = {made_for}, not {(nb, num_rows, s, w // 2048)}")
+    _check_i32(groups.order, "groups.order")
+    _check_i32(groups.items, "groups.items", dim=2)
+    _same_device(device, groups.order, groups.items)
+    if groups.n_items == 0:
         return out
     lib = _build.library("sparse_scores")
-    err = lib.pilosa_sparse_scores(
-        srcs.data_ptr(),
-        blocks.data_ptr(),
-        block_row.data_ptr(),
-        block_slot.data_ptr(),
-        block_shard.data_ptr() if block_shard is not None else None,
-        out.data_ptr(),
-        q, s, w, nb, num_rows,
-        blocks.device.index,
-        _stream(blocks.device),
-    )
-    _raise_on(err, "sparse_stacked_scores")
-    SPARSE_STACKED_SCORES.note_launch(q)
+    stream = _stream(device)
+    for q0 in range(0, q, SPARSE_MAX_Q):
+        part = stacks[q0 : q0 + SPARSE_MAX_Q]
+        tab = _SparseSrcs()
+        for j, t in enumerate(part):
+            tab.base[j] = t.data_ptr()
+            tab.shard_stride[j] = t.stride(0)
+        err = lib.pilosa_sparse_scores(
+            ctypes.byref(tab), blocks.data_ptr(), block_row.data_ptr(),
+            groups.order.data_ptr(), groups.items.data_ptr(), groups.n_items,
+            out[q0].data_ptr(), len(part), num_rows, device.index, stream,
+        )
+        _raise_on(err, "sparse_stacked_scores")
+        SPARSE_STACKED_SCORES.note_launch(len(part))
     return out
 
 

@@ -201,6 +201,9 @@ distinct_presence_kernel(const unsigned* __restrict__ planes, long long plane_st
 // Blocks an SM holds of each register-route kernel (by depth and vector
 // width) per device, 0 until first asked; racing callers store one value.
 static std::atomic<int> g_per_sm[64][DP_REGISTER_DEPTH + 1][2];
+// whether a shared-route instance's dynamic shared memory limit is raised
+// on a device: [depth <= 12][device]
+static std::atomic<bool> g_shared_ready[2][64];
 
 template <int D, int VEC>
 static cudaError_t launch_register(const unsigned* p, long long plane_stride, long long shard_stride,
@@ -281,10 +284,19 @@ extern "C" int pilosa_distinct_presence(const void* planes, long long plane_stri
   long long blocks;
   if (depth <= DP_SHARED_DEPTH) {
     const int smem = nwords * 4;
-    auto kernel = depth <= 12 ? distinct_presence_kernel<kShared, 12>
-                              : distinct_presence_kernel<kShared, DP_SHARED_DEPTH>;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+    const bool low = depth <= 12;
+    auto kernel = low ? distinct_presence_kernel<kShared, 12>
+                      : distinct_presence_kernel<kShared, DP_SHARED_DEPTH>;
+    // the instance's limit is raised once a device to the most any of its
+    // launches asks for (the bitmap at its deepest depth): set to this
+    // launch's size, a concurrent launch could lower it before another's
+    // launch, which would then fail
+    if (!g_shared_ready[low][device].load(std::memory_order_acquire)) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               4 << ((low ? 12 : DP_SHARED_DEPTH) - 5));
+      if (e != cudaSuccess) return (int)e;
+      g_shared_ready[low][device].store(true, std::memory_order_release);
+    }
     // as many blocks an SM as the bitmaps allow (228 KiB a SM, 1 KiB of
     // it reserved a block), at most 8
     long long per_sm = (228 * 1024) / (smem + 1024 + 8);

@@ -45,6 +45,8 @@
 // with integer atomics (exact in any order); a histogram too big for shared
 // memory (K x (P + 1) over 200 KB) adds to the outputs directly.
 
+#include <atomic>
+
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -395,11 +397,26 @@ groupby_walk_kernel(const __grid_constant__ GbArgs a, int use_hist) {
   }
 }
 
+// Raise ``kernel``'s dynamic shared memory limit to ``most``, the most any
+// launch of it asks for, once a device; each launch then asks for its own
+// size. Setting the limit to each launch's size instead lets a concurrent
+// launch (the executor runs a request's calls on several threads) lower
+// it between another thread's setting and launch, which then fails.
+template <typename K>
+static cudaError_t allow_smem(K kernel, std::atomic<bool>* ready, int device, size_t most) {
+  if (ready[device].load(std::memory_order_acquire)) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  if (e == cudaSuccess) ready[device].store(true, std::memory_order_release);
+  return e;
+}
+
 template <int KMAX>
-static cudaError_t launch_count(const GbArgs& a, int nrows, int sms, cudaStream_t stream) {
+static cudaError_t launch_count(const GbArgs& a, int nrows, int sms, int device,
+                                cudaStream_t stream) {
+  static std::atomic<bool> ready[64];
   const size_t smem = (size_t)kCountStages * kCountRows * kCountVecs * sizeof(uint4);
-  cudaError_t e = cudaFuncSetAttribute(groupby_count_kernel<KMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = allow_smem(groupby_count_kernel<KMAX>, ready, device, smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, groupby_count_kernel<KMAX>, kThreads,
@@ -413,7 +430,8 @@ static cudaError_t launch_count(const GbArgs& a, int nrows, int sms, cudaStream_
 }
 
 template <int PMAX>
-static cudaError_t launch(const GbArgs& a, int sms, cudaStream_t stream) {
+static cudaError_t launch(const GbArgs& a, int sms, int device, cudaStream_t stream) {
+  static std::atomic<bool> ready[64];
   if (a.k == 1) {
     // split the word axis until about 8 blocks per SM are in flight,
     // keeping at least 4 steps of 32 vectors per warp
@@ -431,14 +449,13 @@ static cudaError_t launch(const GbArgs& a, int sms, cudaStream_t stream) {
   int nrows = 0;
   for (int d = 0; d < a.ndims; ++d) nrows += a.dims[d].rows;
   if (a.filt == nullptr && a.nplanes == 0 && a.k <= kCountGroups && nrows <= kCountRows)
-    return a.k <= 16   ? launch_count<16>(a, nrows, sms, stream)
-           : a.k <= 32 ? launch_count<32>(a, nrows, sms, stream)
-                       : launch_count<64>(a, nrows, sms, stream);
+    return a.k <= 16   ? launch_count<16>(a, nrows, sms, device, stream)
+           : a.k <= 32 ? launch_count<32>(a, nrows, sms, device, stream)
+                       : launch_count<64>(a, nrows, sms, device, stream);
   const size_t hist_bytes = (size_t)a.k * (a.nplanes + 1) * sizeof(unsigned);
   const int use_hist = hist_bytes <= kHistMaxBytes;
   const size_t smem = use_hist ? hist_bytes : 0;
-  cudaError_t e = cudaFuncSetAttribute(groupby_walk_kernel<PMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = allow_smem(groupby_walk_kernel<PMAX>, ready, device, kHistMaxBytes);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, groupby_walk_kernel<PMAX>, kThreads,
@@ -467,7 +484,8 @@ extern "C" int pilosa_groupby_reduce(const GbDim* dims, int ndims, const void* f
                                      void* stream) {
   // the walk indexes words with 32-bit integers
   if (ndims < 0 || ndims > GB_MAX_DIMS || nplanes < 0 || nplanes > 64 || k < 1 ||
-      k > 0x7fffffffLL || s < 1 || wv < 1 || s * wv * 4 + 32 > 0xffffffffLL)
+      k > 0x7fffffffLL || s < 1 || wv < 1 || s * wv * 4 + 32 > 0xffffffffLL || device < 0 ||
+      device >= 64)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -491,9 +509,9 @@ extern "C" int pilosa_groupby_reduce(const GbDim* dims, int ndims, const void* f
   a.plane_counts = static_cast<int32_t*>(plane_counts);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nplanes == 0) return (int)launch<0>(a, sms, st);
-  if (nplanes <= 8) return (int)launch<8>(a, sms, st);
-  if (nplanes <= 16) return (int)launch<16>(a, sms, st);
-  if (nplanes <= 32) return (int)launch<32>(a, sms, st);
-  return (int)launch<64>(a, sms, st);
+  if (nplanes == 0) return (int)launch<0>(a, sms, device, st);
+  if (nplanes <= 8) return (int)launch<8>(a, sms, device, st);
+  if (nplanes <= 16) return (int)launch<16>(a, sms, device, st);
+  if (nplanes <= 32) return (int)launch<32>(a, sms, device, st);
+  return (int)launch<64>(a, sms, device, st);
 }

@@ -178,9 +178,109 @@ def intersection_counts_matrix_batch_list(
 
 # -- K2: block-sparse stacked scoring ------------------------------------------
 
+# Blocks one K2 work item holds at most: four 16-block MMA tiles
+# (kSpan in ops/kernels/sparse_scores.cu).
+SPARSE_SPAN = 64
+
+
+class SparseGroups:
+    """K2's grouping of a block-sparse bundle by source container.
+
+    A block at (shard, slot) is scored against container ``slot`` of
+    shard ``shard`` of every query's source stack, so the blocks that
+    share a (shard, slot) share their Q source containers: the kernel
+    brings those into shared memory once for the group. ``order``
+    i32[V] lists the blocks whose row, slot and shard are in range,
+    stably sorted by (shard, slot); the blocks themselves keep their
+    place. ``items`` i32[I, 4] is the kernel's work list, one row a
+    group or an even share of at most SPARSE_SPAN blocks of a larger
+    one: (first position in ``order``, blocks, shard, slot). ``nb``,
+    ``num_rows``, ``n_shards`` and ``slots`` name the bundle it was made
+    for; a launch with another raises."""
+
+    __slots__ = ("order", "items", "nb", "num_rows", "n_shards", "slots")
+
+    def __init__(self, order, items, nb: int, num_rows: int, n_shards: int, slots: int) -> None:
+        self.order = order
+        self.items = items
+        self.nb = nb
+        self.num_rows = num_rows
+        self.n_shards = n_shards
+        self.slots = slots
+
+    @property
+    def n_items(self) -> int:
+        return int(self.items.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * (int(self.order.numel()) + int(self.items.numel()))
+
+
+def _host_i32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a).astype(np.int64, copy=False)
+
+
+def _sparse_group_arrays(block_row, block_slot, block_shard, num_rows: int, n_shards: int, slots: int):
+    """(order i32[V], items i32[I, 4]) of ``SparseGroups`` by numpy from
+    host copies of a bundle's index arrays (block_shard None: every block
+    in shard 0)."""
+    row = _host_i32(block_row)
+    slot = _host_i32(block_slot)
+    shard = np.zeros_like(row) if block_shard is None else _host_i32(block_shard)
+    valid = (
+        (row >= 0) & (row < num_rows) & (slot >= 0) & (slot < slots) & (shard >= 0) & (shard < n_shards)
+    )
+    idx = np.flatnonzero(valid)
+    key = shard[idx] * slots + slot[idx]
+    perm = np.argsort(key, kind="stable")
+    order = idx[perm]
+    key = key[perm]
+    if not key.size:
+        return order.astype(np.int32), np.zeros((0, 4), dtype=np.int32)
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    counts = np.diff(np.r_[starts, key.size])
+    # a group of n blocks becomes ceil(n / SPAN) items of even size
+    k = -(-counts // SPARSE_SPAN)
+    g = np.repeat(np.arange(starts.size), k)
+    j = np.arange(g.size) - np.repeat(np.cumsum(k) - k, k)
+    base, extra = counts[g] // k[g], counts[g] % k[g]
+    first = starts[g] + j * base + np.minimum(j, extra)
+    size = base + (j < extra)
+    items = np.stack([first, size, key[starts[g]] // slots, key[starts[g]] % slots], axis=1)
+    return order.astype(np.int32), items.astype(np.int32)
+
+
+def sparse_groups(block_row, block_slot, block_shard, num_rows: int, n_shards: int, slots: int, device=None):
+    """The ``SparseGroups`` of a bundle (index arrays as numpy arrays or
+    tensors), on ``device`` (default: that of ``block_row``). Index
+    tensors on the card are first copied to the host, which waits for the
+    stream: the stager calls this once when it builds a bundle, from its
+    host arrays."""
+    if device is None:
+        device = block_row.device if isinstance(block_row, torch.Tensor) else "cpu"
+    order, items = _sparse_group_arrays(block_row, block_slot, block_shard, num_rows, n_shards, slots)
+    nb = int(block_row.shape[0])
+    return SparseGroups(
+        words_from_numpy(order, device), words_from_numpy(items, device), nb, num_rows, n_shards, slots
+    )
+
+
+class SparseBundle(tuple):
+    """A staged block-sparse bundle: the tuple its scorer unpacks
+    (blocks, block_row, block_slot[, block_shard], num_rows), and as
+    ``groups`` the bundle's ``SparseGroups``, made once with it."""
+
+    def __new__(cls, fields, groups: SparseGroups):
+        self = super().__new__(cls, fields)
+        self.groups = groups
+        return self
+
 
 def sparse_stacked_scores_plain(
-    srcs: torch.Tensor,
+    srcs,
     blocks: torch.Tensor,
     block_row: torch.Tensor,
     block_slot: torch.Tensor,
@@ -189,12 +289,14 @@ def sparse_stacked_scores_plain(
 ) -> torch.Tensor:
     """Block-sparse scoring over staged candidate blocks.
 
-    srcs i32[Q, S, W]; blocks i32[B, 2048] with block_row (segment id),
-    block_slot (container position within the row) and block_shard
-    (which of the S source rows; None = shard 0) i32[B]. Gathers each
-    block's source container, popcounts the AND and segment-sums per
-    row -> i32[Q, num_rows]. Blocks whose row, slot or shard lies out of
-    range contribute nothing."""
+    srcs i32[Q, S, W] (or a sequence of Q i32[S, W]); blocks i32[B,
+    2048] with block_row (segment id), block_slot (container position
+    within the row) and block_shard (which of the S source rows; None =
+    shard 0) i32[B]. Gathers each block's source container, popcounts
+    the AND and segment-sums per row -> i32[Q, num_rows]. Blocks whose
+    row, slot or shard lies out of range contribute nothing."""
+    if not isinstance(srcs, torch.Tensor):
+        srcs = torch.stack(list(srcs))
     q, s, w = srcs.shape
     slots = w // CONTAINER_WORDS
     per = srcs.reshape(q, s, slots, CONTAINER_WORDS)
@@ -219,57 +321,61 @@ def sparse_stacked_scores_plain(
     return out.to(torch.int32)
 
 
-def _sparse_scores(srcs, blocks, block_row, block_slot, block_shard, num_rows: int):
+def _sparse_scores(srcs, blocks, block_row, block_slot, block_shard, num_rows: int, groups):
     if _on_cuda(blocks):
         return cuda.sparse_stacked_scores(
-            srcs, blocks, block_row, block_slot, block_shard, num_rows
+            srcs, blocks, block_row, block_slot, block_shard, num_rows, groups=groups
         )
     return sparse_stacked_scores_plain(
         srcs, blocks, block_row, block_slot, block_shard, num_rows
     )
 
 
-def sparse_intersection_counts(src, blocks, block_row, block_slot, num_rows: int):
+def sparse_intersection_counts(src, blocks, block_row, block_slot, num_rows: int, *, groups=None):
     """Single-shard block-sparse TopN scoring: src i32[W] -> i32[num_rows].
     Only nonempty container blocks are staged; absent blocks contribute
-    zero to an intersection, so this is bit-identical to the dense pass."""
+    zero to an intersection, so this is bit-identical to the dense pass.
+    ``groups``: the bundle's ``SparseGroups`` (``SparseBundle.groups``);
+    None makes it in the kernel's wrapper."""
     return _sparse_scores(
-        src.reshape(1, 1, -1), blocks, block_row, block_slot, None, num_rows
+        src.reshape(1, 1, -1), blocks, block_row, block_slot, None, num_rows, groups
     )[0]
 
 
 def sparse_intersection_counts_stacked(
-    srcs, blocks, block_row, block_slot, block_shard, num_rows: int
+    srcs, blocks, block_row, block_slot, block_shard, num_rows: int, *, groups=None
 ):
     """Cross-shard TopN scoring in one launch: srcs i32[S, W], block_row
     a global segment id (shard_index * chunk + candidate index) ->
     i32[num_rows]."""
     return _sparse_scores(
-        srcs.unsqueeze(0), blocks, block_row, block_slot, block_shard, num_rows
+        srcs.unsqueeze(0), blocks, block_row, block_slot, block_shard, num_rows, groups
     )[0]
 
 
 def sparse_intersection_counts_stacked_mat(
-    srcs, blocks, block_row, block_slot, block_shard, num_rows: int, n_shards: int, chunk: int
+    srcs, blocks, block_row, block_slot, block_shard, num_rows: int, n_shards: int, chunk: int,
+    *, groups=None,
 ):
     """The stacked scorer's matrix form, as whole-query fusion lowers a
     TopN head: K2's launch, then i32[n_shards, chunk] as a view of its
     output on the device, so the caller fetches exactly the per-shard
     score head. The stacked staging keeps num_rows == n_shards * chunk,
     so the slice takes nothing away."""
-    flat = sparse_intersection_counts_stacked(srcs, blocks, block_row, block_slot, block_shard, num_rows)
+    flat = sparse_intersection_counts_stacked(
+        srcs, blocks, block_row, block_slot, block_shard, num_rows, groups=groups
+    )
     return flat[: n_shards * chunk].reshape(n_shards, chunk)
 
 
 def sparse_intersection_counts_stacked_batch_list(
-    srcs, blocks, block_row, block_slot, block_shard, num_rows: int
+    srcs, blocks, block_row, block_slot, block_shard, num_rows: int, *, groups=None
 ):
     """Concurrent-query batch of the stacked scorer: a list of Q source
-    stacks i32[S, W]; the staged blocks stream once for the whole batch.
-    -> i32[Q, num_rows]."""
-    return _sparse_scores(
-        torch.stack(list(srcs)), blocks, block_row, block_slot, block_shard, num_rows
-    )
+    stacks i32[S, W]; the staged blocks stream once for the whole batch,
+    and the kernel takes the Q stacks by pointer (no copy into one
+    tensor). -> i32[Q, num_rows]."""
+    return _sparse_scores(list(srcs), blocks, block_row, block_slot, block_shard, num_rows, groups)
 
 
 # -- K3: fused tree count --------------------------------------------------------

@@ -6,6 +6,8 @@ plain versions are held against the JAX package in test_torch_ops.py).
 Run on a GPU machine with: python -m pytest tests/test_torch_kernels.py -m cuda
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -78,27 +80,75 @@ def test_dense_scores_sparse_zero_and_full_sources(dev, q, r, w):
         assert int(got[0].abs().sum()) == 0
 
 
-@pytest.mark.parametrize("q,s,with_shard", [(1, 1, False), (1, 3, True), (5, 3, True), (40, 2, True)])
+def _sparse_bundle(rng, s, w, num_rows, b, dev):
+    """Blocks in random order with duplicate rows, one row, one slot and
+    one shard out of range, and a group of 150 blocks at (shard 0, slot
+    1): past one CTA's span of 64, so it is cut into three items."""
+    blocks = _words(rng, (b, 2048), dev)
+    brow = rng.integers(0, num_rows, size=b).astype(np.int32)
+    bslot = rng.integers(0, w // 2048, size=b).astype(np.int32)
+    bshard = rng.integers(0, s, size=b).astype(np.int32)
+    brow[:40] = 3  # duplicate rows add up
+    bslot[100:250], bshard[100:250] = 1, 0
+    brow[-1] = num_rows + 5  # out of range: dropped
+    bslot[-2] = w // 2048
+    bshard[-3] = s
+    perm = rng.permutation(b)
+    t = lambda a: torch.from_numpy(a[perm].copy()).to(dev)  # noqa: E731
+    return blocks[torch.from_numpy(perm).to(dev)].contiguous(), t(brow), t(bslot), t(bshard)
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5, 8, 16, 32, 40])
+@pytest.mark.parametrize("s,with_shard", [(1, False), (3, True)])
 def test_sparse_scores_matches_plain(dev, q, s, with_shard):
+    """Unsorted blocks given no grouping (the wrapper makes it), then the
+    same with the grouping made beforehand, and the sources as a list of
+    separate stacks (taken by pointer): each == plain. A batch past 32
+    queries takes a launch per 32."""
     rng = np.random.default_rng(q * 10 + s)
     w = 4 * 2048
     num_rows = 24
-    b = 300
     srcs = _words(rng, (q, s, w), dev)
-    blocks = _words(rng, (b, 2048), dev)
-    brow = rng.integers(0, num_rows, size=b).astype(np.int32)
-    brow[:40] = 3  # duplicate rows add up
-    brow[-1] = num_rows + 5  # out of range: dropped
-    bslot = rng.integers(0, w // 2048, size=b).astype(np.int32)
-    bshard = rng.integers(0, s, size=b).astype(np.int32)
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    shard = t(bshard) if with_shard else None
-    if not with_shard:
-        srcs = srcs[:, :1].contiguous()
-    got = ops.cuda.sparse_stacked_scores(srcs, blocks, t(brow), t(bslot), shard, num_rows)
+    blocks, brow, bslot, bshard = _sparse_bundle(rng, s, w, num_rows, 300, dev)
+    shard = bshard if with_shard else None
+    before = ops.cuda.SPARSE_STACKED_SCORES.launches
+    got = ops.cuda.sparse_stacked_scores(srcs, blocks, brow, bslot, shard, num_rows)
     torch.cuda.synchronize()
-    want = ops.sparse_stacked_scores_plain(srcs, blocks, t(brow), t(bslot), shard, num_rows)
+    assert ops.cuda.SPARSE_STACKED_SCORES.launches == before + -(-q // 32)
+    want = ops.sparse_stacked_scores_plain(srcs, blocks, brow, bslot, shard, num_rows)
     assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+    groups = ops.sparse_groups(brow, bslot, shard, num_rows, s, w // 2048)
+    assert groups.n_items > 1 and int(groups.items[:, 1].max()) <= ops.SPARSE_SPAN
+    again = ops.cuda.sparse_stacked_scores(list(srcs.unbind(0)), blocks, brow, bslot, shard, num_rows, groups=groups)
+    torch.cuda.synchronize()
+    assert torch.equal(again, want)
+
+
+def test_sparse_scores_offset_source_views(dev):
+    """Sources as column windows of wider tensors, each at its own
+    16-byte aligned offset, through the batch entry point; a view that
+    is not 16-byte aligned, and a grouping of another bundle, raise."""
+    rng = np.random.default_rng(77)
+    q, s, w, num_rows = 6, 3, 4 * 2048, 24
+    wide = [_words(rng, (s, w + 2048 + 8), dev) for _ in range(q)]
+    offs = [4 * int(rng.integers(0, 512)) for _ in range(q)]
+    views = [x[:, o : o + w] for x, o in zip(wide, offs)]
+    blocks, brow, bslot, bshard = _sparse_bundle(rng, s, w, num_rows, 300, dev)
+    want = ops.sparse_stacked_scores_plain(torch.stack(views), blocks, brow, bslot, bshard, num_rows)
+    got = ops.sparse_intersection_counts_stacked_batch_list(views, blocks, brow, bslot, bshard, num_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        ops.cuda.sparse_stacked_scores([wide[0][:, 1 : 1 + w]], blocks, brow, bslot, bshard, num_rows)
+    other = ops.sparse_groups(brow[:-1], bslot[:-1], bshard[:-1], num_rows, s, w // 2048)
+    with pytest.raises(ValueError):
+        ops.cuda.sparse_stacked_scores(views, blocks, brow, bslot, bshard, num_rows, groups=other)
+    # nothing in range: no launch, all zeros
+    none = torch.full_like(brow, -1)
+    before = ops.cuda.SPARSE_STACKED_SCORES.launches
+    z = ops.cuda.sparse_stacked_scores(views, blocks, none, bslot, bshard, num_rows)
+    assert ops.cuda.SPARSE_STACKED_SCORES.launches == before and int(z.abs().sum()) == 0
 
 
 TREES = [
@@ -249,6 +299,68 @@ def test_groupby_reduce_matches_plain(dev, rows, p, s, with_filter, w):
     assert ops.cuda.GROUPBY_REDUCE.launches == before + 1
     want = ops.groupby_reduce_plain(dims, filt, planes)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _from_threads(fns, threads=8, rounds=400):
+    """``threads`` threads, started together, each call every function of
+    ``fns`` in turn ``rounds`` times (each from its own offset). Returns
+    the exceptions raised and each function's results."""
+    start = threading.Barrier(threads)
+    errors, outs = [], [[] for _ in fns]
+
+    def run(t):
+        try:
+            start.wait()
+            for i in range(rounds):
+                j = (i + t) % len(fns)
+                outs[j].append(fns[j]())
+        except BaseException as e:  # checked below, once every thread joined
+            errors.append(e)
+
+    pool = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    torch.cuda.synchronize()
+    return errors, outs
+
+
+def test_groupby_reduce_concurrent_histogram_sizes(dev):
+    """K4 launched from several threads at once with two histogram sizes
+    in shared memory (16 bytes and 36 KiB), as a request's GroupBy calls
+    run on the executor's threads: no launch is refused and every answer
+    == plain. A limit set to each launch's own size failed here: another
+    thread lowered it between the setting and the launch."""
+    rng = np.random.default_rng(2024)
+    s, w = 1, 64
+    shapes = []
+    for rows, p in (((2,), 1), ((32, 32), 8)):
+        dims = [_words(rng, (r, s, w), dev) for r in rows]
+        planes = _words(rng, (s, p, w), dev)
+        shapes.append((dims, planes, ops.groupby_reduce_plain(dims, None, planes)))
+    fns = [lambda d=d, pl=pl: ops.cuda.groupby_reduce(d, None, pl) for d, pl, _ in shapes]
+    errors, outs = _from_threads(fns)
+    assert not errors, errors[:3]
+    for (_, _, want), got in zip(shapes, outs):
+        assert got and all(torch.equal(g[0], want[0]) and torch.equal(g[1], want[1]) for g in got)
+
+
+def test_distinct_presence_concurrent_shared_sizes(dev):
+    """K9's shared route launched from several threads at once at depth 7
+    and depth 12 (a 16-byte and a 512-byte bitmap, one kernel instance):
+    no launch is refused and every answer == plain."""
+    rng = np.random.default_rng(2025)
+    s, w = 1, 64
+    cases = []
+    for depth in (7, 12):
+        planes = _words(rng, (s, depth + 1, w), dev)
+        cases.append((depth, planes, ops.bsi_distinct_presence_plain(planes, None, depth)))
+    fns = [lambda d=d, pl=pl: ops.cuda.distinct_presence(pl, None, d) for d, pl, _ in cases]
+    errors, outs = _from_threads(fns)
+    assert not errors, errors[:3]
+    for (_, _, want), got in zip(cases, outs):
+        assert got and all(torch.equal(g, want) for g in got)
 
 
 def _dense38(rng, shape, dev):
