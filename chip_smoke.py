@@ -53,7 +53,9 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          when no reader holds the entry, into a copy when one does (the
          refreshes are counted by route). First a seeded sequence, every
          read held against the CPU leg right after it; then 8 concurrent
-         clients, every read checked again once they are done.
+         clients x 50 operations (bench.py's are x 200: cut for the run's
+         time limit, printed as ``reduced``), every read checked again
+         once they are done.
   tiered the shape of bench.py's tiering probe (_tiering_oversub_probe)
          at 4,096 rows of one shard, the working set 512 MiB: rows of
          array, run and bitmap containers. Zipf(1.3) Count(Row) traffic
@@ -86,19 +88,39 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          invalidate; every read against the CPU leg). It must launch K1,
          K2, K3, K4, K5, K7, K8, K9 and K10 and show no degrade, device-down
          fallback or gate trip outside the allocation failure.
+  keys   Pilosa's keyed indexes with attributes, on a server of its own
+         (the default Config on ``cuda``) over a fresh directory under the
+         run's root: index ``users`` and field ``likes`` with ``keys``,
+         one shard of column keys ``u%07d`` (the longest prefix whose ids
+         fit one shard: 16 partitions mint past 2^20, printed as
+         ``reduced``), 1024 row keys ``item-%04d`` at the dense cell's
+         density (K1's matrix 1024 x 32768 words). Every column key is
+         minted through the keyed import route (one bit a key, the row
+         keys cycling, 65,536 a request), the rest of the bits imported
+         by id through the plain import (the server's ``API.import_bits``
+         in process) with the ids the server's own translator gives; SetRowAttrs gives every row a category (one of
+         16) and a rank, SetColumnAttrs the first 65,536 columns a
+         segment. Then, over HTTP, each answer against the CPU leg on the
+         same holder and translator: keyed TopN, TopN with attrName /
+         attrValues (128 candidate rows), keyed Count chains, Row with
+         columnAttrs, one keyed multi-call request through the fuser; last
+         a keyed Set of a new column key, read back. It must launch K1 and
+         K3; mint and import seconds and the family p50s print on a
+         ``phases.keys`` line.
 
 The device executors stage with the port's defaults, which are the
 server's: 8 GiB budget, delta refresh on at a 0.25 ratio, a 256 MiB
 tier 1 and compressed uploads at a dense/payload ratio of 4.0 (the
 tiered arms change only the budget).
 
-Every dense, tall, writes, tiered and server answer must equal the
+Every dense, tall, writes, tiered, server and keys answer must equal the
 port's CPU roaring leg (device_policy="never"); every ssb answer (in
 process and over HTTP) must equal a plain numpy computation over the
 generated columns (int64, exact). Each path (dense and tall; ssb;
-fusion; server; writes; tiered) runs with the kernels' launch
+fusion; server; keys; writes; tiered) runs with the kernels' launch
 counts set to 0 just before it and read just after; each kernel must
-have launched on its path (the server's kernels on the server path). Then each kernel runs again at the arguments
+have launched on its path (the server's kernels on the server path, K1
+and K3 on the keys path). Then each kernel runs again at the arguments
 of its largest main-path launch and must equal its plain PyTorch version
 run on the card on the same inputs (integers: the bar is ==). Both are
 timed with CUDA events, the L2 cache flushed (by a read, leaving clean
@@ -132,7 +154,7 @@ The fragments are written by a pool of worker processes, stopped before
 the card is used.
 
 Output: progress on stderr; on stdout the card's name and power limit
-(nvidia-smi), a ``phases.server`` line, a ``phases.fusion`` line (its
+(nvidia-smi), a ``phases.server`` line, a ``phases.keys`` line, a ``phases.fusion`` line (its
 table, the plan-cache probe and the fused TopN head,
 ``sparse_intersection_counts_stacked_mat``, == plain and timed), a
 ``phases`` line (qps and p50 on the card), a ``kernels`` line, and as
@@ -224,10 +246,28 @@ SET_FRAC = 0.8
 # bounds how many reads the run can check.
 READ_SHARES = (0.4, 0.1, 0.5)
 # the sequence checked read by read stays short (a filtered dense TopN
-# costs the CPU leg seconds); the concurrent clients serve ~80 write
-# batches, their reads checked once quiesced
+# costs the CPU leg seconds); the concurrent clients serve ~40 write
+# batches, their reads checked once quiesced. bench.py's ingest shape is
+# 8 clients x 200 operations; the run's time limit cuts it to 8 x 50
 WRITES_SEQUENTIAL_OPS = 40
-WRITES_CLIENT_OPS = 100
+WRITES_CLIENT_OPS = 50
+WRITES_CLIENT_OPS_BENCH = 200
+
+# keys: Pilosa's keyed indexes (index and field option ``keys``) with row
+# attributes and TopN's attrName/attrValues filter, on the port's server:
+# one shard of column keys, 1024 row keys at the dense cell's density
+KEYS_DIR = ".keys"  # under the run's root; the holder skips dot names
+KEYS_COLUMNS = SW  # column keys asked for: one shard's width
+KEYS_ROWS = 1024
+KEYS_BATCH = 65_536  # column keys a keyed import request
+KEYS_IMPORT_ROWS = 256  # rows a plain import call (~4.2M bits)
+KEYS_CATEGORIES = 16
+KEYS_FILTER = ("cat-03", "cat-11")  # two of the 16: 128 candidate rows
+KEYS_COLUMN_ATTRS = 65_536
+KEYS_ATTR_BATCH = 4096  # SetColumnAttrs calls a request
+KEYS_REPEATS = 10  # timed runs of each query
+KEYS_SEED = 1407
+KEYS_KERNELS = ("dense_scores", "tree_count")
 
 # tiered: bench.py's tiering probe (bench.py:1154-1240) at 4096 rows
 TIER_ROWS = 4096
@@ -3146,6 +3186,223 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
     return out
 
 
+def keys_column_prefix(n: int, partitions: int, width: int = SW) -> tuple[int, np.ndarray, np.ndarray]:
+    """Column keys ``u%07d`` for j < ``n`` as the translator mints them in
+    key order: partition fnv64a(key) % ``partitions``, id = ordinal *
+    partitions + partition + 1 (translate/translator.py). Returns the
+    length of the longest prefix whose ids all lie below ``width`` (one
+    shard), every key's id and partition."""
+    m = np.frombuffer("".join(f"u{j:07d}" for j in range(n)).encode(), dtype=np.uint8).reshape(n, 8)
+    h = np.full(n, 0xCBF29CE484222325, dtype=np.uint64)
+    prime = np.uint64(0x100000001B3)
+    for j in range(m.shape[1]):
+        h = (h ^ m[:, j].astype(np.uint64)) * prime
+    part = (h % np.uint64(partitions)).astype(np.int64)
+    ordinal = np.empty(n, dtype=np.int64)
+    for p in range(partitions):
+        sel = part == p
+        ordinal[sel] = np.arange(int(sel.sum()))
+    ids = ordinal * partitions + part + 1
+    over = np.nonzero(ids >= width)[0]
+    return (int(over[0]) if over.size else n), ids, part
+
+
+def keys_fresh_column(k: int, ids: np.ndarray, part: np.ndarray, partitions: int, width: int = SW) -> tuple[int, int]:
+    """(j, id) of the first key past the prefix ``u%07d``[:k] whose id,
+    minted next, still lies below ``width``."""
+    counts = np.bincount(part[:k], minlength=partitions)
+    for j in range(k + 1, len(part)):
+        nid = int(counts[part[j]]) * partitions + int(part[j]) + 1
+        if nid < width:
+            return j, nid
+    raise AssertionError("keys: no fresh column key fits the shard")
+
+
+def keys_queries() -> dict[str, list[str]]:
+    """The keys phase's query families, all by key."""
+    def row(r: int) -> str:
+        return f'Row(likes="item-{r:04d}")'
+
+    def four(r: int) -> str:
+        return ", ".join(row(r + i) for i in range(4))
+
+    attr = 'attrName="category", attrValues=[' + ", ".join(f'"{c}"' for c in KEYS_FILTER) + "]"
+    return {
+        "keyed_topn": [f"TopN(likes, {row(r)}, n=10)" for r in (1, 2, 3, 4)],
+        "attr_topn": [f"TopN(likes, {row(r)}, n=10, {attr})" for r in (5, 6, 7, 8)],
+        # four leaves: 64 containers, the auto policy's crossover
+        "keyed_chains": [f"Count(Intersect({four(10)}))", f"Count(Union({four(20)}))",
+                         f"Count(Difference({four(30)}))", f"Count(Intersect(Union({four(40)}), {four(50)}))"],
+        "row_column_attrs": [row(60), row(61)],
+        "multi_call": [
+            f"Count(Intersect({four(70)}))TopN(likes, {row(74)}, n=5)"
+            f"Count(Union({four(80)}))TopN(likes, {row(84)}, n=5, {attr})"
+        ],
+    }
+
+
+def _keys_post(c: "HttpClient", path: str, body) -> dict:
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    st, _, resp = c.request("POST", path, data)
+    if st != 200:
+        raise AssertionError(f"keys: POST {path}: HTTP {st}: {resp[:300]!r}")
+    return json.loads(resp or b"{}")
+
+
+def _column_attrs(store, rows) -> list:
+    """The ``columnAttrs`` block of a query's answer (server/api.py)."""
+    cols = sorted({int(c) for r in rows if hasattr(r, "columns") for c in r.columns()})
+    return [{"id": c, "attrs": a} for c in cols if (a := store.attrs(c))]
+
+
+def run_keys(data_dir: str, card: str, device: str = "cuda") -> dict:
+    """A keyed index on the port's server (default Config on ``cuda``),
+    fresh: every column key minted through the keyed import route, the
+    rest of the bits by id through the plain import (``API.import_bits``),
+    row and column
+    attributes, then keyed TopN, attribute-filtered TopN, keyed chains,
+    Row with columnAttrs and a fused multi-call request over HTTP, each
+    answer against the CPU leg on the same holder and translator; last
+    a keyed Set of a new column key, read back. (``device="cpu"`` runs
+    it on the kernels' plain versions, for its tests.)"""
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server import Config, Server
+    from pilosa_tpu_torch.utils import metrics
+
+    cfg = Config(data_dir=data_dir, bind="127.0.0.1:0", device=device)
+    out: dict = {"card": card, "config": {"device": cfg.device, "device_policy": cfg.device_policy,
+                                          "translate_partitions": cfg.translate_partitions}}
+    t_phase = time.monotonic()
+    k, ids, part = keys_column_prefix(KEYS_COLUMNS + 4096, cfg.translate_partitions)
+    k = min(k, KEYS_COLUMNS)
+    keys = [f"u{j:07d}" for j in range(k)]
+    server = Server(cfg)
+    server.open()
+    c = HttpClient(*server.address())
+    cpu = None
+    try:
+        base = _device_counters(server, metrics)
+        _keys_post(c, "/index/users", {"options": {"keys": True}})
+        _keys_post(c, "/index/users/field/likes", {"options": {"keys": True}})
+        # every column key minted by the keyed import: one bit a key, the
+        # row keys cycling (all 1024 minted by the first batch)
+        t0 = time.monotonic()
+        for lo in range(0, k, KEYS_BATCH):
+            hi = min(k, lo + KEYS_BATCH)
+            _keys_post(c, "/index/users/field/likes/import?timeout=600", {
+                "rowKeys": [f"item-{j % KEYS_ROWS:04d}" for j in range(lo, hi)],
+                "columnKeys": keys[lo:hi],
+            })
+        out["mint_s"] = time.monotonic() - t0
+        ts = server.translate_store
+        got = np.asarray(ts.translate_columns_to_ids("users", keys, create=False), dtype=np.int64)
+        if not np.array_equal(got, ids[:k]):
+            raise AssertionError("keys: the translator's column ids differ from the partition plan's")
+        row_ids = ts.translate_rows_to_ids("users", "likes", [f"item-{r:04d}" for r in range(KEYS_ROWS)], create=False)
+        if row_ids != list(range(1, KEYS_ROWS + 1)):
+            raise AssertionError(f"keys: row ids {row_ids[:4]}..., not 1..{KEYS_ROWS}")
+        # the rest of the bits by id through the plain import (the API's
+        # import_bits, in process: the HTTP route's JSON coding of ~15.7 M
+        # ids took 40.8-72.6 s of the phase), with the ids the server's
+        # translator gave: DENSE_DRAWS draws a row
+        rng = np.random.default_rng(KEYS_SEED)
+        t0 = time.monotonic()
+        bits = k
+        for r0 in range(0, KEYS_ROWS, KEYS_IMPORT_ROWS):
+            rs, cs = [], []
+            for r in range(r0, min(KEYS_ROWS, r0 + KEYS_IMPORT_ROWS)):
+                cols = got[np.unique(rng.integers(0, k, size=DENSE_DRAWS))]
+                rs.append(np.full(cols.size, row_ids[r], dtype=np.int64))
+                cs.append(cols)
+            rs, cs = np.concatenate(rs), np.concatenate(cs)
+            bits += int(cs.size)
+            server.api.import_bits("users", "likes", rs, cs)
+        out["import_s"] = time.monotonic() - t0
+        # attributes: every row a category and a rank, the first 65,536
+        # columns a segment
+        t0 = time.monotonic()
+        _keys_post(c, "/index/users/query", "".join(
+            f'SetRowAttrs(likes, {rid}, category="cat-{rid % KEYS_CATEGORIES:02d}", rank={rid})'
+            for rid in row_ids).encode())
+        for lo in range(0, min(KEYS_COLUMN_ATTRS, k), KEYS_ATTR_BATCH):
+            _keys_post(c, "/index/users/query", "".join(
+                f'SetColumnAttrs({int(col)}, segment="s{int(col) % 8}")'
+                for col in got[lo:lo + KEYS_ATTR_BATCH]).encode())
+        out["attrs_s"] = time.monotonic() - t0
+        recalculate_caches(server.address())
+        frag = server.holder.fragment("users", "likes", "standard", 0)
+        out["data"] = {"column_keys": k, "row_keys": KEYS_ROWS, "bits": int(frag.storage.count()),
+                       "imported_bits": bits, "shards": server.holder.index("users").max_shard() + 1,
+                       "matrix_bytes": KEYS_ROWS * SW // 8}
+        if out["data"]["shards"] != 1:
+            raise AssertionError(f"keys: {out['data']['shards']} shards, not one")
+        log(f"keys: minted {k} column keys in {out['mint_s']:.1f} s, imported {bits} bits in "
+            f"{out['import_s']:.1f} s, attributes in {out['attrs_s']:.1f} s")
+        # the CPU leg on the same holder and translator
+        cpu = Executor(server.holder, device=device, device_policy="never", translate_store=ts)
+        idx = server.holder.index("users")
+        families = keys_queries()
+        answers = {}
+        t0 = time.monotonic()
+        for items in families.values():
+            for q in items:
+                res = cpu.execute("users", q)
+                answers[q] = (wire(res), _column_attrs(idx.column_attrs, res))
+        out["cpu_leg_s"] = time.monotonic() - t0
+        if not all(len(answers[q][0][0]) == 10 for q in families["keyed_topn"]):
+            raise AssertionError("keys: a keyed TopN did not give 10 pairs")
+        cats = {"cat-03": 3, "cat-11": 11}
+        for q in families["attr_topn"]:
+            pairs = answers[q][0][0]
+            rids = ts.translate_rows_to_ids("users", "likes", [p["key"] for p in pairs], create=False)
+            if len(pairs) != 10 or any(rid % KEYS_CATEGORIES not in cats.values() for rid in rids):
+                raise AssertionError(f"keys: {q} answered {pairs}")
+        for q in families["row_column_attrs"]:
+            if not answers[q][1]:
+                raise AssertionError(f"keys: {q} has no column attributes")
+        rates = {}
+        for family, items in families.items():
+            lat = []
+            attrs = family == "row_column_attrs"
+            path = "/index/users/query?cache=false" + ("&columnAttrs=true" if attrs else "")
+            for _ in range(KEYS_REPEATS):
+                for q in items:
+                    t1 = time.perf_counter()
+                    st, _, body = c.request("POST", path, q.encode())
+                    lat.append(time.perf_counter() - t1)
+                    resp = json.loads(body) if st == 200 else {"status": st, "body": body[:300]}
+                    want, want_attrs = answers[q]
+                    if resp.get("results") != want or (attrs and resp.get("columnAttrs") != want_attrs):
+                        raise AssertionError(f"keys: {q} answered {str(resp)[:300]}, CPU leg {str(want)[:300]}")
+            rates[family] = {"queries": len(lat), "p50_ms": statistics.median(lat) * 1e3}
+        out["families"] = rates
+        out["fusion"] = server.executor.fuser.stats()
+        # an acknowledged keyed write is read back, by key
+        j, nid = keys_fresh_column(k, ids, part, cfg.translate_partitions)
+        new_key = f"u{j:07d}"
+        qr = 'Row(likes="item-0009")'
+        before = cpu.execute("users", f"Count({qr})")[0]
+        if _keys_post(c, "/index/users/query", f'Set("{new_key}", likes="item-0009")'.encode())["results"] != [True]:
+            raise AssertionError(f"keys: Set({new_key}) was not acknowledged as a change")
+        got_row = _keys_post(c, "/index/users/query?cache=false", qr.encode())["results"]
+        if got_row != wire(cpu.execute("users", qr)) or new_key not in got_row[0]["keys"]:
+            raise AssertionError(f"keys: {new_key} not read back in {qr}")
+        if cpu.execute("users", f"Count({qr})")[0] != before + 1 or ts.translate_columns_to_ids(
+                "users", [new_key], create=False) != [nid]:
+            raise AssertionError(f"keys: {new_key} minted or counted wrong")
+        out["write_read_back"] = {"key": new_key, "id": nid}
+        _require_clean(server, metrics, base, "keys")
+        out["translate"] = {k2: v for k2, v in ts.stats().items() if k2 != "stores"}
+    finally:
+        if cpu is not None:
+            cpu.close()
+        c.close()
+        server.close()
+    out["seconds"] = time.monotonic() - t_phase
+    log("keys: " + ", ".join(f"{f} p50 {r['p50_ms']:.2f} ms" for f, r in out["families"].items()))
+    return out
+
+
 PATH_OF = {
     "dense_scores": "dense_tall",
     "sparse_stacked_scores": "dense_tall",
@@ -3326,6 +3583,13 @@ def main() -> int:
         for name in SERVER_KERNELS:
             if launches["server"][name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the server path")
+        # a keyed index on a server of its own, then the card is the
+        # in-process phases' again
+        phases["keys"] = run_path("keys", lambda: run_keys(os.path.join(root, KEYS_DIR), card))
+        for name in KEYS_KERNELS:
+            if launches["keys"][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the keys path")
+        torch.cuda.empty_cache()
         holder = pilosa_tpu_torch.holder_from_dir(root)
         for index in ("dense", "tall"):
             for frag in holder.view(index, "f", "standard").fragments.values():
@@ -3414,7 +3678,17 @@ def main() -> int:
                     "tall.rows_per_shard": {
                         "from": FULL_ROWS_PER_SHARD,
                         "to": TAIL_ROWS_PER_SHARD,
-                    }
+                    },
+                    "writes.client_ops": {
+                        "from": WRITES_CLIENT_OPS_BENCH,
+                        "to": WRITES_CLIENT_OPS,
+                    },
+                    # the ids of 16 partitions run past 2^20: the keys whose
+                    # ids fit one shard
+                    "keys.column_keys": {
+                        "from": KEYS_COLUMNS,
+                        "to": phases["keys"]["data"]["column_keys"],
+                    },
                 },
                 "launches_per_query": {
                     "dense_scores": launches["dense_tall"]["dense_scores"] / n_dense,
@@ -3453,6 +3727,7 @@ def main() -> int:
                     "tier_build": tier_build_s,
                     "tiered_path": path_s["tiered"],
                     "server_path": path_s["server"],
+                    "keys_path": path_s["keys"],
                     "fusion_path": path_s["fusion"],
                     **built,
                 },
@@ -3476,6 +3751,17 @@ def main() -> int:
             "fusion": srv["fusion"],
             "plan_cache": srv["plan_cache"],
             "launches": launches["server"],
+        }}), flush=True)
+        keys = phases["keys"]
+        print(json.dumps({"phases.keys": {
+            "card": keys["card"],
+            "seconds": {"mint": keys["mint_s"], "import": keys["import_s"], "attrs": keys["attrs_s"],
+                        "cpu_leg": keys["cpu_leg_s"], "path": path_s["keys"]},
+            "families": keys["families"],
+            "data": keys["data"],
+            "fusion": keys["fusion"],
+            "write_read_back": keys["write_read_back"],
+            "launches": launches["keys"],
         }}), flush=True)
         fus = phases["fusion"]
         print(json.dumps({"phases.fusion": {

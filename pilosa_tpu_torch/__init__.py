@@ -27,11 +27,12 @@ SHARD_WIDTH = 1 << 20
 
 def holder_from_dir(path: str):
     """Open a data directory (as written by this package or by
-    ``pilosa_tpu``: the fragment file format is shared) and return the
-    opened Holder."""
+    ``pilosa_tpu``: the fragment and attribute file formats are shared)
+    and return the opened Holder, with its attribute stores."""
     from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.utils.attrstore import new_attr_store
 
-    h = Holder(path)
+    h = Holder(path, new_attr_store=new_attr_store)
     h.open()
     return h
 

@@ -1,4 +1,10 @@
-"""Holder — root container of indexes (reference holder.go)."""
+"""Holder — root container of indexes (reference holder.go).
+
+The server keeps its key-translation logs in ``<data-dir>/translate``
+(server/server.py). The holder does not open that directory as an index,
+and refuses an index of that name in a data directory; the JAX package's
+holder lists it as an empty index (ROADMAP C3).
+"""
 
 from __future__ import annotations
 
@@ -9,6 +15,9 @@ import uuid
 from typing import Optional
 
 from pilosa_tpu_torch.core.index import Index, _validate_name
+
+# the server's key-translation directory under the data directory
+TRANSLATE_DIR = "translate"
 
 
 class Holder:
@@ -28,7 +37,7 @@ class Holder:
                 os.makedirs(self.path, exist_ok=True)
                 for name in sorted(os.listdir(self.path)):
                     ipath = os.path.join(self.path, name)
-                    if not os.path.isdir(ipath) or name.startswith("."):
+                    if not os.path.isdir(ipath) or name.startswith(".") or name == TRANSLATE_DIR:
                         continue
                     idx = self._new_index(name)
                     idx.open()
@@ -96,6 +105,8 @@ class Holder:
 
     def _create_index(self, name: str, keys: bool) -> Index:
         _validate_name(name)
+        if self.path and name == TRANSLATE_DIR:
+            raise ValueError(f"invalid index name: {name!r} holds the key-translation logs")
         idx = self._new_index(name)
         idx.keys = keys
         idx.open()
@@ -151,6 +162,8 @@ class Holder:
 
         with self.mu:
             for ischema in schema:
+                if self.path and ischema["name"] == TRANSLATE_DIR:
+                    continue  # the JAX package's phantom index (ROADMAP C3)
                 idx = self.create_index_if_not_exists(
                     ischema["name"], ischema.get("keys", False)
                 )

@@ -44,8 +44,13 @@ planner (plan/planner.py) substitutes cached or repeated bitmap subtrees
 with ``__cached`` placeholders, whose stacks a device plan cache keeps
 on the card.
 
-Attributes (``SetRowAttrs``/``SetColumnAttrs``, TopN attribute filters)
-and keyed indexes raise ``NotImplementedError`` naming ROADMAP A9. The
+Attributes and keys (translate/, utils/attrstore.py): with a translate
+store, string keys resolve to ids before the planner canonicalizes a
+query (writes mint, reads only look up) and results translate back;
+``SetRowAttrs``/``SetColumnAttrs`` write the attribute stores, a
+top-level ``Row()`` carries its row's attributes, and a TopN attribute
+filter narrows each shard's candidate rows before they are scored, so
+the rows that pass are scored on the device path like any other. The
 cluster, mesh and dispatch engine of the JAX executor are not here (A6,
 A8).
 """
@@ -100,13 +105,6 @@ MAX_BATCH = 32
 # reference's bare-executor default; the server passes its own knob).
 DEVICE_CACHE_BYTES = 256 << 20
 
-# Calls not ported yet -> the ROADMAP item that ports them.
-_UNPORTED = {
-    "SetRowAttrs": "A9 (attributes and keys)",
-    "SetColumnAttrs": "A9 (attributes and keys)",
-}
-
-
 _deadline_mod = None
 
 
@@ -119,16 +117,6 @@ def _deadline():
 
         _deadline_mod = _m
     return _deadline_mod
-
-
-def _check_ported(c: Call) -> None:
-    item = _UNPORTED.get(c.name)
-    if item is not None:
-        raise NotImplementedError(
-            f"{c.name}() is not ported to pilosa_tpu_torch yet (ROADMAP {item})"
-        )
-    for child in c.children:
-        _check_ported(child)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -368,12 +356,9 @@ class Executor:
         fusion_max_calls: int = 64,
         plan_cache_device_bytes: int = DEVICE_CACHE_BYTES,
     ) -> None:
-        if translate_store is not None:
-            raise NotImplementedError(
-                "key translation is not ported to pilosa_tpu_torch yet "
-                "(ROADMAP A9 (attributes and keys))"
-            )
         self.holder = holder
+        # key <-> id translation (translate/); None: ids only
+        self.translate_store = translate_store
         self.device = resolve_device(device)
         self.stager = stager or DeviceStager(self.device)
         if self.stager.device != self.device:
@@ -507,15 +492,15 @@ class Executor:
             raise ValueError(
                 f"too many writes: {query.write_call_n()} > {self.max_writes_per_request}"
             )
-        if idx.keys:
-            raise NotImplementedError(
-                f"index {index_name!r} has keys; key translation is not ported "
-                "to pilosa_tpu_torch yet (ROADMAP A9 (attributes and keys))"
-            )
-        for call in query.calls:
-            _check_ported(call)
         if shards is None and self._needs_shards(query.calls):
             shards = list(range(idx.max_shard() + 1))
+        translate = self.translate_store is not None and not opt.remote
+        if translate:
+            # keys -> ids BEFORE canonicalization (plan/planner.py): CSE
+            # hashes and plan-cache keys see resolved integer ids only
+            from pilosa_tpu_torch.plan import planner
+
+            planner.resolve_keys(self, index_name, idx, query.calls)
         calls = query.calls
         reads_only = query.write_call_n() == 0
         if self.plan_cache is not None and opt.cache and self._local_batchable(opt) and shards and reads_only:
@@ -543,10 +528,17 @@ class Executor:
             fused = self.fuser.try_execute(index_name, calls, shards, opt) or {}
         rest = [c for i, c in enumerate(calls) if i not in fused]
         results = self._execute_calls(index_name, rest, shards, opt, dl, reads_only)
-        if not fused:
-            return results
-        it = iter(results)
-        return [fused[i] if i in fused else next(it) for i in range(len(calls))]
+        if fused:
+            it = iter(results)
+            results = [fused[i] if i in fused else next(it) for i in range(len(calls))]
+        if translate:
+            from pilosa_tpu_torch.translate import resolve
+
+            results = [
+                resolve.translate_result(self.translate_store, index_name, idx, call, r)
+                for call, r in zip(calls, results)
+            ]
+        return results
 
     def _execute_calls(self, index_name, calls, shards, opt, dl, reads_only: bool) -> list[Any]:
         if len(calls) > 1 and reads_only and not opt.serial:
@@ -763,6 +755,12 @@ class Executor:
         if name == "SetValue":
             self._execute_set_value(index, c)
             return None
+        if name == "SetRowAttrs":
+            self._execute_set_row_attrs(index, c)
+            return None
+        if name == "SetColumnAttrs":
+            self._execute_set_column_attrs(index, c)
+            return None
         if name == "TopN":
             return self._execute_topn(index, c, shards, opt)
         if name == "GroupBy":
@@ -854,7 +852,17 @@ class Executor:
             prev.merge(v)
             return prev
 
-        return self._map_reduce(index, shards, c, opt, map_fn, reduce_fn, zero_factory=Row)
+        other = self._map_reduce(index, shards, c, opt, map_fn, reduce_fn, zero_factory=Row)
+        # a top-level Row() carries its row's attributes (reference
+        # executeBitmapCall, executor.go:338-385)
+        if c.name == "Row" and not opt.exclude_row_attrs:
+            field_name = c.field_arg()
+            fld = self.holder.field(index, field_name)
+            if fld is not None and fld.row_attr_store is not None:
+                row_id, ok = c.uint_arg(field_name)
+                if ok:
+                    other.attrs = fld.row_attr_store.attrs(row_id) or {}
+        return other
 
     def _bitmap_call_shard(self, index, c: Call, shard: int) -> Row:
         """reference executeBitmapCallShard (executor.go:388-405)."""
@@ -1086,10 +1094,15 @@ class Executor:
         candidates) answered in 2777 ms p50 on the CPU leg against 32 ms
         on the card (PERF.md)."""
         ids, _ = c.uint_slice_arg("ids")
-        if ids:
-            return len(ids)
+        attr_name, _ = c.string_arg("attrName")
+        attr_values = c.args.get("attrValues") or []
         field, _ = c.string_arg("_field")
         frag = self.holder.fragment(index, field, VIEW_STANDARD, shard) if field else None
+        if attr_name and attr_values:
+            # the walk intersects only the rows the filter lets through
+            return len(_topn_pairs(frag, ids, attr_name, attr_values)) if frag is not None else 0
+        if ids:
+            return len(ids)
         return len(frag.ensure_open().cache) if frag is not None else 0
 
     def _bsi_plane_containers(self, index, fname: str, shard: int) -> int:
@@ -1755,12 +1768,6 @@ class Executor:
         srcs)``; the walk starts from it."""
         ids_arg, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
-        attr_name, _ = c.string_arg("attrName")
-        if attr_name:
-            raise NotImplementedError(
-                "TopN attribute filters are not ported to pilosa_tpu_torch yet "
-                "(ROADMAP A9 (attributes and keys))"
-            )
         # (shard, row_id) -> exact intersection count, filled by pass 1's
         # scoring launches and consulted by pass 2: on skewed data the
         # winning ids sit in every shard's cache head, so pass 2 usually
@@ -1809,6 +1816,8 @@ class Executor:
         field, _ = c.string_arg("_field")
         n, _ = c.uint_arg("n")
         row_ids, _ = c.uint_slice_arg("ids")
+        attr_name, _ = c.string_arg("attrName")
+        attr_values = c.args.get("attrValues") or []
         min_threshold, _ = c.uint_arg("threshold")
         tanimoto, _ = c.uint_arg("tanimotoThreshold")
         if tanimoto > 100:
@@ -1828,7 +1837,7 @@ class Executor:
                 self.holder.fragment(index, field, VIEW_STANDARD, s) for s in shards
             )
             pairs_by_shard = [
-                f._top_bitmap_pairs(row_ids) if f is not None else [] for f in frags
+                _topn_pairs(f, row_ids, attr_name, attr_values) if f is not None else [] for f in frags
             ]
         if not any(pairs_by_shard):
             return []
@@ -1871,6 +1880,8 @@ class Executor:
         field, _ = c.string_arg("_field")
         n, _ = c.uint_arg("n")
         row_ids, _ = c.uint_slice_arg("ids")
+        attr_name, _ = c.string_arg("attrName")
+        attr_values = c.args.get("attrValues") or []
         min_threshold, _ = c.uint_arg("threshold")
         tanimoto, _ = c.uint_arg("tanimotoThreshold")
 
@@ -1892,6 +1903,8 @@ class Executor:
             src=src,
             row_ids=row_ids,
             min_threshold=min_threshold,
+            filter_name=attr_name,
+            filter_values=attr_values,
             tanimoto_threshold=tanimoto,
         )
         if src is not None and self._use_device(index, c, shard):
@@ -1901,8 +1914,9 @@ class Executor:
     def _top_device(self, frag, opt_: TopOptions, index, c: Call, shard: int, carry=None):
         """Device TopN: score candidate chunks in one kernel launch each,
         then replay the reference's ranked walk on the precomputed
-        scores (bit-identical outputs)."""
-        pairs = frag._top_bitmap_pairs(opt_.row_ids)
+        scores (bit-identical outputs). An attribute filter narrows the
+        candidates first, so only the rows that pass are scored."""
+        pairs = _topn_pairs(frag, opt_.row_ids, opt_.filter_name, opt_.filter_values)
         if not pairs:
             return []
         try:
@@ -1945,6 +1959,31 @@ class Executor:
             raise ValueError("Clear() col argument required")
         heat.record_write(index, field_name, col_id // SHARD_WIDTH, 1)
         return f.clear_bit(row_id, col_id)
+
+    def _execute_set_row_attrs(self, index, c: Call) -> None:
+        field_name, ok = c.string_arg("_field")
+        if not ok:
+            raise ValueError("SetRowAttrs() field required")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        row_id, ok = c.uint_arg("_row")
+        if not ok:
+            raise ValueError("SetRowAttrs() row required")
+        attrs = {k: v for k, v in c.args.items() if k not in ("_field", "_row")}
+        if f.row_attr_store is None:
+            raise ValueError("row attr store not configured")
+        f.row_attr_store.set_attrs(row_id, attrs)
+
+    def _execute_set_column_attrs(self, index, c: Call) -> None:
+        idx = self.holder.index(index)
+        col_id, ok = c.uint_arg("_col")
+        if not ok:
+            raise ValueError("SetColumnAttrs() col required")
+        attrs = {k: v for k, v in c.args.items() if k != "_col"}
+        if idx.column_attrs is None:
+            raise ValueError("column attr store not configured")
+        idx.column_attrs.set_attrs(col_id, attrs)
 
     def _execute_set_value(self, index, c: Call) -> None:
         col_id, ok = c.uint_arg("col")
@@ -2237,6 +2276,28 @@ class _LazyScores:
         while row_id not in self._scores and self._next < len(self._pairs):
             self._score_chunk()
         return self._scores[row_id]
+
+
+def _topn_pairs(frag, row_ids, attr_name: str, attr_values) -> list:
+    """A fragment's TopN candidates (``ids=`` or its rank cache) in walk
+    order, less the rows an attribute filter rejects: a row passes when
+    its attribute ``attr_name`` holds one of ``attr_values`` (reference
+    fragment.go:922-934). The ranked walk skips a rejected row before it
+    reads a score or moves its threshold, so walking the narrowed list
+    picks what the filtered walk over the whole list picks."""
+    pairs = frag._top_bitmap_pairs(row_ids)
+    if not (attr_name and attr_values) or not pairs:
+        return pairs
+    store = frag.row_attr_store
+    if store is None:
+        return []
+    allowed = {v if not isinstance(v, list) else tuple(v) for v in attr_values}
+    out = []
+    for rid, cnt in pairs:
+        value = (store.attrs(rid) or {}).get(attr_name)
+        if value is not None and value in allowed:
+            out.append((rid, cnt))
+    return out
 
 
 def _vectorized_topn_walk(pairs_by_shard, provider, opt_: TopOptions):

@@ -27,8 +27,8 @@ Bit-identity: every unit runs the same kernels and host finishers as the
 per-call device path; a TopN unit's head matrix is handed to the per-call
 TopN walk as its first chunk (``Executor._execute_topn(prescored=)``).
 
-Calls that cannot lower (Min/Max, bitmap-valued calls, tanimoto or
-attribute TopN) stay on the per-call path, and so does a call whose
+Calls that cannot lower (Min/Max, bitmap-valued calls, tanimoto TopN)
+stay on the per-call path, and so does a call whose
 lowering fails on its arguments, a shape the device path does not take
 or a quarantined fragment: each such call is counted in ``bypasses``,
 and the per-call path produces its answer or its error. A kernel that
@@ -59,6 +59,7 @@ from pilosa_tpu_torch.executor.executor import (
     _deadline,
     _NotDeviceable,
     _sum_from_counts,
+    _topn_pairs,
     _W32,
 )
 from pilosa_tpu_torch.executor.hbm import DeviceOom, classify_device_error
@@ -565,7 +566,7 @@ class QueryFuser:
 
     def _lower_topn(self, index, i, c, shards, opt) -> Optional[_Unit]:
         ex = self.ex
-        if len(c.children) != 1 or c.args.get("attrName"):
+        if len(c.children) != 1:
             return None
         tanimoto, _ = c.uint_arg("tanimotoThreshold")
         if tanimoto > 0:
@@ -574,8 +575,14 @@ class QueryFuser:
         if not ok:
             return None
         row_ids, _ = c.uint_slice_arg("ids")
+        attr_name, _ = c.string_arg("attrName")
+        attr_values = c.args.get("attrValues") or []
         frags = tuple(ex.holder.fragment(index, field, VIEW_STANDARD, s) for s in shards)
-        pairs_by_shard = [f._top_bitmap_pairs(row_ids) if f is not None else [] for f in frags]
+        # an attribute filter narrows the candidates before the head is
+        # scored, as on the per-call path
+        pairs_by_shard = [
+            _topn_pairs(f, row_ids, attr_name, attr_values) if f is not None else [] for f in frags
+        ]
         if not any(pairs_by_shard):
             return None  # the per-call path answers [] with no device work
         size = FIRST_CHUNK

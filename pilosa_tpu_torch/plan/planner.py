@@ -1,8 +1,7 @@
 """Planner — cache keys, generation vectors, and common-subexpression
 elimination for the executor.
 
-The port of ``pilosa_tpu/plan/planner.py``, less ``resolve_keys``: key
-translation is ROADMAP A9, and the port refuses keyed indexes by name.
+The port of ``pilosa_tpu/plan/planner.py``.
 
 Two jobs sit here, both keyed by canonical subtree hashes (plan/canon):
 
@@ -346,3 +345,18 @@ def rewrite_for_cse(executor, index: str, calls: list, shards, opt) -> list:
         out.append(substitute(c, True))
     return out
 
+
+def resolve_keys(executor, index: str, idx, calls) -> None:
+    """Keyed-surface entry point: resolve string keys to integer ids
+    in-place across every call tree BEFORE canonicalization, so the
+    CSE hashes and plan-cache keys above only ever see resolved ids —
+    two spellings of the same keyed subtree share one cache entry, and
+    re-keying an id can never serve a stale cached row. Delegates to
+    the translate subsystem (translate/resolve.py)."""
+    from pilosa_tpu_torch.translate import resolve
+
+    ts = executor.translate_store
+    if ts is None:
+        return
+    for c in calls:
+        resolve.resolve_call(ts, index, idx, c)

@@ -2,11 +2,12 @@
 (reference api.go).
 
 The port of ``pilosa_tpu/server/api.py`` for one node: queries, schema,
-imports, export, fragment data, backup and restore. The cluster,
-multihost and key-translation legs of the reference are not ported:
-a cluster raises at construction (ROADMAP A8), and keys, attributes and
-translate stores answer 501 naming ROADMAP A9. ``status`` adds a
-``device`` block: the executor's device and its health gate.
+imports, export, fragment data, backup and restore, keyed indexes and
+fields, key imports, column attributes, attribute diffs and the
+translate stores (the executor's ``translate_store``). The cluster and
+multihost legs of the reference are not ported: a cluster raises at
+construction (ROADMAP A8). ``status`` adds a ``device`` block: the
+executor's device and its health gate.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 import numpy as np
 
 from pilosa_tpu_torch import SHARD_WIDTH, __version__
-from pilosa_tpu_torch.core import FieldOptions
+from pilosa_tpu_torch.core import FieldOptions, Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.executor import ExecOptions
 from pilosa_tpu_torch.pql import parse
@@ -27,7 +28,6 @@ from pilosa_tpu_torch.server import deadline, pipeline
 from pilosa_tpu_torch.utils import events, heat, metrics, profiler, trace
 
 A8 = "A8 (the multi-device plane)"
-A9 = "A9 (attributes and keys)"
 
 # the cluster state a single node reports (reference cluster.go:42-45);
 # the reference's gate on RESIZING/STARTING has no cluster to ask here
@@ -85,8 +85,6 @@ class API:
         trace_ctx: Optional[tuple] = None,
         waterfall: bool = False,
     ) -> dict:
-        if column_attrs:
-            raise unported("columnAttrs", A9)
         # deadline boundary: cancel BEFORE the parse — an expired
         # request must cost the server nothing past this line
         dl = deadline.current()
@@ -158,13 +156,22 @@ class API:
             # stitched: a rank-0 replay span grafts into this leader's
             # buffer synchronously, so it rides back in the envelope too
             resp["spans"] = [trace.TRACER.stitched(root.to_dict())]
+        if column_attrs and idx.column_attrs is not None:
+            cols = set()
+            for r in results:
+                if isinstance(r, Row):
+                    cols.update(int(c) for c in r.columns())
+            attr_sets = []
+            for col in sorted(cols):
+                attrs = idx.column_attrs.attrs(col)
+                if attrs:
+                    attr_sets.append({"id": col, "attrs": attrs})
+            resp["columnAttrs"] = attr_sets
         return resp
 
     # -- schema CRUD --
 
     def create_index(self, name: str, keys: bool = False) -> None:
-        if keys:
-            raise unported("an index with keys", A9)
         try:
             self.holder.create_index(name, keys=keys)
         except ValueError as e:
@@ -180,8 +187,6 @@ class API:
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
-        if (options or {}).get("keys"):
-            raise unported("a field with keys", A9)
         try:
             idx.create_field(field, FieldOptions.from_dict(options or {}))
         except ValueError as e:
@@ -250,14 +255,21 @@ class API:
         row_keys: Optional[list[str]] = None,
         column_keys: Optional[list[str]] = None,
     ) -> None:
-        if row_keys or column_keys:
-            raise unported("importing keys", A9)
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
         f = idx.field(field)
         if f is None:
             raise NotFoundError(f"field not found: {field}")
+        ts = self.executor.translate_store
+        if column_keys:
+            if ts is None:
+                raise APIError("translate store not configured")
+            column_ids = ts.translate_columns_to_ids(index, column_keys)
+        if row_keys:
+            if ts is None:
+                raise APIError("translate store not configured")
+            row_ids = ts.translate_rows_to_ids(index, field, row_keys)
         f.import_bits(row_ids, column_ids, _parse_timestamps(timestamps))
 
     def import_bits_local(self, index, field, row_ids, column_ids, timestamps=None):
@@ -309,9 +321,15 @@ class API:
         values: list[int],
         column_keys: Optional[list[str]] = None,
     ) -> None:
+        f = self.holder.field(index, field)
+        if f is None:
+            raise NotFoundError(f"field not found: {field}")
+        ts = self.executor.translate_store
         if column_keys:
-            raise unported("importing keys", A9)
-        self.import_values_local(index, field, column_ids, values)
+            if ts is None:
+                raise APIError("translate store not configured")
+            column_ids = ts.translate_columns_to_ids(index, column_keys)
+        f.import_values(column_ids, values)
 
     def import_values_local(self, index, field, column_ids, values):
         f = self.holder.field(index, field)
@@ -535,6 +553,12 @@ class API:
                         entries.append(
                             (f"fragments/{iname}/{fname}/{vname}/{shard}", data)
                         )
+        # the key-translation logs ride along: a restored holder must
+        # resolve exactly the archive's keys (translate/<store>.log)
+        ts = self.executor.translate_store
+        if ts is not None:
+            for name, blob in ts.store_files():
+                entries.append((f"translate/{name}.log", blob))
         manifest = {
             "version": self.BACKUP_MANIFEST_VERSION,
             "entries": {
@@ -569,6 +593,7 @@ class API:
         import tarfile
 
         from pilosa_tpu_torch.roaring import Bitmap
+        from pilosa_tpu_torch.translate.store import SpaceStore
 
         def refuse(reason: str) -> APIError:
             metrics.count(metrics.RESTORE_REFUSED)
@@ -625,9 +650,22 @@ class API:
             except Exception:
                 raise refuse(f"backup entry {name} unparseable")
             fragments.append((parts[1], parts[2], parts[3], int(parts[4]), storage))
-        if any(name.startswith("translate/") for name in blobs):
-            # the archive carries key-translation logs (a keyed index)
-            raise unported("restoring key translation logs", A9)
+        translate_blobs = {}
+        ts = self.executor.translate_store
+        for name, blob in blobs.items():
+            if not name.startswith("translate/") or not name.endswith(".log"):
+                continue
+            store = name[len("translate/") : -len(".log")]
+            if "/" not in store or ".." in store or store.startswith(("/", "\\")):
+                raise refuse(f"backup entry {name} has a malformed path")
+            # a tampered log would rebind every key written through it:
+            # its frames must parse, CRCs intact, to its last byte
+            probe = SpaceStore(None, "probe")
+            if probe._replay(blob) != len(blob):
+                raise refuse(f"backup entry {name} unparseable")
+            translate_blobs[store] = blob
+        if translate_blobs and ts is None:
+            raise refuse("backup has translate entries but no translate store")
         # -- verification complete: apply --
         self.holder.apply_schema(schema)
         for iname, fname, vname, shard, storage in fragments:
@@ -635,6 +673,11 @@ class API:
             view = fld.create_view_if_not_exists(vname)
             frag = view.create_fragment_if_not_exists(shard)
             self._replace_fragment_storage(frag, storage)
+        if translate_blobs:
+            # replace-all within the translate plane: the restored holder
+            # resolves exactly the archive's keys (an archive without
+            # translate members leaves the local stores as they are)
+            ts.restore_stores(translate_blobs)
         metrics.count(metrics.RESTORE_APPLIED)
         return {"fragments": len(fragments), "version": version}
 
@@ -717,6 +760,95 @@ class API:
         return {
             name: idx.max_shard() for name, idx in self.holder.indexes.items()
         }
+
+    # -- attribute diffs (reference api.go attr-diff path, holder.go:654-740) --
+
+    def column_attr_diff(self, index: str, blocks: list) -> dict:
+        """Column attrs of the blocks whose checksums differ from the
+        caller's."""
+        idx = self.holder.index(index)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index}")
+        return _attr_diff(idx.column_attrs, blocks)
+
+    def row_attr_diff(self, index: str, field: str, blocks: list) -> dict:
+        f = self.holder.field(index, field)
+        if f is None:
+            raise NotFoundError(f"field not found: {field}")
+        return _attr_diff(f.row_attr_store, blocks)
+
+    # -- key translation --
+
+    def _translate_store(self):
+        ts = self.executor.translate_store
+        if ts is None:
+            raise APIError("translate store not configured")
+        return ts
+
+    def get_translate_data(self, offset: int, store: str = "") -> bytes:
+        ts = self._translate_store()
+        if store:
+            try:
+                return ts.read_store(store, offset)
+            except ValueError as e:
+                raise APIError(str(e), status=400)
+        data, _ = ts.read_from(offset)
+        return data
+
+    def translate_stores(self) -> list:
+        """Durable translate stores with byte offsets: what a peer polls
+        to pull key assignments."""
+        return self._translate_store().stores()
+
+    def translate_debug(self) -> dict:
+        ts = self.executor.translate_store
+        if ts is None:
+            return {"enabled": False}
+        out = ts.stats()
+        out["enabled"] = True
+        return out
+
+    def translate_ingest_keys(self, index: str, field: str, row_keys, column_keys) -> tuple:
+        """Keyed ingest: the batch's keys become ids BEFORE the ingest
+        queue sees it, so write waves carry ids only; the assignments
+        group-commit with one fsync a store."""
+        ts = self._translate_store()
+        rows = cols = None
+        if column_keys:
+            cols = ts.translate_columns_to_ids(index, [str(k) for k in column_keys])
+        if row_keys:
+            rows = ts.translate_rows_to_ids(index, field, [str(k) for k in row_keys])
+        return rows, cols
+
+    def translate_keys(self, index: str, field: str, keys: list) -> list:
+        """Mint (or look up) ids for keys: the owner's end of a forwarded
+        mint. It mints here, never forwards again, and answers 409 when
+        another node owns a key's space (minting here would fork the
+        cluster's id space). One node owns every space."""
+        ts = self._translate_store()
+        keys = [str(k) for k in keys]
+        owner = ts.misowned(index, field, keys)
+        if owner:
+            raise APIError(
+                f"not the owner of these keys (owner={owner}); minting "
+                "here would fork the cluster id space — post to the "
+                "owner or fix translate-primary-url",
+                status=409,
+            )
+        return ts.mint(index, field, keys)
+
+
+def _attr_diff(store, blocks: list) -> dict:
+    """Attrs of the store's 100-id blocks whose checksum differs from the
+    caller's [block, hex digest] list, keyed by id as strings."""
+    if store is None:
+        return {}
+    theirs = {b[0]: bytes.fromhex(b[1]) for b in blocks}
+    out: dict = {}
+    for bid, digest in store.blocks():
+        if theirs.get(bid) != digest:
+            out.update(store.block_data(bid))
+    return {str(k): v for k, v in out.items()}
 
 
 def _parse_timestamps(timestamps):

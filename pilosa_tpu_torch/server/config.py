@@ -339,7 +339,7 @@ class Config:
     # partitioned — each column-key partition / row space is owned by
     # the jump-hash-selected cluster node.
     translate_primary_url: str = ""
-    # key translation (ROADMAP A9): column-key
+    # key translation (translate/): column-key
     # partition count per index (fixed for the life of the data dir —
     # ids encode their partition) and the byte budget of the hot
     # id→key reverse-translation LRU
@@ -519,7 +519,6 @@ def _mesh_on(cfg: Config) -> bool:
 _A6 = "A6 (dispatch and autotune)"
 _A7 = "A7 (device telemetry)"
 _A8 = "A8 (the multi-device plane)"
-_A9 = "A9 (attributes and keys)"
 
 # the setting, as TOML spells it -> (is it turned on?, the ROADMAP
 # item that ports its subsystem)
@@ -541,5 +540,6 @@ _UNPORTED = {
     "export-url": (lambda c: bool(c.export_url), _A7),
     "device-faults": (lambda c: bool(c.device_faults), _A7),
     "chaos-enabled = true": (lambda c: c.chaos_enabled, _A7),
-    "translate-primary-url": (lambda c: bool(c.translate_primary_url), _A9),
+    # forwards every mint to another node: the cluster's translate plane
+    "translate-primary-url": (lambda c: bool(c.translate_primary_url), _A8),
 }

@@ -5,9 +5,10 @@ The port of ``pilosa_tpu/server/http_handler.py``: every route the
 single-node API serves answers with the same status codes and bodies,
 JSON and protobuf (``utils/publicproto.py``). A route of a subsystem
 this port lacks answers 501 with its ROADMAP item in the body, never
-404: the cluster and gang messages, fleet, scrub and chaos (A7, A8),
-key translation and attributes (A9), the dispatch engine (A6) and the
-device profile capture (A7).
+404: the cluster and gang messages, fleet, scrub and chaos (A7, A8), the
+dispatch engine (A6) and the device profile capture (A7). Keyed ingest,
+``/debug/translate``, ``/internal/translate/{data,stores,keys}`` and the
+attribute diffs answer as the reference's single node does.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from pilosa_tpu_torch.core import Row
 from pilosa_tpu_torch.core.fragment import FragmentQuarantinedError
 from pilosa_tpu_torch.executor.executor import ValCount
 from pilosa_tpu_torch.server import deadline as deadline_mod
-from pilosa_tpu_torch.server.api import A8, A9, API, APIError, unported
+from pilosa_tpu_torch.server.api import A8, API, APIError, unported
 from pilosa_tpu_torch.server.deadline import DeadlineExceeded
 from pilosa_tpu_torch.server import pipeline as pipeline_mod
 from pilosa_tpu_torch.server.pipeline import CLASS_BULK, CLASS_INTERNAL, Overloaded
@@ -43,6 +44,14 @@ class GangUnavailable(Exception):
 
     status = 503
     retry_after = 1.0
+
+
+def _require(body: dict, *keys: str) -> None:
+    """400 on missing request-body fields — a malformed client body
+    must never surface as an internal KeyError."""
+    missing = [k for k in keys if k not in body]
+    if missing:
+        raise APIError(f"missing required field(s): {', '.join(missing)}", status=400)
 
 
 def _unported_route(what: str, item: str) -> Callable:
@@ -194,6 +203,17 @@ class Handler:
             Route("POST", r"/internal/fragment/data", self.post_fragment_data),
             Route("GET", r"/internal/shards/max", lambda req: {"standard": a.max_shards()}),
             Route("GET", r"/internal/fragments", lambda req: a.fragment_inventory()),
+            # key translation's pull plane and the owner's mint endpoint,
+            # and the attribute stores' anti-entropy diffs
+            Route("GET", r"/internal/translate/data", self.get_translate_data),
+            Route("GET", r"/internal/translate/stores", lambda req: a.translate_stores()),
+            Route("POST", r"/internal/translate/keys", self.post_translate_keys),
+            Route("POST", r"/internal/index/(?P<index>[^/]+)/attr/diff", self.post_column_attr_diff),
+            Route(
+                "POST",
+                r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/attr/diff",
+                self.post_row_attr_diff,
+            ),
             Route("GET", r"/metrics", self.get_metrics),
             Route("GET", r"/debug/pipeline", self.get_debug_pipeline),
             Route("GET", r"/debug/fusion", self.get_debug_fusion),
@@ -215,6 +235,9 @@ class Handler:
             Route("GET", r"/debug/slo", self.get_debug_slo),
             # per-tenant admission / scheduling / HBM / SLO state
             Route("GET", r"/debug/tenancy", self.get_debug_tenancy),
+            # key translation: keys, log bytes, minted / adopted /
+            # forwarded counts, the reverse LRU
+            Route("GET", r"/debug/translate", lambda req: a.translate_debug()),
             # index (with and without trailing slash, as net/http/pprof
             # serves it) plus the thread-dump profile; unknown names 404
             Route("GET", r"/debug/pprof/?", self.get_debug_pprof),
@@ -509,7 +532,13 @@ class Handler:
             # queue sees it — write waves (and their routed local legs,
             # which never carry keys) are id-only, and the translate
             # assignments group-commit ahead of the wave's own fsync
-            raise unported("ingesting keys", A9)
+            t_rows, t_cols = self.api.translate_ingest_keys(
+                req.params["index"], req.params["field"], row_keys, column_keys
+            )
+            if t_rows is not None:
+                rows = t_rows
+            if t_cols is not None:
+                cols = t_cols
         dl = deadline_mod.from_request(req.headers, req.query, self.default_timeout)
         if body.get("local"):
             # owner-side leg of a routed wave: apply directly (the
@@ -545,6 +574,28 @@ class Handler:
             dl,
         )
         return {"acked": len(rows), "changed": changed}
+
+    def get_translate_data(self, req):
+        q = req.query
+        data = self.api.get_translate_data(int(q.get("offset", ["0"])[0]), q.get("store", [""])[0])
+        return RawResponse(data, "application/octet-stream")
+
+    def post_translate_keys(self, req) -> dict:
+        """The owner's mint endpoint for forwarded keys."""
+        body = json.loads(req.body or b"{}")
+        _require(body, "index")
+        ids = self.api.translate_keys(body["index"], body.get("field", ""), body.get("keys", []))
+        return {"ids": ids}
+
+    def post_column_attr_diff(self, req) -> dict:
+        body = json.loads(req.body or b"{}")
+        return {"attrs": self.api.column_attr_diff(req.params["index"], body.get("blocks", []))}
+
+    def post_row_attr_diff(self, req) -> dict:
+        body = json.loads(req.body or b"{}")
+        return {
+            "attrs": self.api.row_attr_diff(req.params["index"], req.params["field"], body.get("blocks", []))
+        }
 
     def get_debug_ingest(self, req) -> dict:
         """Ingest write-ahead queue snapshot: depth/limit, wave and
@@ -1218,15 +1269,4 @@ _UNPORTED_ROUTES = (
     ("GET", r"/debug/chaos", "fault injection", A7),
     ("POST", r"/debug/chaos", "fault injection", A7),
     ("GET", r"/debug/dispatch", "the dispatch engine", A6),
-    ("GET", r"/debug/translate", "key translation", A9),
-    ("GET", r"/internal/translate/data", "key translation", A9),
-    ("GET", r"/internal/translate/stores", "key translation", A9),
-    ("POST", r"/internal/translate/keys", "key translation", A9),
-    ("POST", r"/internal/index/(?P<index>[^/]+)/attr/diff", "attributes", A9),
-    (
-        "POST",
-        r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/attr/diff",
-        "attributes",
-        A9,
-    ),
 )

@@ -10,11 +10,14 @@ device ``open()`` builds the kernels before the listener answers, so
 the first guarded query does not spend the gate's deadline compiling.
 
 The plan cache and whole-query fusion are on by default, as in the
-reference (``plan-cache-enabled``, ``fusion-enabled``).
+reference (``plan-cache-enabled``, ``fusion-enabled``). The holder has
+attribute stores and the executor a key translator over
+``<data-dir>/translate`` (``translate-partitions``,
+``translate-cache-bytes``), one node's: it owns and mints every key.
 
 Not constructed here, with the ROADMAP item that ports each: the
-cluster, multihost gangs, the fleet collector and the integrity
-scrubber (A8), key translation and the attribute store (A9), the
+cluster, multihost gangs, the fleet collector, the integrity scrubber,
+and the translate plane's forwarding and replication (A8), the
 dispatch engine and autotune (A6), the durable event journal and
 telemetry export (A7). ``Config.check_ported``
 refuses a configuration that turns one on, and their HTTP routes
@@ -42,7 +45,9 @@ from pilosa_tpu_torch.server.http_handler import Handler, make_http_server
 from pilosa_tpu_torch.server.ingest import IngestQueue
 from pilosa_tpu_torch.server.pipeline import QueryPipeline, make_query_combiner
 from pilosa_tpu_torch.server.tenancy import TenancyManager
+from pilosa_tpu_torch.translate import Translator
 from pilosa_tpu_torch.utils import heat, metrics, profiler, slo, trace
+from pilosa_tpu_torch.utils.attrstore import new_attr_store
 from pilosa_tpu_torch.utils.diagnostics import DiagnosticsCollector
 from pilosa_tpu_torch.utils.gcnotify import GCNotifier
 from pilosa_tpu_torch.utils.logger import NOP_LOGGER, StandardLogger
@@ -110,7 +115,15 @@ class Server:
         )
         # only hook gc.callbacks when someone consumes the counter
         self.gc_notifier = GCNotifier() if self.stats is not NOP_STATS else None
-        self.holder = Holder(data_dir)
+        self.holder = Holder(data_dir, new_attr_store=new_attr_store)
+        # key translation (translate/): partitioned durable key <-> id
+        # logs under <data>/translate, which the holder does not open as
+        # an index
+        self.translate_store = Translator(
+            os.path.join(data_dir, "translate"),
+            partitions=self.config.translate_partitions,
+            cache_bytes=self.config.translate_cache_bytes,
+        )
         self.stager = DeviceStager(
             self.device,
             budget_bytes=self.config.stager_budget_bytes,
@@ -165,6 +178,7 @@ class Server:
             fusion_enabled=self.config.fusion_enabled,
             fusion_max_calls=self.config.fusion_max_calls,
             plan_cache_device_bytes=self.config.plan_cache_device_bytes,
+            translate_store=self.translate_store,
         )
         self.api = API(self.holder, self.executor, server=self)
         # multi-tenant QoS (server/tenancy.py): per-index admission
@@ -467,3 +481,4 @@ class Server:
         if self.executor.health is not None:
             self.executor.health.close()
         self.holder.close()
+        self.translate_store.close()

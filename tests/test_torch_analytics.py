@@ -263,12 +263,59 @@ def test_rows_outside_groupby_raises(sides):
             ex.execute("i", Query([Call("Rows", {"_field": "seg"})]))
 
 
-def test_only_attribute_calls_stay_unported(sides):
-    from pilosa_tpu_torch.executor.executor import _UNPORTED
+def test_only_attribute_calls_stay_unported(base, tmp_path):
+    """The attribute calls, the last calls the port refused, answer as
+    the reference's: SetRowAttrs and SetColumnAttrs over the analytics
+    data, then attribute-filtered TopN (with and without a source, pass
+    2 included), a Row with its attributes and the analytics beside
+    them, on all three legs."""
+    from pilosa_tpu.utils.attrstore import new_attr_store as jax_attr_store
 
-    assert sorted(_UNPORTED) == ["SetColumnAttrs", "SetRowAttrs"]
-    with pytest.raises(NotImplementedError, match="A9"):
-        sides.dev.execute("i", "SetRowAttrs(seg, 1, x=1)")
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    shutil.copytree(base, jdir)
+    shutil.copytree(base, tdir)
+    jh = JaxHolder(str(jdir), new_attr_store=jax_attr_store)
+    jh.open()
+    th = pilosa_tpu_torch.holder_from_dir(str(tdir))
+    exs = (
+        JaxExecutor(jh, device_policy="always"),
+        pilosa_tpu_torch.Executor(th, device="cpu", device_policy="always"),
+        pilosa_tpu_torch.Executor(th, device="cpu", device_policy="never"),
+    )
+    try:
+        writes = "SetRowAttrs(seg, 1, kind=\"a\")SetRowAttrs(seg, 3, kind=\"a\")SetRowAttrs(seg, 2, kind=\"b\")"
+        writes += "SetRowAttrs(dev, 0, kind=\"a\", n=2)SetColumnAttrs(5, region=\"eu\")"
+        exs[0].execute("i", writes)
+        exs[1].execute("i", writes)
+        for h in (jh, th):
+            for f in h.index("i").fields.values():
+                for v in f.views.values():
+                    for frag in v.fragments.values():
+                        frag.cache.recalculate()
+        qs = [
+            'TopN(seg, n=3, attrName="kind", attrValues=["a"])',
+            'TopN(seg, Row(dev=1), n=2, attrName="kind", attrValues=["a", "b"])',
+            'TopN(dev, Row(tier=0), n=5, attrName="kind", attrValues=["a"])',
+            'TopN(seg, Row(dev=2), attrName="kind", attrValues=["c"])',
+            "Row(seg=1)",
+            'Count(Row(seg=1))TopN(seg, Row(dev=0), n=3, attrName="kind", attrValues=["a"])Sum(field=v)',
+        ]
+        answers = {}
+        for q in qs:
+            got = []
+            for ex in exs:
+                res = ex.execute("i", q)
+                got.append([(_plain([r])[0], r.attrs) if hasattr(r, "attrs") else _plain([r])[0] for r in res])
+            assert got[1] == got[0] and got[2] == got[0], q
+            answers[q] = got[0]
+        assert sorted(p["id"] for p in answers[qs[0]][0]) == [1, 3]
+        assert answers[qs[3]] == [[]] and answers["Row(seg=1)"][0][1] == {"kind": "a"}
+        assert th.index("i").column_attrs.attrs(5) == {"region": "eu"}
+    finally:
+        for ex in exs:
+            ex.close()
+        jh.close()
+        th.close()
 
 
 def test_device_analytics_do_not_degrade(sides):

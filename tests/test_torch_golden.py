@@ -4,9 +4,9 @@ is written by the JAX package's holder and executor (the writer of the
 shared fragment format), the directory is opened with the port's
 ``holder_from_dir``, and the port answers each fixture's query on both
 of its legs (``device_policy`` "never" and "always", ``device="cpu"``)
-and through its HTTP server. The two attribute fixtures raise
-``NotImplementedError`` naming ROADMAP A9 on the executor legs and
-answer 501 over HTTP, until attributes are ported."""
+and through its HTTP server. The two attribute fixtures' row attributes
+are written by the reference's attribute store and read by the port's
+(``holder_from_dir`` and the server open them)."""
 
 import json
 import os
@@ -26,7 +26,6 @@ from pilosa_tpu_torch.server import Config, Server
 HERE = os.path.dirname(__file__)
 FIXTURES = json.load(open(os.path.join(HERE, "golden_fixtures.json")))["fixtures"]
 BY_NAME = {f["name"]: f for f in FIXTURES}
-ATTR_FIXTURES = {"topn_attr", "topn_attr_src"}
 SW = 1 << 20
 
 
@@ -128,10 +127,7 @@ def test_golden_executor(fx, policy, port_holder):
     ex = pilosa_tpu_torch.Executor(port_holder, device="cpu", device_policy=policy)
     try:
         q = _expand_query(fx["query"])
-        if fx["name"] in ATTR_FIXTURES:
-            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-                ex.execute(fx["name"], q)
-        elif fx["expect"].get("error"):
+        if fx["expect"].get("error"):
             with pytest.raises(Exception):
                 ex.execute(fx["name"], q)
         else:
@@ -167,9 +163,7 @@ def test_golden_http(fx, server):
             st, body = resp.status, json.loads(resp.read())
     except urllib.error.HTTPError as e:
         st, body = e.code, json.loads(e.read())
-    if fx["name"] in ATTR_FIXTURES:
-        assert st == 501 and "ROADMAP A9" in body["error"]
-    elif fx["expect"].get("error"):
+    if fx["expect"].get("error"):
         assert st == 400 and body["error"]
     else:
         assert st == 200, body

@@ -88,6 +88,48 @@ def test_import_and_query_pull_in_no_jax():
     assert lines[-1] == "FOREIGN []"
 
 
+_KEYS_PROBE = r"""
+import sys, tempfile
+import pilosa_tpu_torch
+import pilosa_tpu_torch.parallel.hashing
+import pilosa_tpu_torch.utils.attrstore
+import pilosa_tpu_torch.utils.translate
+from pilosa_tpu_torch.core import FieldOptions
+from pilosa_tpu_torch.translate import SpaceStore, Translator, resolve
+from pilosa_tpu_torch.plan import planner
+
+d = tempfile.mkdtemp()
+h = pilosa_tpu_torch.holder_from_dir(d)
+idx = h.create_index("u", keys=True)
+idx.create_field("f", FieldOptions(keys=True))
+t = Translator(d + "/translate")
+ex = pilosa_tpu_torch.Executor(h, device="cpu", device_policy="always", translate_store=t)
+ex.execute("u", 'Set("a", f="x")Set("b", f="x")Set("b", f="y")SetRowAttrs(f, 1, c="k")SetColumnAttrs(2, n=1)')
+row, top = ex.execute("u", 'Row(f="x")TopN(f, Row(f="x"), n=2, attrName="c", attrValues=["k"])')
+print("KEYS", sorted(row.keys), row.attrs, top)
+ex.close()
+t.close()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "pilosa_tpu" or m.startswith("pilosa_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_attribute_and_key_modules_pull_in_no_jax():
+    """The key-translation and attribute modules (parallel/hashing,
+    utils/attrstore, utils/translate, translate/, the planner's
+    resolve_keys) import neither JAX nor the JAX package, and a keyed,
+    attribute-filtered query runs through them."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _KEYS_PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2] == "KEYS ['a', 'b'] {'c': 'k'} [{'key': 'x', 'count': 2}]"
+    assert lines[-1] == "FOREIGN []"
+
+
 _FOREIGN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+pilosa_tpu\b(?!_)|from\s+pilosa_tpu\b(?!_))")
 _FOREIGN_NAME = re.compile(r"\bpilosa_tpu\.")
 
@@ -221,7 +263,7 @@ def test_cli_cluster_flags_exit_naming_their_item(tmp_path, flags, item, capsys)
         ("journal-max-bytes", 1 << 20, "A7"),
         ("export-path", "/dev/null", "A7"),
         ("device-faults", "oom_every=2", "A7"),
-        ("translate-primary-url", "http://x:1", "A9"),
+        ("translate-primary-url", "http://x:1", "A8"),
     ],
 )
 def test_enabling_an_unported_subsystem_raises(tmp_path, key, value, item):

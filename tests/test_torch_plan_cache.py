@@ -156,11 +156,50 @@ def test_uncacheable_calls_never_insert(holder):
     # writes never touch the cache
     ex.execute("i", "Set(123, f=1)")
     # attr-filtered TopN depends on attr stores (no generation counter):
-    # never cached (the port raises for attributes: ROADMAP A9)
-    for _ in range(2):
-        with pytest.raises(NotImplementedError, match="A9"):
-            ex.execute("i", 'TopN(f, Row(f=1), n=2, attrName="x", attrValues=[1])')
+    # never cached, and its answer is the uncached executor's
+    from pilosa_tpu_torch.utils.attrstore import AttrStore
+
+    fld = holder.field("i", "f")
+    fld.row_attr_store = AttrStore(None)
+    for frag in fld.view(VIEW_STANDARD).fragments.values():
+        frag.row_attr_store = fld.row_attr_store
+        frag.cache.recalculate()
+    for row in (1, 3, 4):
+        fld.row_attr_store.set_attrs(row, {"x": 1})
+    q = 'TopN(f, Row(f=1), n=2, attrName="x", attrValues=[1])'
+    uncached = Executor(holder, device_policy="always")
+    try:
+        for _ in range(2):
+            got = ex.execute("i", q)
+            assert got == uncached.execute("i", q) and got[0]
+    finally:
+        uncached.close()
     assert pc.stats()["entries"] == 0 and pc.stats()["hits"] == 0
+
+
+def test_attribute_bearing_row_is_never_cached():
+    """A top-level Row() on a field with an attribute store carries the
+    row's attributes, which no generation counter covers: never cached,
+    so a SetRowAttrs shows in the next answer. Excluding the attributes
+    makes it cacheable again."""
+    from pilosa_tpu_torch.utils.attrstore import AttrStore
+
+    h = Holder(new_attr_store=lambda path: AttrStore(None))
+    h.open()
+    seed(h)
+    ex, pc = cached_executor(h)
+    ex.execute("i", 'SetRowAttrs(f, 1, tier="gold")')
+    (row,) = ex.execute("i", "Row(f=1)")
+    assert row.attrs == {"tier": "gold"}
+    ex.execute("i", 'SetRowAttrs(f, 1, tier="silver")')
+    (row,) = ex.execute("i", "Row(f=1)")
+    assert row.attrs == {"tier": "silver"}
+    assert pc.stats()["entries"] == 0 and pc.stats()["hits"] == 0
+    opt = ExecOptions(exclude_row_attrs=True)
+    first = ex.execute("i", "Row(f=1)", opt=opt)[0]
+    again = ex.execute("i", "Row(f=1)", opt=opt)[0]
+    assert norm(again) == norm(first) and again.attrs == {}
+    assert pc.stats()["hits"] == 1
 
 
 def test_byte_budget_evicts_lru(holder):

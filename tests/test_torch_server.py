@@ -7,14 +7,17 @@ and ``pilosa_tpu_torch.server.Server(Config(device="cpu",
 device_policy="always"))``, each on its own data directory and bound to
 127.0.0.1:0. Status codes, content types, JSON bodies and protobuf bytes
 must be equal. Masked: the version string of ``/version`` and the port's
-``device`` block of ``/status`` (the backend). Attributes and keys are
-not ported: their requests must answer 501 naming ROADMAP A9.
+``device`` block of ``/status`` (the backend). Attributes and keys
+(keyed indexes and fields, key imports, keyed ingest, ``columnAttrs``,
+the translate and attribute-diff routes) answer as the reference's, and
+the translate logs of one side's data directory open on the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import time
 import urllib.error
 import urllib.request
@@ -454,58 +457,165 @@ def test_reference_lists_its_translate_directory_as_an_index(tmp_path):
     assert schemas == {"ref": ["i", "translate"], "port": ["i"]}
 
 
-def _body_names_a9(st, body) -> bool:
-    return st == 501 and "ROADMAP A9" in body["error"]
+def attribute_requests(c: Client) -> None:
+    """test_server_http's attribute sequence, then the same reads as
+    protobuf and the two attribute diffs."""
+    c.req("POST", "/index/i", {})
+    c.req("POST", "/index/i/field/f", {})
+    c.req(
+        "POST", "/index/i/query",
+        b'Set(1, f=10)SetRowAttrs(f, 10, category="search")SetColumnAttrs(1, name="acme")',
+    )
+    c.query("i", "Row(f=10)", proto=True)
+    c.req("POST", "/index/i/query?columnAttrs=true", b"Row(f=10)")
+    c.req(
+        "POST",
+        "/index/i/query",
+        ref_proto.encode_query_request("Row(f=10)", column_attrs=True),
+        headers={"Content-Type": PROTO, "Accept": PROTO},
+    )
+    c.req("POST", "/index/i/query", b'SetRowAttrs(f, 10, category=null, rank=3)SetColumnAttrs(2, name="x")')
+    c.query("i", "Row(f=10)")
+    c.req("POST", "/index/i/query?excludeRowAttrs=true", b"Row(f=10)")
+    for path in ("/internal/index/i/attr/diff", "/internal/index/i/field/f/attr/diff"):
+        c.req("POST", path, {"blocks": []})
+        c.req("POST", path, {"blocks": [[0, "00" * 16]]})
+    c.req("POST", "/internal/index/nope/attr/diff", {"blocks": []})
 
 
 def test_attribute_requests_answer_501_naming_a9(tmp_path):
-    c = Client("port", str(tmp_path / "p"))
-    try:
-        c.req("POST", "/index/i", {})
-        c.req("POST", "/index/i/field/f", {})
-        st, body = c.req(
-            "POST", "/index/i/query",
-            b'Set(1, f=10)SetRowAttrs(f, 10, category="search")SetColumnAttrs(1, name="acme")',
-        )
-        assert _body_names_a9(st, body)
-        # nothing of the refused request was applied
-        assert c.query("i", "Row(f=10)")[1] == {"results": [{"attrs": {}, "columns": []}]}
-        st, body = c.req("POST", "/index/i/query?columnAttrs=true", b"Row(f=10)")
-        assert _body_names_a9(st, body)
-        for path in ("/internal/index/i/attr/diff", "/internal/index/i/field/f/attr/diff"):
-            assert _body_names_a9(*c.req("POST", path, {"blocks": []}))
-    finally:
-        c.close()
+    """Attribute requests, refused with 501 naming ROADMAP A9 until the
+    port had attribute stores, answer as the reference's: SetRowAttrs,
+    SetColumnAttrs, a Row's attrs, ``columnAttrs`` (JSON and protobuf)
+    and the attribute diffs."""
+    ref, _ = run_both(tmp_path, attribute_requests)
+    assert ref[3][4] == {"results": [{"attrs": {"category": "search"}, "columns": [1]}]}
+    assert ref[5][4]["columnAttrs"] == [{"id": 1, "attrs": {"name": "acme"}}]
+
+
+def key_requests(c: Client) -> None:
+    """test_server_http's key sequence, then key imports, keyed ingest
+    and the translate routes, whose log bytes must be equal."""
+    c.req("POST", "/index/users", {"options": {"keys": True}})
+    c.req("POST", "/index/users/field/likes", {"options": {"keys": True}})
+    c.query("users", 'Set("alice", likes="pizza")')
+    c.query("users", 'Set("bob", likes="pizza")')
+    c.query("users", 'Row(likes="pizza")', proto=True)
+    c.query("users", "TopN(likes, n=5)")
+    c.req("POST", "/index/users/field/likes/import", {"rowKeys": ["sushi", "pizza"], "columnKeys": ["carol", "dave"]})
+    c.req(
+        "POST", "/index/users/field/likes/ingest",
+        {"rowKeys": ["tacos", "tacos", "sushi"], "columnKeys": ["erin", "alice", "frank"]},
+    )
+    c.req("POST", "/recalculate-caches")
+    c.query("users", 'Count(Row(likes="sushi"))TopN(likes, Row(likes="tacos"), n=3)Row(likes="nope")')
+    c.req("POST", "/index/users/field/age", {"options": {"type": "int", "min": 0, "max": 120}})
+    c.req("POST", "/index/users/field/age/import-value", {"columnKeys": ["alice", "bob"], "values": [31, 44]})
+    c.query("users", 'Sum(field="age")Row(likes="pizza")')
+    c.req("GET", "/debug/translate")
+    _, stores = c.req("GET", "/internal/translate/stores")
+    for entry in stores:
+        c.req("GET", f"/internal/translate/data?store={entry['name']}&offset=0")
+    c.req("POST", "/internal/translate/keys", {"index": "users", "field": "likes", "keys": ["pizza", "ramen"]})
+    c.req("POST", "/internal/translate/keys", {})
+    c.req("GET", "/internal/translate/data?store=../x&offset=0")
+    c.req("POST", "/index/plain", {})
+    c.req("POST", "/index/plain/field/f", {})
+    c.query("plain", 'Set("alice", f=1)')
 
 
 def test_key_translation_requests_answer_501_naming_a9(tmp_path):
+    """Keyed requests, refused with 501 naming ROADMAP A9 until the port
+    had a translate store, answer as the reference's; then a keyed index
+    the reference wrote is served by the port's server, and one the port
+    wrote by the reference's, with the same answers."""
+    ref, _ = run_both(tmp_path, key_requests)
+    row = next(t for t in ref if t[1] == "/index/users/query" and t[2] == 200 and "keys" in str(t[4]))
+    assert sorted(row[4]["results"][0]["keys"]) == ["alice", "bob"]
+    reads = 'Row(likes="pizza")Count(Row(likes="sushi"))TopN(likes, n=5)Sum(field="age")'
+    for writer, reader in (("ref", "port"), ("port", "ref")):
+        data = str(tmp_path / writer)
+        answers, logs = {}, {}
+        for side in (writer, reader):
+            c = Client(side, data)
+            try:
+                c.req("POST", "/recalculate-caches")
+                answers[side] = c.query("users", reads)
+            finally:
+                c.close()
+        # each side mints on a copy of the directory: the same new ids,
+        # and the same log bytes after them
+        for side in (writer, reader):
+            copy = str(tmp_path / f"{writer}-{side}")
+            shutil.copytree(data, copy)
+            c = Client(side, copy)
+            try:
+                c.query("users", 'Set("new", likes="ramen")Set("bob", likes="ramen")')
+            finally:
+                c.close()
+            logs[side] = _translate_logs(copy)
+        assert answers[reader] == answers[writer]
+        assert answers[reader][0] == 200
+        assert logs[reader] == logs[writer] and logs[writer]
+
+
+def _translate_logs(data_dir: str) -> dict:
+    root = os.path.join(data_dir, "translate")
+    out = {}
+    for d, _, files in os.walk(root):
+        for fn in files:
+            if fn.endswith(".log"):
+                with open(os.path.join(d, fn), "rb") as f:
+                    out[os.path.relpath(os.path.join(d, fn), root)] = f.read()
+    return out
+
+
+@pytest.mark.parametrize(
+    "method,path,body",
+    [
+        ("GET", "/debug/translate", None),
+        ("GET", "/internal/translate/data?offset=0", None),
+        ("GET", "/internal/translate/data?store=u/rows.f&offset=0", None),
+        ("GET", "/internal/translate/stores", None),
+        ("POST", "/internal/translate/keys", {"index": "u", "field": "f", "keys": ["a", "b", "c"]}),
+        ("POST", "/internal/index/i/attr/diff", {"blocks": []}),
+        ("POST", "/internal/index/i/field/f/attr/diff", {"blocks": [[0, "00" * 16]]}),
+    ],
+)
+def test_translate_and_attribute_routes_answer_as_the_reference(tmp_path, method, path, body):
+    """The routes that answered 501 naming ROADMAP A9, each on both
+    servers over the same data."""
+
+    def sequence(c: Client) -> None:
+        c.req("POST", "/index/i", {})
+        c.req("POST", "/index/i/field/f", {})
+        c.query("i", 'Set(3, f=1)SetRowAttrs(f, 1, kind="hot")SetColumnAttrs(3, region="eu")')
+        c.req("POST", "/index/u", {"options": {"keys": True}})
+        c.req("POST", "/index/u/field/f", {"options": {"keys": True}})
+        c.query("u", 'Set("k1", f="a")Set("k2", f="b")')
+        c.req(method, path, body)
+
+    ref, _ = run_both(tmp_path, sequence)
+    assert ref[-1][2] == 200
+
+
+def test_schema_lists_no_translate_index(tmp_path):
+    """ROADMAP C3: the port's server keeps its translate logs in
+    ``<data-dir>/translate`` and its holder does not open them as an
+    index, on a restart either."""
     c = Client("port", str(tmp_path / "p"))
     try:
-        assert _body_names_a9(*c.req("POST", "/index/users", {"options": {"keys": True}}))
-        c.req("POST", "/index/plain", {})
-        assert _body_names_a9(*c.req("POST", "/index/plain/field/likes", {"options": {"keys": True}}))
-        c.req("POST", "/index/plain/field/f", {})
-        st, body = c.req("POST", "/index/plain/field/f/import", {"rowKeys": ["a"], "columnKeys": ["b"]})
-        assert _body_names_a9(st, body)
-        assert _body_names_a9(*c.req("GET", "/debug/translate"))
-        assert _body_names_a9(*c.req("POST", "/internal/translate/keys", {"index": "plain", "keys": ["x"]}))
+        c.req("POST", "/index/u", {"options": {"keys": True}})
+        c.req("POST", "/index/u/field/f", {"options": {"keys": True}})
+        assert c.query("u", 'Set("k", f="r")')[0] == 200
+        c.restart()
+        assert os.listdir(os.path.join(c.data_dir, "translate", "u"))
+        _, body = c.req("GET", "/schema")
+        assert [i["name"] for i in body["indexes"]] == ["u"]
+        assert c.req("POST", "/index/translate", {})[0] == 400
+        assert c.query("u", 'Row(f="r")')[1]["results"][0]["keys"] == ["k"]
     finally:
         c.close()
-    # a keyed index the reference wrote: the port's server refuses its
-    # queries by name instead of answering with untranslated ids
-    data = str(tmp_path / "keyed")
-    ref = Client("ref", data)
-    try:
-        ref.req("POST", "/index/users", {"options": {"keys": True}})
-        ref.req("POST", "/index/users/field/likes", {"options": {"keys": True}})
-        assert ref.query("users", 'Set("alice", likes="pizza")')[0] == 200
-    finally:
-        ref.close()
-    port = Client("port", data)
-    try:
-        assert _body_names_a9(*port.query("users", 'Row(likes="pizza")'))
-    finally:
-        port.close()
 
 
 def test_fusion_and_plan_cache_answer_as_the_reference(tmp_path):
