@@ -78,8 +78,22 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          cleared again; an allocation failure on the card under the
          executor's OomRecovery (relief, one retry, the CPU cooldown,
          then the device path again) and a relief-plus-retry that
-         succeeds; a restart; and ``python -m pilosa_tpu_torch server``
-         as a subprocess, /status, one TopN, SIGINT. The server runs
+         succeeds; a restart with the fault injector open
+         (``chaos_enabled``) and telemetry exported to a JSONL file and
+         an OTLP listener thread on 127.0.0.1, ending in the faults arm:
+         fault windows through POST /debug/chaos (a poisoned fused
+         lowering, an allocation failure on every second and on every
+         launch, stalls) over the OOM check's reads and the stats family
+         as one request, a torch.profiler capture whose trace must
+         hold each port kernel as often as its wrapper launched it, a
+         ballast past 0.9 of the card's memory that
+         the governor's watermark relief answers, the durable journal
+         and both exports, and ``chip_smoke.py --sticky-child`` (a
+         process that loses its CUDA context to a device-side assert,
+         trips its gate and serves every later read on the CPU leg,
+         counted); and ``python -m pilosa_tpu_torch server`` as a
+         subprocess, /status, one TopN, the restart's journal records,
+         SIGINT. The server runs
          the reference's defaults (fusion and the plan cache on); every
          timed row sends ``cache=false`` except a row per family that
          times plan-cache hits, and bench.py's plan-cache probe runs over
@@ -154,7 +168,8 @@ The fragments are written by a pool of worker processes, stopped before
 the card is used.
 
 Output: progress on stderr; on stdout the card's name and power limit
-(nvidia-smi), a ``phases.server`` line, a ``phases.keys`` line, a ``phases.fusion`` line (its
+(nvidia-smi), a ``phases.server`` line (its ``faults`` arm among it), a
+``phases.keys`` line, a ``phases.fusion`` line (its
 table, the plan-cache probe and the fused TopN head,
 ``sparse_intersection_counts_stacked_mat``, == plain and timed), a
 ``phases`` line (qps and p50 on the card), a ``kernels`` line, and as
@@ -3000,6 +3015,10 @@ def oom_check(server, addr, metrics, answers, probe_items) -> dict:
         out["retry_probe"]["allocated_after_gc"] = torch.cuda.memory_allocated()
         raise AssertionError(f"server: relief plus retry did not succeed: {json.dumps(out['retry_probe'])}")
     del held
+    # the probe's one segment spans the card: staging carves it up, and
+    # a segment with one live tensor is never released to CUDA, so it
+    # would hold the card from the processes this run starts later
+    torch.cuda.empty_cache()
     out["retry_probe"]["card_after_relief"] = card_memory_by_owner(ex, holders=4)
     out["retry_probe"].update(probe.stats())
     if (probe.stats()["ooms"], probe.stats()["recovered"]) != (1, 1):
@@ -3008,22 +3027,599 @@ def oom_check(server, addr, metrics, answers, probe_items) -> dict:
     return out
 
 
+# -- the faults arm: injected and real device faults on the restart server ----------
+
+# the sticky child's device-health probe interval: the gate must stay
+# tripped across several failed probes
+STICKY_PROBE_S = 0.5
+STICKY_HOLD_S = 1.5
+STICKY_COOLDOWN_S = 0.2
+# the telemetry ballast lifts the card's allocated bytes this far past
+# the watermark
+BALLAST_MARGIN = 512 << 20
+# the card's launch counts must stand still this long before a capture
+# opens its window (a background stage would race the window's edge)
+CAPTURE_QUIET_S = 0.25
+
+
+class OtlpListener:
+    """An OTLP/HTTP JSON collector on 127.0.0.1, a thread of this script:
+    it keeps the path and JSON body of every POST it receives."""
+
+    def __init__(self) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        posts: list = []
+        mu = threading.Lock()
+        self.posts, self._mu = posts, mu
+
+        class Collector(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                with mu:
+                    posts.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Collector)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self) -> str:
+        return "http://127.0.0.1:%d" % self.httpd.server_address[1]
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+    def summary(self) -> dict:
+        """Posts by path, and the journal kinds the log posts carried."""
+        with self._mu:
+            posts = list(self.posts)
+        by_path: dict = {}
+        kinds: dict = {}
+        for path, body in posts:
+            by_path[path] = by_path.get(path, 0) + 1
+            for rl in body.get("resourceLogs", []):
+                for sl in rl.get("scopeLogs", []):
+                    for rec in sl.get("logRecords", []):
+                        k = rec["body"]["stringValue"]
+                        kinds[k] = kinds.get(k, 0) + 1
+        return {"posts_by_path": by_path, "log_kinds": kinds}
+
+
+def _chaos(c: "HttpClient", body=None, status: int = 200) -> dict:
+    """GET /debug/chaos, or POST ``body`` to it; its JSON, which must
+    come with ``status``."""
+    if body is None:
+        st, _, raw = c.request("GET", "/debug/chaos")
+    else:
+        st, _, raw = c.request("POST", "/debug/chaos", json.dumps(body).encode())
+    if st != status:
+        raise AssertionError(f"server: /debug/chaos {body}: HTTP {st} (want {status}): {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _json_get(c: "HttpClient", path: str) -> dict:
+    st, _, raw = c.request("GET", path)
+    if st != 200:
+        raise AssertionError(f"server: GET {path}: HTTP {st}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _metric_sum(metrics, name: str) -> float:
+    return sum(v for k, v in metrics.snapshot().items() if k == name or k.startswith(name + ";"))
+
+
+def fault_windows(server, addr, answers: dict, probe_items: list, stats_items: list, launched) -> dict:
+    """Fault windows opened and cleared through ``POST /debug/chaos`` over
+    the OOM check's probe items and the stats family as one multi-call
+    request, every answer == the CPU leg: a poisoned lowering (the
+    per-call path answers), an allocation failure on every second
+    launch (recovered in place), on every launch (the read degrades to
+    the CPU leg, the cooldown launches nothing, then the card again),
+    and stalls (counted, the gate stays open). ``launched()`` counts the
+    kernel launches so far. Returns each window's numbers and its
+    ``GET /debug/chaos``, and ``fallbacks``: the reads the windows sent
+    to the CPU leg on purpose."""
+    from pilosa_tpu_torch.utils import chaos, metrics
+
+    ex = server.executor
+    fuser = ex.fuser
+    index = stats_items[0][0]
+    multi_q = "".join(q for _, q in stats_items)
+    multi_want = [a for _, q in stats_items for a in answers[(index, q)]]
+    out: dict = {}
+    c = HttpClient(*addr)
+
+    def multi() -> float:
+        return c.query(index, multi_q, multi_want, cold=True)
+
+    def reads(items) -> list[float]:
+        return [c.query(i, q, answers[(i, q)], cold=True) for i, q in items]
+
+    def fallbacks() -> float:
+        return metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0)
+
+    def gate_open(when: str, trips0: int) -> None:
+        if ex.health.trips != trips0 or not ex.health.healthy:
+            raise AssertionError(f"faults ({when}): the gate tripped: {ex.health.trips - trips0} trips")
+
+    def delta(s1: dict, s0: dict) -> dict:
+        return {k: s1[k] - s0[k] for k in ("ooms", "recovered", "degraded")}
+
+    try:
+        trips0, fb0 = ex.health.trips, fallbacks()
+        # a poisoned lowering: no program is built, so nothing fuses and
+        # the per-call path answers every call. First, before the
+        # request's program was ever built (a built one is reused)
+        f0 = fuser.stats()
+        _chaos(c, {"device": "poison_every=1"})
+        lat = [multi()]
+        f1 = fuser.stats()
+        errors = f1["bypasses"].get("error", 0) - f0["bypasses"].get("error", 0)
+        if f1["fused_launches"] != f0["fused_launches"] or errors < 1 or chaos.FAULTS.injected < 1:
+            raise AssertionError(f"faults (poison_every=1): fused launches {f0['fused_launches']} -> "
+                                 f"{f1['fused_launches']}, error bypasses +{errors}")
+        w = {"error_bypasses": errors, "injected": chaos.FAULTS.injected, "p50_ms": lat[0] * 1e3, "chaos": _chaos(c)}
+        _chaos(c, {})
+        multi()
+        w["fused_launches_after_clear"] = fuser.stats()["fused_launches"] - f1["fused_launches"]
+        if w["fused_launches_after_clear"] < 1:
+            raise AssertionError(f"faults (poison_every=1): no fused launch after the window cleared: {w}")
+        out["poison_every=1"] = w
+        log(f"faults: poison_every=1 {w}")
+
+        # an allocation failure on every second hooked launch: relief and
+        # the one retry recover each in place
+        s0 = ex._oom.stats()
+        _chaos(c, {"device": "oom_every=2"})
+        lat = reads(probe_items) + [multi()]
+        d = delta(ex._oom.stats(), s0)
+        w = {**d, "injected": chaos.FAULTS.injected, "reads": len(lat), "p50_ms": statistics.median(lat) * 1e3,
+             "chaos": _chaos(c)}
+        _chaos(c, {})
+        if d["ooms"] < 1 or d["recovered"] != d["ooms"] or d["degraded"] != 0 or fallbacks() != fb0:
+            raise AssertionError(f"faults (oom_every=2): {w}, fallbacks +{fallbacks() - fb0}")
+        gate_open("oom_every=2", trips0)
+        out["oom_every=2"] = w
+        log(f"faults: oom_every=2 {w}")
+
+        # every hooked launch fails, the retry too: the read degrades to
+        # the CPU leg and the cooldown holds reads there, launching nothing
+        ex.oom_cpu_cooldown_s = OOM_COOLDOWN_S
+        s0 = ex._oom.stats()
+        _chaos(c, {"device": "oom_every=1"})
+        lat = reads(probe_items[:1])
+        d = delta(ex._oom.stats(), s0)
+        if d["degraded"] != 1 or not ex._cpu_forced():
+            raise AssertionError(f"faults (oom_every=1): {d}, CPU forced {ex._cpu_forced()}")
+        k0, l0 = chaos.FAULTS._kernels, launched()
+        lat += reads(probe_items[1:2])
+        w = {**d, "cooldown_hooked_launches": chaos.FAULTS._kernels - k0, "cooldown_kernel_launches": launched() - l0,
+             "fallbacks": fallbacks() - fb0, "p50_ms": statistics.median(lat) * 1e3, "chaos": _chaos(c)}
+        if w["cooldown_hooked_launches"] or w["cooldown_kernel_launches"]:
+            raise AssertionError(f"faults (oom_every=1): the cooldown read launched: {w}")
+        if not ex._cpu_forced():
+            raise AssertionError(f"faults (oom_every=1): the cooldown read outlasted the {OOM_COOLDOWN_S} s cooldown")
+        # one fallback for the degraded read, one for the cooldown's
+        if w["fallbacks"] != 2:
+            raise AssertionError(f"faults (oom_every=1): {w['fallbacks']} fallbacks counted for 2 reads")
+        _chaos(c, {})
+        time.sleep(max(0.0, ex._oom_cpu_until - time.monotonic()) + 0.1)
+        l0 = launched()
+        reads(probe_items[:2])
+        w["kernel_launches_after_cooldown"] = launched() - l0
+        if w["kernel_launches_after_cooldown"] <= 0 or fallbacks() - fb0 != 2:
+            raise AssertionError(f"faults (oom_every=1): the card did not return after the cooldown: {w}")
+        gate_open("oom_every=1", trips0)
+        out["oom_every=1"] = w
+        log(f"faults: oom_every=1 {w}")
+
+        # stalled launches: latency only, the gate stays open
+        s0, st0 = ex._oom.stats(), _metric_sum(metrics, metrics.DEVICE_FAULTS_INJECTED + ";fault:stall")
+        _chaos(c, {"device": "stall_every=4,stall_s=0.05"})
+        lat = reads(probe_items) + [multi()]
+        w = {"stalls": _metric_sum(metrics, metrics.DEVICE_FAULTS_INJECTED + ";fault:stall") - st0,
+             **delta(ex._oom.stats(), s0), "p50_ms": statistics.median(lat) * 1e3, "chaos": _chaos(c)}
+        _chaos(c, {})
+        if w["stalls"] < 1 or w["ooms"] or fallbacks() - fb0 != 2:
+            raise AssertionError(f"faults (stall_every=4): {w}")
+        gate_open("stall_every=4", trips0)
+        out["stall_every=4"] = w
+        log(f"faults: stall_every=4 {w}")
+        out["fallbacks"] = fallbacks() - fb0
+    finally:
+        chaos.install_device_faults("")
+        c.close()
+    return out
+
+
+_GLOBAL_RE = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+
+
+def kernel_symbols() -> dict:
+    """Each port kernel's ``__global__`` function names, read from its
+    source: every wrapper call launches exactly one of them."""
+    from pilosa_tpu_torch.ops import cuda
+
+    out = {}
+    for k in cuda.KERNELS:
+        with open(os.path.join(REPO, k.source)) as f:
+            out[k.name] = set(_GLOBAL_RE.findall(f.read()))
+    return out
+
+
+def trace_kernel_base(name: str) -> str:
+    """A device kernel's function name from the trace's demangled
+    signature: no return type, namespaces, template arguments or
+    parameters."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def capture_arm(addr, answers: dict, items: list, stats_items: list, directory: str,
+                launches=None) -> dict:
+    """``/debug/profile?capture=start`` around ``items`` and the stats
+    request, sent once with no pause, then ``capture=stop``. Where
+    ``launches`` (a function giving each port kernel's launch count) is
+    given, the card: the Chrome trace must hold, of each port kernel,
+    exactly as many device kernels as its wrapper launched between the
+    start and the stop, ``dense_scores`` and ``tree_count`` among them,
+    so a kernel the profiler lost fails the arm. Returns the kernel
+    count, the device span (first device event's start to the last
+    one's end), kernels by name, the start's settle, the stop's count of
+    the capture's marker kernels and what the CPU side of the trace
+    holds."""
+    from urllib.parse import quote
+
+    before = launches() if launches is not None else {}
+    t_quiet = time.monotonic()
+    while launches is not None and time.monotonic() - t_quiet < 5.0:
+        time.sleep(CAPTURE_QUIET_S)
+        now = launches()
+        if now == before:
+            break
+        before = now
+    c = HttpClient(*addr)
+    try:
+        t = time.monotonic()
+        start = _json_get(c, "/debug/profile?capture=start&dir=" + quote(directory))["capture"]
+        start_s = time.monotonic() - t
+        if not start.get("ok"):
+            raise AssertionError(f"capture: start: {start}")
+        for index, q in items:
+            c.query(index, q, answers[(index, q)], cold=True)
+        index = stats_items[0][0]
+        c.query(index, "".join(q for _, q in stats_items),
+                [a for _, q in stats_items for a in answers[(index, q)]], cold=True)
+        stop = _json_get(c, "/debug/profile?capture=stop")["capture"]
+    finally:
+        c.close()
+    after = launches() if launches is not None else {}
+    if "trace" not in stop:
+        raise AssertionError(f"capture: stop: {stop}")
+    with open(stop["trace"]) as f:
+        evs = json.load(f)["traceEvents"]
+    device = [e for e in evs if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    by_name: dict = {}
+    for e in kernels:
+        name = trace_kernel_base(e["name"])
+        by_name[name] = by_name.get(name, 0) + 1
+    cpu_ops = [e for e in evs if e.get("cat") == "cpu_op"]
+    by_cat: dict = {}
+    for e in evs:
+        by_cat[e.get("cat")] = by_cat.get(e.get("cat"), 0) + 1
+    timed = [e for e in evs if "ts" in e and e.get("ph") == "X"]
+    t0 = min((e["ts"] for e in timed), default=0)
+    rt = [e for e in evs if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")]
+    out = {
+        "settle_s": start.get("settle_s"),
+        "start_s": start_s,
+        "markers": stop.get("markers"),
+        "events_by_cat": by_cat,
+        "runtime_launches": len(rt),
+        "first_kernel_ms": (min(e["ts"] for e in kernels) - t0) / 1e3 if kernels else None,
+        "trace_span_ms": (max(e["ts"] + e.get("dur", 0) for e in timed) - t0) / 1e3 if timed else 0.0,
+        "all_threads": start.get("all_threads"),
+        "trace_bytes": os.path.getsize(stop["trace"]),
+        "device_kernels": len(kernels),
+        "device_span_ms": (max(e["ts"] + e["dur"] for e in device) - min(e["ts"] for e in device)) / 1e3 if device else 0.0,
+        "kernels_by_name": dict(sorted(by_name.items())),
+        "cpu_ops": len(cpu_ops),
+        "cpu_op_threads": len({e.get("tid") for e in cpu_ops}),
+    }
+    if launches is not None:
+        per_kernel = {}
+        for name, symbols in kernel_symbols().items():
+            traced = sum(n for k, n in by_name.items() if k in symbols)
+            launched = after.get(name, 0) - before.get(name, 0)
+            if traced or launched:
+                per_kernel[name] = {"traced": traced, "launched": launched}
+        out["port_kernels"] = per_kernel
+        out["port_kernels_traced"] = sum(v["traced"] for v in per_kernel.values())
+        lost = {k: v for k, v in per_kernel.items() if v["traced"] != v["launched"]}
+        missing = [k for k in ("dense_scores", "tree_count") if not per_kernel.get(k, {}).get("launched")]
+        if lost or missing or not stop.get("ok"):
+            raise AssertionError(
+                f"capture: traced != launched for {lost}, not launched {missing}, stop {stop}: {out}"
+            )
+    elif not stop.get("ok"):
+        raise AssertionError(f"capture: stop: {stop}")
+    return out
+
+
+def telemetry_arm(server, addr, metrics, answers: dict, cold_items: list) -> dict:
+    """Device telemetry on the card: ``/debug/profile``'s ``hbm`` shows
+    the server's card with its total memory as the limit; a ballast
+    tensor lifts the card's allocated bytes past the watermark, one
+    poll journals ``profiler.hbm_watermark`` and the next cold query's
+    staging relieves (evictions counted); with the ballast gone and
+    polled again, a cold query runs with no relief."""
+    import torch
+
+    from pilosa_tpu_torch.utils import events, profiler
+
+    ex = server.executor
+    c = HttpClient(*addr)
+    try:
+        hbm = _json_get(c, "/debug/profile")["hbm"]
+        if "cuda:0" not in hbm.get("devices", {}):
+            # the poller's first sample may predate the card's context
+            profiler.TELEMETRY.poll_once()
+            hbm = _json_get(c, "/debug/profile")["hbm"]
+        dev = hbm.get("devices", {}).get("cuda:0")
+        _free, total = torch.cuda.mem_get_info(0)
+        if dev is None or dev.get("bytes_limit") != total or dev.get("bytes_in_use", 0) <= 0:
+            raise AssertionError(f"telemetry: /debug/profile hbm {hbm}, mem_get_info total {total}")
+        out: dict = {"hbm": dev}
+
+        def evictions() -> float:
+            return _metric_sum(metrics, metrics.HBM_GOVERNOR_EVICTIONS)
+
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated(0)
+        need = int(profiler.TELEMETRY.watermark_pct * total) + BALLAST_MARGIN - allocated
+        free, _ = torch.cuda.mem_get_info(0)
+        spare = torch.cuda.memory_reserved(0) - allocated
+        out["ballast"] = {"bytes": need, "allocated_before": allocated, "free": free, "allocator_spare": spare}
+        marks0 = len(events.snapshot(kind=events.PROFILER_HBM_WATERMARK))
+        ballast = torch.empty(need, dtype=torch.uint8, device="cuda:0")
+        try:
+            snap = profiler.TELEMETRY.poll_once()["devices"]["cuda:0"]
+            out["above"] = snap
+            marks = len(events.snapshot(kind=events.PROFILER_HBM_WATERMARK)) - marks0
+            ev0, miss0 = evictions(), ex.stager.misses
+            lat = [c.query(i, q, answers[(i, q)], cold=True) for i, q in cold_items]
+            out["relief"] = {"watermark_events": marks, "evictions": evictions() - ev0,
+                             "restaged": ex.stager.misses - miss0, "p50_ms": statistics.median(lat) * 1e3}
+        finally:
+            del ballast
+        if out["relief"]["watermark_events"] < 1 or out["relief"]["evictions"] <= 0 or out["relief"]["restaged"] <= 0:
+            raise AssertionError(f"telemetry: no relief under the ballast: {out}")
+        # the ballast's block is released to CUDA: the processes this run
+        # starts after the arm need the card's memory
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["below"] = profiler.TELEMETRY.poll_once()["devices"]["cuda:0"]
+        ex.stager.clear()
+        ev0, miss0 = evictions(), ex.stager.misses
+        for i, q in cold_items:
+            c.query(i, q, answers[(i, q)], cold=True)
+        out["after"] = {"evictions": evictions() - ev0, "restaged": ex.stager.misses - miss0}
+        if out["after"]["evictions"] or out["after"]["restaged"] <= 0:
+            raise AssertionError(f"telemetry: relief after the ballast was dropped: {out}")
+    finally:
+        c.close()
+    return out
+
+
+def export_check(path: str, listener: OtlpListener) -> dict:
+    """The restart server's JSONL export and the listener's posts each
+    carry ``chaos.window`` and ``device.fault`` records; the listener
+    got traces, logs and metrics posts."""
+    kinds: dict = {}
+    streams: dict = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            streams[rec["stream"]] = streams.get(rec["stream"], 0) + 1
+            if rec["stream"] == "events":
+                k = rec["record"]["kind"]
+                kinds[k] = kinds.get(k, 0) + 1
+    heard = listener.summary()
+    out = {"jsonl": {"streams": streams, "kinds": kinds}, "listener": heard}
+    for want in ("chaos.window", "device.fault"):
+        if not kinds.get(want) or not heard["log_kinds"].get(want):
+            raise AssertionError(f"export: no {want} record: {out}")
+    for p in ("/v1/traces", "/v1/logs", "/v1/metrics"):
+        if not heard["posts_by_path"].get(p):
+            raise AssertionError(f"export: the listener got no {p} post: {out}")
+    return out
+
+
+def sticky_child(root: str, answers_path: str) -> int:
+    """``chip_smoke.py --sticky-child ROOT ANSWERS``: a process of its own
+    opens the dense data set on the card with a device health gate,
+    answers dense TopN there, then loses its CUDA context to a real
+    device-side assert (plain torch indexing out of range). The next
+    reads degrade, the gate trips and stays tripped across failed
+    probes, and every later read answers == on the CPU leg, counted as a
+    fallback, launching nothing. Prints one JSON line; exits 0 only if
+    every check held."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import pilosa_tpu_torch
+    from pilosa_tpu_torch.executor.devicehealth import DeviceHealth
+    from pilosa_tpu_torch.ops import cuda
+    from pilosa_tpu_torch.utils import metrics
+
+    with open(answers_path) as f:
+        spec = json.load(f)
+    topn = [(q, a) for q, a in spec["topn"]]
+    out: dict = {"ok": False}
+    t0 = time.monotonic()
+    cuda.build_kernels()
+    holder = pilosa_tpu_torch.holder_from_dir(root)
+    for frag in holder.view("dense", "f", "standard").fragments.values():
+        frag.ensure_open()
+    cpu = pilosa_tpu_torch.Executor(holder, device_policy="never")
+    counts = [f"Count(Intersect(Row(f={r}), Row(f={r + 1})))" for r in range(0, 18, 2)]
+    count_want = {q: wire(cpu.execute("dense", q)) for q in counts}
+    dev = torch.device("cuda")
+    hlth = DeviceHealth(timeout_s=120.0, probe_interval_s=STICKY_PROBE_S, probe_timeout_s=10.0, device=dev)
+    ex = pilosa_tpu_torch.Executor(holder, device=dev, device_policy="auto", health=hlth, auto_min_containers=1)
+    # a short cooldown: the degraded read falls back, and the next read
+    # after it launches again, degrades again and trips the gate (two
+    # unrecovered failures inside OomRecovery's window)
+    ex.oom_cpu_cooldown_s = STICKY_COOLDOWN_S
+    tripped: dict = {}
+    real_trip = hlth._trip
+
+    def timed_trip(reason: str) -> None:
+        tripped.setdefault("t", time.monotonic())
+        tripped.setdefault("reason", reason)
+        real_trip(reason)
+
+    hlth._trip = timed_trip
+
+    def read(q: str, want) -> float:
+        t = time.perf_counter()
+        got = wire(ex.execute("dense", q))
+        if got != want:
+            raise AssertionError(f"sticky child: {q} answered {str(got)[:200]}, CPU leg {str(want)[:200]}")
+        return time.perf_counter() - t
+
+    def fallbacks() -> float:
+        return metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0)
+
+    try:
+        out["setup_s"] = time.monotonic() - t0
+        cuda.reset_launches()
+        healthy = [read(q, a) for q, a in topn] + [read(q, count_want[q]) for q in counts[:2]]
+        launched = {k.name: k.launches for k in cuda.KERNELS}
+        if launched["dense_scores"] <= 0 or launched["tree_count"] <= 0 or fallbacks():
+            raise AssertionError(f"sticky child: healthy reads launched {launched}, fallbacks {fallbacks()}")
+        out["healthy"] = {"reads": len(healthy), "launches": {k: v for k, v in launched.items() if v}}
+        # the real fault: an index out of range trips a device-side assert,
+        # and the context is lost for the life of the process
+        table = torch.arange(8, device=dev)
+        try:
+            table[torch.tensor([1 << 20], device=dev)]
+            torch.cuda.synchronize()
+        except Exception as e:  # the sticky error, checked below
+            out["poison"] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        if "poison" not in out:
+            raise AssertionError("sticky child: an out-of-range index raised no device-side assert")
+        t_poison = time.monotonic()
+        degrading = []
+        for q in counts[2:6]:
+            fb = fallbacks()
+            degrading.append(read(q, count_want[q]))
+            if fallbacks() - fb != 1:
+                raise AssertionError(f"sticky child: a read after the assert counted {fallbacks() - fb} fallbacks")
+            if not hlth.healthy:
+                tripped["answered"] = time.monotonic()
+                break
+            time.sleep(STICKY_COOLDOWN_S + 0.1)
+        if hlth.healthy:
+            raise AssertionError(f"sticky child: {len(degrading)} reads after the assert, the gate still open")
+        out["trip"] = {"reads_to_trip": len(degrading), "reason": tripped["reason"],
+                       "assert_to_trip_s": tripped["t"] - t_poison,
+                       "trip_to_first_fallback_s": tripped["answered"] - tripped["t"],
+                       "degraded": ex._oom.stats()["degraded"]}
+        # the probe keeps failing: the gate stays tripped
+        time.sleep(STICKY_HOLD_S)
+        if hlth.healthy or hlth.restores:
+            raise AssertionError(f"sticky child: the gate reopened on a dead context ({hlth.restores} restores)")
+        cuda.reset_launches()
+        fb0 = fallbacks()
+        later = [read(q, count_want[q]) for q in counts[6:]]
+        out["after_trip"] = {
+            "reads": len(later), "fallbacks": fallbacks() - fb0,
+            "kernel_launches": sum(k.launches for k in cuda.KERNELS),
+            "p50_ms": statistics.median(later) * 1e3, "held_s": STICKY_HOLD_S,
+            "probe_interval_s": STICKY_PROBE_S, "restores": hlth.restores, "trips": hlth.trips,
+        }
+        if out["after_trip"]["fallbacks"] != len(later) or out["after_trip"]["kernel_launches"]:
+            raise AssertionError(f"sticky child: after the trip {out['after_trip']}")
+        out["ok"] = True
+    except BaseException as e:  # reported in the line; the exit code says it failed
+        out["error"] = f"{type(e).__name__}: {e}"[:2000]
+    out["seconds"] = time.monotonic() - t0
+    print(json.dumps({"sticky_child": out}), flush=True)
+    sys.stderr.flush()
+    # a dead context's teardown and the guard's abandoned workers are not
+    # waited for
+    os._exit(0 if out["ok"] else 1)
+
+
+class StickyChild:
+    """``sticky_child`` in a process of its own over ``root``, started
+    now; ``result()`` waits for it and reads its line, and fails unless
+    it exited 0 with ``ok``. It reads the data only, so it runs beside
+    the server."""
+
+    def __init__(self, root: str, topn: list, tmp: str) -> None:
+        path = os.path.join(tmp, "sticky_answers.json")
+        with open(path, "w") as f:
+            json.dump({"topn": topn}, f)
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sticky-child", root, path],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+
+    def result(self) -> dict:
+        try:
+            stdout, stderr = self.proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise AssertionError("sticky child: no answer within 300 s")
+        lines = [ln for ln in stdout.splitlines() if ln.startswith('{"sticky_child"')]
+        if not lines:
+            raise AssertionError(f"sticky child: exit {self.proc.returncode}, no result line: {stderr[-2000:]!r}")
+        out = json.loads(lines[-1])["sticky_child"]
+        if self.proc.returncode != 0 or not out.get("ok"):
+            raise AssertionError(f"sticky child: exit {self.proc.returncode}: {out}; stderr {stderr[-1500:]!r}")
+        out["wall_s"] = time.monotonic() - self.t0
+        return out
+
+
 def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, card: str) -> dict:
     """The port's server over the run's data directory: the in-process
     phases' queries over HTTP, sequentially and from CLIENTS clients,
-    writes, the OOM check, a restart, and the CLI."""
+    writes, the OOM check, a restart with fault injection, profile
+    capture and telemetry export on (the faults arm), a child process
+    that loses its CUDA context, and the CLI."""
     import signal
     import socket
 
     import torch
 
     from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import cuda
     from pilosa_tpu_torch.server import Config, Server
-    from pilosa_tpu_torch.utils import metrics
+    from pilosa_tpu_torch.utils import events, metrics
 
     cfg = Config(data_dir=root, bind="127.0.0.1:0", device="cuda")
     out: dict = {"card": card, "config": {"device": cfg.device, "device_policy": cfg.device_policy,
-                 "stager_budget_bytes": cfg.stager_budget_bytes, "tier1_max_bytes": cfg.tier1_max_bytes}}
+                 "stager_budget_bytes": cfg.stager_budget_bytes, "tier1_max_bytes": cfg.tier1_max_bytes,
+                 "journal_max_bytes": cfg.journal_max_bytes}}
+    # the cooldown's one query first: its CPU leg is fast
+    probe_items = families["tall_chain"][:6] + families["dense_topn"][:4] + families["ssb_groupby"] + families["ssb_range_count"][:4]
+    stats_items = families["ssb_" + STATS]
     t0 = time.monotonic()
     server = Server(cfg)
     server.open()
@@ -3098,8 +3694,6 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
         recalculate_caches(addr)
         _require_clean(server, metrics, base, "writes")
         log(f"server: writes {out['writes']}")
-        # the cooldown's one query first: its CPU leg is fast
-        probe_items = families["tall_chain"][:6] + families["dense_topn"][:4] + families["ssb_groupby"] + families["ssb_range_count"][:4]
         out["oom"] = oom_check(server, addr, metrics, cpu_answers, probe_items)
         after_oom = _device_counters(server, metrics)
         log(f"server: OOM check {out['oom']}")
@@ -3114,30 +3708,101 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
         out["oom_recovery"] = server.executor._oom.stats()
         # nothing but the OOM check's own degrade: the reads after it ran clean
         _require_clean(server, metrics, after_oom, "after the OOM check")
+        # the default Config keeps the journal on disk and no fault injector
+        c = HttpClient(*addr)
+        try:
+            _chaos(c, {"device": "oom_every=1"}, status=403)
+            last = _json_get(c, "/debug/events?limit=1")["events"]
+        finally:
+            c.close()
+        if not events.JOURNAL.durable or not last:
+            raise AssertionError(f"server: the default journal is not durable ({events.JOURNAL.durable}) or empty")
+        out["journal"] = {"first_server_last_seq": last[-1]["seq"]}
     finally:
         server.close()
-    # restart: a new server over the same directory answers the same
+    # restart: a new server over the same directory answers the same; it
+    # opens the fault injector and exports its telemetry to a JSONL file
+    # and to an OTLP listener on this host
+    fdir = os.path.join(root, ".faults")  # the holder skips dot names
+    os.makedirs(fdir, exist_ok=True)
+    # the exporter posts with urllib, which honours proxy settings: the
+    # listener on this host is never reached through one
+    os.environ["no_proxy"] = ",".join(x for x in (os.environ.get("no_proxy", ""), "127.0.0.1", "localhost") if x)
+    listener = OtlpListener()
+    export_path = os.path.join(fdir, "telemetry.jsonl")
+    restart_cfg = Config(data_dir=root, bind="127.0.0.1:0", device="cuda", chaos_enabled=True,
+                         export_path=export_path, export_url=listener.url)
     t0 = time.monotonic()
-    server = Server(cfg)
+    server = Server(restart_cfg)
     server.open()
     try:
-        addr = server.address()
-        base = _device_counters(server, metrics)
-        recalculate_caches(addr)
-        restart_q = 0
-        for items in families.values():
-            http_sequential(addr, items, cpu_answers, cold=True)
-            restart_q += len(items)
-        out["restart"] = {"queries": restart_q, "seconds": time.monotonic() - t0}
-        log(f"server: restart {out['restart']}")
-        _require_clean(server, metrics, base, "restart")
+        try:
+            addr = server.address()
+            base = _device_counters(server, metrics)
+            recalculate_caches(addr)
+            restart_q = 0
+            for items in families.values():
+                http_sequential(addr, items, cpu_answers, cold=True)
+                restart_q += len(items)
+            out["restart"] = {"queries": restart_q, "seconds": time.monotonic() - t0}
+            log(f"server: restart {out['restart']}")
+            _require_clean(server, metrics, base, "restart")
+            # the faults arm: a child process that meets a real sticky
+            # CUDA error (beside the rest: it reads the data only), fault
+            # windows, a profile capture, device memory telemetry (after
+            # the child: its ballast takes the card), the journal and the
+            # exports
+            t_faults = time.monotonic()
+            child = StickyChild(root, [(q, cpu_answers[(i, q)]) for i, q in families["dense_topn"][:1]], fdir)
+            try:
+                faults: dict = {"windows": fault_windows(server, addr, cpu_answers, probe_items, stats_items,
+                                                         lambda: sum(k.launches for k in cuda.KERNELS))}
+                faults["capture"] = capture_arm(addr, cpu_answers,
+                                                [families["dense_topn"][0], families["tall_chain"][0]],
+                                                stats_items, os.path.join(fdir, "profile"),
+                                                launches=lambda: {k.name: k.launches for k in cuda.KERNELS})
+                log(f"faults: capture {faults['capture']}")
+            finally:
+                faults_child = child.result()
+            faults["sticky_child"] = faults_child
+            log(f"faults: sticky child {faults_child}")
+            faults["telemetry"] = telemetry_arm(server, addr, metrics, cpu_answers, families["tall_topn"][:2])
+            log(f"faults: telemetry {faults['telemetry']}")
+            c = HttpClient(*addr)
+            try:
+                # one traced query: its span goes to the exporter
+                index, q = families["tall_chain"][0]
+                st, _, body = c.request("POST", f"/index/{index}/query?profile=true&cache=false", q.encode())
+                if st != 200 or json.loads(body)["results"] != cpu_answers[(index, q)]:
+                    raise AssertionError(f"server: the traced query: HTTP {st}: {body[:300]!r}")
+                first_seq = out["journal"]["first_server_last_seq"]
+                since = _json_get(c, f"/debug/events?since={first_seq}")["events"]
+            finally:
+                c.close()
+            kinds = {}
+            for e in since:
+                kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            windows = [e["seq"] for e in since if e["kind"] == "chaos.window"]
+            out["journal"].update(restart_first_seq=since[0]["seq"] if since else None, restart_kinds=kinds,
+                                  chaos_window_seqs=windows)
+            if not since or since[0]["seq"] <= first_seq or not windows or not kinds.get("device.fault"):
+                raise AssertionError(f"server: the restart's journal does not continue the first's: {out['journal']}")
+        finally:
+            server.close()
+        faults["export"] = export_check(export_path, listener)
+        log(f"faults: export {faults['export']}")
     finally:
-        server.close()
-    # every fallback of the phase is the OOM check's cooldown read
+        listener.close()
+    faults["seconds"] = time.monotonic() - t_faults
+    out["faults"] = faults
+    # every fallback of the phase is the OOM check's cooldown read or a
+    # read the fault windows sent to the CPU leg
     out["device_down_fallbacks"] = metrics.snapshot().get(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK, 0) - fb0
-    if out["device_down_fallbacks"] != out["oom"]["cooldown_fallbacks"]:
+    expected = out["oom"]["cooldown_fallbacks"] + faults["windows"]["fallbacks"]
+    if out["device_down_fallbacks"] != expected:
         raise AssertionError(f"server: {out['device_down_fallbacks']} device-down fallbacks, "
-                             f"{out['oom']['cooldown_fallbacks']} of them in the OOM check's cooldown")
+                             f"{out['oom']['cooldown_fallbacks']} of them in the OOM check's cooldown and "
+                             f"{faults['windows']['fallbacks']} in the fault windows")
     # the CLI: python -m pilosa_tpu_torch server, /status, one TopN, SIGINT
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3169,8 +3834,14 @@ def run_server(root: str, cpu_answers: dict, families: dict, in_process: dict, c
             raise AssertionError(f"server (CLI): /status {st} {status}")
         index, q = families["dense_topn"][0]
         c.query(index, q, cpu_answers[(index, q)])
+        # a new process reads the same durable journal
+        seen = [e["seq"] for e in _json_get(c, "/debug/events?kind=chaos.window")["events"]]
+        faults_seen = len(_json_get(c, "/debug/events?kind=device.fault")["events"])
         c.close()
-        out["cli"] = {"status": status, "ready_s": time.monotonic() - t0}
+        out["cli"] = {"status": status, "ready_s": time.monotonic() - t0,
+                      "journal": {"chaos_window_seqs": seen, "device_fault_records": faults_seen}}
+        if not set(out["journal"]["chaos_window_seqs"]) <= set(seen) or not faults_seen:
+            raise AssertionError(f"server (CLI): the durable journal lacks the restart's records: {out['cli']['journal']}")
         log(f"server: CLI ready and answered in {out['cli']['ready_s']:.1f} s")
     finally:
         proc.send_signal(signal.SIGINT)
@@ -3750,6 +4421,9 @@ def main() -> int:
             "device_down_fallbacks": srv["device_down_fallbacks"],
             "fusion": srv["fusion"],
             "plan_cache": srv["plan_cache"],
+            "journal": srv["journal"],
+            "faults": srv["faults"],
+            "cli_journal": srv["cli"]["journal"],
             "launches": launches["server"],
         }}), flush=True)
         keys = phases["keys"]
@@ -3796,4 +4470,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--sticky-child":
+        sticky_child(sys.argv[2], sys.argv[3])
     sys.exit(main())

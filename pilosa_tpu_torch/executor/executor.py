@@ -87,7 +87,7 @@ from pilosa_tpu_torch.pql import BETWEEN, NEQ, Call, Condition, parse
 from pilosa_tpu_torch.plan.canon import CACHED_CALL
 from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.roaring import Bitmap
-from pilosa_tpu_torch.utils import heat, metrics, trace
+from pilosa_tpu_torch.utils import chaos, heat, metrics, trace
 from pilosa_tpu_torch.utils.errors import NotFoundError
 
 _W32 = SHARD_WIDTH // 32
@@ -274,9 +274,15 @@ def _timed_kernel(kind: str, fn, recovery=None):
     With ``recovery`` (an executor's OomRecovery) the launch and its
     fence are the OOM-recovery boundary: an allocation failure evicts
     through the HBM governor and retries once before the call degrades
-    to the CPU leg (``DeviceOom``)."""
+    to the CPU leg (``DeviceOom``). The chaos hook (utils/chaos.py) fires
+    inside that attempt, so a retry re-consults the injection counter;
+    a wrapper without recovery (the analytic kernels, which the
+    reference launches bare) has no hook, as there."""
 
     def attempt(*args, **kw):
+        cf = chaos.FAULTS
+        if cf is not None and recovery is not None:
+            cf.on_kernel(kind)
         out = fn(*args, **kw)
         _fence(out)
         return out

@@ -64,7 +64,7 @@ from pilosa_tpu_torch.executor.executor import (
 )
 from pilosa_tpu_torch.executor.hbm import DeviceOom, classify_device_error
 from pilosa_tpu_torch.ops.cuda import LaunchError
-from pilosa_tpu_torch.utils import metrics, trace
+from pilosa_tpu_torch.utils import chaos, metrics, trace
 from pilosa_tpu_torch.utils.errors import NotFoundError
 
 # call names the fuser can lower; everything else is residual
@@ -180,7 +180,10 @@ class QueryFuser:
         the per-call path. A kernel's refused launch raises; so does a
         device fault on an executor without a health gate. With one, the
         gate and OOM recovery have acted, and the per-call path takes the
-        reads (on the CPU leg while the gate or the cooldown forces it)."""
+        reads (on the CPU leg while the gate or the cooldown forces it).
+        An injected poisoned lowering (utils/chaos.py) counts an
+        ``"error"`` bypass and the per-call path answers, as the
+        reference treats every error here."""
         ex = self.ex
         if opt.remote or opt.serial:
             self._bypass("opt")
@@ -208,6 +211,11 @@ class QueryFuser:
                 return None
         try:
             return self._run(index, calls, candidates, shards, opt)
+        except chaos.InjectedPoisonError:
+            # an injected poisoned lowering: the reference's error
+            # bypass, and the per-call path answers every call
+            self._bypass("error")
+            return {}
         except Exception as e:
             fault = isinstance(e, (DeviceDown, DeviceOom)) or classify_device_error(e) is not None
             if isinstance(e, LaunchError) or not fault or ex.health is None:
@@ -334,9 +342,17 @@ class QueryFuser:
             for a in u.inputs
         )
         program = self._program(descs, shapes)
+
+        def attempt():
+            # the chaos hook inside the retried attempt, as _timed_kernel's
+            cf = chaos.FAULTS
+            if cf is not None:
+                cf.on_kernel("fused_query")
+            return self._fetch(self._enqueue(program, launch))
+
         t0 = time.monotonic()
         with trace.child(metrics.STAGE_DEVICE_BATCH, call="Fused"):
-            host = ex._oom.run(lambda: self._fetch(self._enqueue(program, launch)), kind="fused_query")
+            host = ex._oom.run(attempt, kind="fused_query")
         dt = time.monotonic() - t0
         metrics.observe(metrics.SPMD_EXECUTE_SECONDS, dt, kind="fused_query")
         trace.attrib_add(trace.WF_DEVICE_COMPUTE, dt)
@@ -365,8 +381,15 @@ class QueryFuser:
         key = (descs, shapes)
         with self._mu:
             prog = self._programs.get(key)
-            if prog is None:
-                prog = self._programs[key] = _Program(descs)
+        if prog is None:
+            cf = chaos.FAULTS
+            if cf is not None:
+                # an injected poisoned lowering raises before the program
+                # is cached: try_execute's error bypass sends the query
+                # to the per-call path
+                cf.on_lowering()
+            with self._mu:
+                prog = self._programs.setdefault(key, _Program(descs))
         return prog
 
     def _enqueue(self, program: _Program, units: list) -> torch.Tensor:

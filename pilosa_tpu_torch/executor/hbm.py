@@ -4,8 +4,12 @@ The port of ``pilosa_tpu/executor/hbm.py``, the ledger and the recovery
 policy as they are; ``classify_device_error`` also knows CUDA's errors
 (``torch.cuda.OutOfMemoryError`` is an allocation failure, a CUDA
 runtime error a wedge, and a launch the port's own kernel refused,
-``ops.cuda.LaunchError``, no device error at all), and ``_telemetry_relief`` stays inert until the
-port has device telemetry (ROADMAP A7).
+``ops.cuda.LaunchError``, no device error at all). ``_telemetry_relief``
+reads the card's allocated bytes from ``profiler.TELEMETRY`` and, where
+the reference asks for ledger headroom (inert while the ledger is under
+its budget by more than the device's excess, which a budget of a tenth
+of the card always is), frees the excess itself, once per telemetry
+sample (ROADMAP C8).
 
 In the reference, staging made HBM load-bearing: staged fragment blocks, device-resident
 plan-cache entries, batcher pad scratch, and fused whole-query launches
@@ -41,8 +45,10 @@ Lock discipline: the governor's ledger lock is never held across a
 tenant eviction callback (those take the stager/plan-cache locks), and
 tenants never call back into the governor while holding their own locks
 in a way that re-enters ``relieve`` on themselves — ``reserve`` excludes
-the requesting tenant from the relief sweep; the tenant's own LRU loop
-handles its share.
+the requesting tenant from the budget relief sweep; the tenant's own LRU
+loop handles its share. The telemetry sweep takes every tier, the
+reserving tenant's too (no tenant reserves under its own lock: the
+stager and the device plan cache reserve outside theirs).
 """
 
 from __future__ import annotations
@@ -159,6 +165,9 @@ class HbmGovernor:
     TELEMETRY_WATERMARK = 0.9
 
     def __init__(self, budget_bytes: int = 0) -> None:
+        # the telemetry sample (TELEMETRY.last) the watermark relief last
+        # acted on: one sweep per sample above the watermark
+        self._relieved_sample = None
         # 0 = derive from the sum of registered shares (the compatible
         # default: each tenant capped at its old knob, total capped at
         # their sum); > 0 pins the global budget below that sum — the
@@ -280,7 +289,7 @@ class HbmGovernor:
             self.relieve_index(index, quota_excess)
         if self.over_budget() > 0:
             self.relieve(exclude=name)
-        self._telemetry_relief(exclude=name)
+        self._telemetry_relief()
         return self.over_budget() <= 0
 
     def release(self, name: str, nbytes: int, index: str = "") -> None:
@@ -457,12 +466,14 @@ class HbmGovernor:
                     metrics.count(metrics.HBM_GOVERNOR_EVICTIONS, tier=t.name)
         return freed_total
 
-    def relieve_for_oom(self) -> int:
+    def relieve_for_oom(self, need: Optional[int] = None) -> int:
         """The aggressive post-OOM sweep: a real RESOURCE_EXHAUSTED
         means the chip is out of memory regardless of what the ledger
         believed (XLA scratch and fusion intermediates are invisible to
         it), so skip the deficit arithmetic and ask every tier to free
-        everything it can before the single retry."""
+        everything it can before the single retry. With ``need`` (the
+        telemetry relief), stop once that many bytes are freed.
+        Callbacks run without the governor lock. Returns bytes freed."""
         with self._mu:
             tiers = sorted(
                 (
@@ -475,8 +486,10 @@ class HbmGovernor:
             budget = self._budget_locked()
         freed_total = 0
         for t in tiers:
+            if need is not None and freed_total >= need:
+                break
             try:
-                freed = int(t.evict_fn(budget) or 0)
+                freed = int(t.evict_fn(budget if need is None else need - freed_total) or 0)
             except Exception:
                 freed = 0
             if freed > 0:
@@ -484,14 +497,14 @@ class HbmGovernor:
                 metrics.count(metrics.HBM_GOVERNOR_EVICTIONS, tier=t.name)
         return freed_total
 
-    def _telemetry_relief(self, exclude: Optional[str] = None) -> None:
-        """Pressure relief driven by live device-memory gauges: when a
-        telemetry sample shows the device above the watermark, evict
-        through the tiers even though the ledger itself is under budget
-        (the ledger only sees OUR tenants). Inert in the port until
-        device telemetry reads ``torch.cuda.memory_stats`` (ROADMAP A7):
-        ``profiler.TELEMETRY`` polls nothing yet, so ``last`` holds no
-        devices and this returns at once."""
+    def _telemetry_relief(self) -> None:
+        """Pressure relief driven by live device-memory gauges: when the
+        newest telemetry sample shows the card's allocated bytes above
+        the watermark, free that excess through the tiers even though
+        the ledger itself is under budget (the ledger only sees OUR
+        tenants; the allocator sees every tensor). One sweep per sample:
+        the gauges move only when the poller samples again, and a sweep
+        per reserve would empty the caches while one sample stands."""
         try:
             from pilosa_tpu_torch.utils import profiler
 
@@ -503,10 +516,11 @@ class HbmGovernor:
             in_use = dev.get("bytes_in_use") or 0
             limit = dev.get("bytes_limit") or 0
             if limit and in_use > limit * self.TELEMETRY_WATERMARK:
-                self.relieve(
-                    need=int(in_use - limit * self.TELEMETRY_WATERMARK),
-                    exclude=exclude,
-                )
+                with self._mu:
+                    if self._relieved_sample is last:
+                        return
+                    self._relieved_sample = last
+                self.relieve_for_oom(need=int(in_use - limit * self.TELEMETRY_WATERMARK))
                 return
 
     def stats(self) -> dict:

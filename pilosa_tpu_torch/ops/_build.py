@@ -5,7 +5,8 @@ point. ``build_all`` starts one ``nvcc`` per source, all at once, each
 producing a shared library under ``pilosa_tpu_torch/_build/`` (listed
 in ``.gitignore``); ``ctypes`` loads them. A library's file name carries
 a hash of its sources and flags, so an edited source rebuilds and an
-unchanged one is reused.
+unchanged one is reused. Each compile is noted in the profiler's compile
+table (``profiler.COMPILES``, kind ``"nvcc"``); a reused library is not.
 
 No source includes a PyTorch header: nvcc builds a plain C interface in
 seconds but a file that includes ``torch/extension.h`` in minutes, and
@@ -145,6 +146,14 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
+def _note_build(so: str, seconds: float) -> None:
+    """One compile in the profiler's compile table: kind ``"nvcc"``,
+    signature the source's name and hash (the library's file name)."""
+    from pilosa_tpu_torch.utils import profiler
+
+    profiler.COMPILES.note("nvcc", os.path.basename(so)[: -len(".so")], seconds)
+
+
 def build_all() -> dict:
     """Compile every source that has no current build, in parallel, and
     load all libraries. Idempotent; raises with nvcc's output if a
@@ -177,6 +186,7 @@ def build_all() -> dict:
                 failed.append(f"{name}.cu:\n{out}{err}")
                 continue
             os.replace(tmp, so)
+            _note_build(so, BUILD_LOG[name]["seconds"])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in SOURCES:

@@ -302,7 +302,7 @@ class Config:
     journal_dir: str = ""
     # on-disk retention budget in bytes across journal segments;
     # 0 disables the durable backing (in-memory ring only)
-    journal_max_bytes: int = 0  # not ported yet: see _UNPORTED
+    journal_max_bytes: int = 8 << 20
     # telemetry export pipeline (utils/telemetry_export.py): JSONL file
     # sink path and/or OTLP-compatible HTTP/JSON endpoint URL; both
     # empty = exporter not started (zero hot-path cost)
@@ -517,7 +517,6 @@ def _mesh_on(cfg: Config) -> bool:
 
 
 _A6 = "A6 (dispatch and autotune)"
-_A7 = "A7 (device telemetry)"
 _A8 = "A8 (the multi-device plane)"
 
 # the setting, as TOML spells it -> (is it turned on?, the ROADMAP
@@ -535,11 +534,6 @@ _UNPORTED = {
     "[cluster] hosts": (lambda c: bool(c.cluster.hosts), _A8),
     "[cluster] coordinator-host": (lambda c: bool(c.cluster.coordinator_host), _A8),
     "scrub-interval > 0": (lambda c: c.scrub_interval > 0, _A8),
-    "journal-max-bytes > 0": (lambda c: c.journal_max_bytes > 0, _A7),
-    "export-path": (lambda c: bool(c.export_path), _A7),
-    "export-url": (lambda c: bool(c.export_url), _A7),
-    "device-faults": (lambda c: bool(c.device_faults), _A7),
-    "chaos-enabled = true": (lambda c: c.chaos_enabled, _A7),
     # forwards every mint to another node: the cluster's translate plane
     "translate-primary-url": (lambda c: bool(c.translate_primary_url), _A8),
 }

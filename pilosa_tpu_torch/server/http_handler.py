@@ -5,10 +5,12 @@ The port of ``pilosa_tpu/server/http_handler.py``: every route the
 single-node API serves answers with the same status codes and bodies,
 JSON and protobuf (``utils/publicproto.py``). A route of a subsystem
 this port lacks answers 501 with its ROADMAP item in the body, never
-404: the cluster and gang messages, fleet, scrub and chaos (A7, A8), the
-dispatch engine (A6) and the device profile capture (A7). Keyed ingest,
-``/debug/translate``, ``/internal/translate/{data,stores,keys}`` and the
-attribute diffs answer as the reference's single node does.
+404: the cluster and gang messages, fleet and scrub (A8) and the
+dispatch engine (A6). Keyed ingest, ``/debug/translate``,
+``/internal/translate/{data,stores,keys}``, the attribute diffs, the
+fault-injection windows (``/debug/chaos``) and the on-demand profile
+capture (``/debug/profile?capture=``) answer as the reference's single
+node does.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from pilosa_tpu_torch.utils import events, heat, metrics, profiler, publicproto,
 from pilosa_tpu_torch.utils.stats import NOP_STATS
 
 A6 = "A6 (dispatch and autotune)"
-A7 = "A7 (device telemetry)"
 
 
 class GangUnavailable(Exception):
@@ -217,6 +218,11 @@ class Handler:
             Route("GET", r"/metrics", self.get_metrics),
             Route("GET", r"/debug/pipeline", self.get_debug_pipeline),
             Route("GET", r"/debug/fusion", self.get_debug_fusion),
+            # device robustness: the governor, OOM recovery, gate trips and
+            # the installed fault schedules; POST opens or clears a fault
+            # window (chaos-enabled only)
+            Route("GET", r"/debug/chaos", self.get_debug_chaos),
+            Route("POST", r"/debug/chaos", self.post_debug_chaos),
             Route("GET", r"/debug/plancache", self.get_debug_plancache),
             Route("GET", r"/debug/ingest", self.get_debug_ingest),
             # holder-level checksummed backup/restore
@@ -861,9 +867,11 @@ class Handler:
 
     def get_debug_profile(self, req) -> dict:
         """Continuous-profiler surface: stack-sampler top frames,
-        per-signature compile table and memory telemetry. ``?top=<n>``
-        sizes the tables. The on-demand device capture
-        (``?capture=start|stop``) answers 501 until ROADMAP A7."""
+        per-signature compile table (the kernel builds), device memory
+        telemetry, and on-demand ``torch.profiler`` capture control
+        (``?capture=start&dir=<path>`` / ``?capture=stop``, which writes
+        a Chrome trace into the directory). ``?top=<n>`` sizes the
+        tables."""
         q = req.query
         try:
             top = int(q.get("top", ["25"])[0])
@@ -876,8 +884,12 @@ class Handler:
             "hbm": profiler.TELEMETRY.snapshot(),
             "capture": profiler.capture_status(),
         }
-        if capture in ("start", "stop"):
-            raise unported("the device profile capture", profiler.CAPTURE_ITEM)
+        if capture == "start":
+            out["capture"] = profiler.start_capture(
+                q.get("dir", ["/tmp/pilosa-profile"])[0]
+            )
+        elif capture == "stop":
+            out["capture"] = profiler.stop_capture()
         elif capture is not None:
             raise APIError("capture must be start or stop", status=400)
         return out
@@ -929,6 +941,64 @@ class Handler:
         }
         return out
 
+    def get_debug_chaos(self, req) -> dict:
+        """Device-robustness snapshot: the HBM governor ledger, the
+        OOM-recovery counters, health-gate trips, and which injected
+        fault schedules are currently installed."""
+        from pilosa_tpu_torch.core import fragment as fragment_mod
+        from pilosa_tpu_torch.utils import chaos as chaos_mod
+
+        ex = self.api.executor
+        server = getattr(self.api, "server", None)
+        gov = getattr(ex, "governor", None)
+        oom = getattr(ex, "_oom", None)
+        health = getattr(ex, "health", None)
+        return {
+            "enabled": bool(
+                server is not None
+                and getattr(server.config, "chaos_enabled", False)
+            ),
+            "governor": gov.stats() if gov is not None else None,
+            "oom": oom.stats() if oom is not None else None,
+            "health_trips": health.trips if health is not None else 0,
+            "faults": {
+                "storage": bool(fragment_mod.FAULTS),
+                "device": bool(chaos_mod.FAULTS),
+            },
+        }
+
+    def post_debug_chaos(self, req) -> dict:
+        """Install or clear fault windows on a LIVE server. Body:
+        ``{"storage": "<spec>", "device": "<spec>"}``; an empty/absent
+        spec clears that family (distributed faults ride the cluster,
+        ROADMAP A8). Gated by ``chaos-enabled``: a production server
+        must not expose a fault injector. Each transition journals
+        ``chaos.window``."""
+        server = getattr(self.api, "server", None)
+        if server is None or not getattr(server.config, "chaos_enabled", False):
+            raise APIError(
+                "chaos endpoint disabled (chaos-enabled = false)", status=403
+            )
+        from pilosa_tpu_torch.core import fragment as fragment_mod
+        from pilosa_tpu_torch.utils import chaos as chaos_mod
+
+        body = json.loads(req.body or b"{}")
+        storage = str(body.get("storage") or "")
+        device = str(body.get("device") or "")
+        try:
+            fragment_mod.install_storage_faults(storage)
+            chaos_mod.install_device_faults(device)
+        except ValueError as e:
+            raise APIError(str(e), status=400)
+        installed = bool(storage or device)
+        events.record(
+            events.CHAOS_WINDOW,
+            action="install" if installed else "clear",
+            storage=storage,
+            device=device,
+        )
+        return {"installed": installed, "storage": storage, "device": device}
+
     def get_debug_heat(self, req) -> dict:
         """Workload heat ledger (utils/heat.py): per-(index, field,
         shard) read/write/staging counters, decayed EWMA scores, and
@@ -956,8 +1026,8 @@ class Handler:
         entry metadata, sorted names, blake2b-128 manifest — the
         backup archive's idiom) capturing config, status, metrics,
         recent traces, the events tail, the heat snapshot, and
-        the fuser's, the HBM governor's and OOM recovery's stats (the
-        port has no dispatch engine yet). ``debug-bundle`` streams it to
+        the fuser's, the HBM governor's and OOM recovery's stats and the
+        chaos snapshot (the port has no dispatch engine yet). ``debug-bundle`` streams it to
         a file."""
         import hashlib
         import io
@@ -982,6 +1052,7 @@ class Handler:
         put_json("events.json", {"events": events.snapshot(limit=500)})
         put_json("heat.json", heat.LEDGER.snapshot())
         put_json("fusion.json", self.get_debug_fusion(req))
+        put_json("chaos.json", self.get_debug_chaos(req))
         ex = self.api.executor
         put_json(
             "governor.json",
@@ -1266,7 +1337,5 @@ _UNPORTED_ROUTES = (
     ("GET", r"/debug/multihost", "multihost gangs", A8),
     ("GET", r"/debug/scrub", "the integrity scrubber", A8),
     ("POST", r"/debug/scrub", "the integrity scrubber", A8),
-    ("GET", r"/debug/chaos", "fault injection", A7),
-    ("POST", r"/debug/chaos", "fault injection", A7),
     ("GET", r"/debug/dispatch", "the dispatch engine", A6),
 )

@@ -15,13 +15,18 @@ attribute stores and the executor a key translator over
 ``<data-dir>/translate`` (``translate-partitions``,
 ``translate-cache-bytes``), one node's: it owns and mints every key.
 
+The durable event journal is on by default, as in the reference
+(``journal-max-bytes`` 8 MiB under ``<data-dir>/.events``, a directory
+the holder skips); ``export-path`` / ``export-url`` start the telemetry
+exporter; ``device-faults`` installs the device fault schedule and
+``chaos-enabled`` opens ``POST /debug/chaos``. The device telemetry
+polls the card the server runs on.
+
 Not constructed here, with the ROADMAP item that ports each: the
 cluster, multihost gangs, the fleet collector, the integrity scrubber,
 and the translate plane's forwarding and replication (A8), the
-dispatch engine and autotune (A6), the durable event journal and
-telemetry export (A7). ``Config.check_ported``
-refuses a configuration that turns one on, and their HTTP routes
-answer 501.
+dispatch engine and autotune (A6). ``Config.check_ported`` refuses a
+configuration that turns one on, and their HTTP routes answer 501.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from pilosa_tpu_torch.server.ingest import IngestQueue
 from pilosa_tpu_torch.server.pipeline import QueryPipeline, make_query_combiner
 from pilosa_tpu_torch.server.tenancy import TenancyManager
 from pilosa_tpu_torch.translate import Translator
-from pilosa_tpu_torch.utils import heat, metrics, profiler, slo, trace
+from pilosa_tpu_torch.utils import chaos, events, heat, metrics, profiler, slo, telemetry_export, trace
 from pilosa_tpu_torch.utils.attrstore import new_attr_store
 from pilosa_tpu_torch.utils.diagnostics import DiagnosticsCollector
 from pilosa_tpu_torch.utils.gcnotify import GCNotifier
@@ -113,6 +118,27 @@ class Server:
         heat.LEDGER.configure(
             self.config.heat_enabled, self.config.heat_decay_halflife
         )
+        # durable event journal backing: the ring becomes a
+        # write-through cache over segments in journal-dir (default
+        # <data-dir>/.events); 0 bytes keeps the ring-only journal
+        if self.config.journal_max_bytes > 0:
+            events.JOURNAL.open_backing(
+                self.config.journal_dir or os.path.join(data_dir, ".events"),
+                self.config.journal_max_bytes,
+            )
+        # telemetry export pipeline: with no sink configured this is
+        # None and the journal/tracer taps stay unset — the disabled
+        # hot path pays one is-not-None branch, no allocations
+        self.exporter = telemetry_export.build_exporter(
+            path=self.config.export_path,
+            url=self.config.export_url,
+            queue_max=self.config.export_queue,
+            interval=self.config.export_interval,
+            metrics_fn=metrics.snapshot,
+        )
+        if self.exporter is not None:
+            events.JOURNAL.on_record = self.exporter.tap_event
+            trace.TRACER.on_export = self.exporter.tap_span
         # only hook gc.callbacks when someone consumes the counter
         self.gc_notifier = GCNotifier() if self.stats is not NOP_STATS else None
         self.holder = Holder(data_dir, new_attr_store=new_attr_store)
@@ -141,6 +167,9 @@ class Server:
         fragment_mod.DELTA_LOG_MAX = self.config.stager_delta_log_max
         fragment_mod.DELTA_MAX_BATCH = self.config.ingest_delta_max_batch
         fragment_mod.install_storage_faults(self.config.storage_faults)
+        # device fault injection (utils/chaos.py) is process-wide for
+        # the same reason; the chaos endpoint re-installs at runtime
+        chaos.install_device_faults(self.config.device_faults)
         # serving deployments get the device health gate: a wedged card
         # degrades reads to the CPU roaring path instead of hanging them,
         # and a background probe on this server's device restores the
@@ -335,6 +364,9 @@ class Server:
         if self.tenancy.enabled:
             slo.MONITOR.merge(self.tenancy.slo_objectives())
         profiler.TELEMETRY.watermark_pct = self.config.hbm_watermark_pct
+        # the telemetry polls this server's card (and a capture traces
+        # its kernels); it never picks a device itself
+        profiler.TELEMETRY.device = self.device
         stager = self.stager
 
         def _stager_probe() -> tuple[int, int]:
@@ -342,6 +374,8 @@ class Server:
 
         profiler.TELEMETRY.stager_probe = _stager_probe
         profiler.TELEMETRY.start()
+        if self.exporter is not None:
+            self.exporter.start()
         if self.config.profiler_hz > 0:
             profiler.SAMPLER.hz = self.config.profiler_hz
             profiler.SAMPLER.start()
@@ -473,6 +507,19 @@ class Server:
         # observer planes stop after the workers they observe
         profiler.SAMPLER.stop()
         profiler.TELEMETRY.stop()
+        # a profile capture left running stops (its trace is written)
+        if profiler.capture_status()["running"]:
+            profiler.stop_capture()
+        if self.exporter is not None:
+            # detach the taps before the final flush so late producers
+            # can't race a closed queue, then flush-on-close (compare
+            # the bound method's receiver: ``x.m is x.m`` is False)
+            if getattr(events.JOURNAL.on_record, "__self__", None) is self.exporter:
+                events.JOURNAL.on_record = None
+            if getattr(trace.TRACER.on_export, "__self__", None) is self.exporter:
+                trace.TRACER.on_export = None
+            self.exporter.close()
+        events.JOURNAL.close_backing()
         self.stats.close()
         if self.httpd is not None:
             self.httpd.shutdown()

@@ -14,22 +14,29 @@ Four components, all process-global singletons mirroring
   of recent waterfalls for ``/debug/latency``, and the live
   ``executor.rtt_fraction`` EMA gauge.
 * ``COMPILES`` — counts compiles and compile-seconds per signature
-  (bounded), detecting recompile storms.
+  (bounded), detecting recompile storms. The port's compiles are the
+  kernel builds: ``ops/_build.py`` notes each ``nvcc`` it runs.
 * ``SAMPLER`` — the continuous profiler: samples every thread's stack
   at a configurable Hz into a bounded top-frames table.
-* ``TELEMETRY`` — publishes the stager's share of the device budget;
-  its device-memory gauges wait for ROADMAP A7, as does the on-demand
-  profile capture (``capture_status`` reports none running).
+* ``TELEMETRY`` — polls ``torch.cuda.memory_stats`` of the card the
+  server runs on into HBM gauges, journals high-watermark crossings,
+  and publishes the stager's share of the device budget.
+
+An on-demand ``torch.profiler`` capture (``start_capture`` /
+``stop_capture``) covers the deep dives the always-on layer can't.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import sys
 import threading
 import time
 from collections import deque
 from typing import Optional
 
+from pilosa_tpu_torch.analysis.locks import OrderedLock
 from pilosa_tpu_torch.utils import events, metrics, trace
 
 
@@ -189,13 +196,14 @@ class WaterfallAggregator:
             self._by_tenant.clear()
 
 
-# -- XLA compile tracking -----------------------------------------------------
+# -- compile tracking ---------------------------------------------------------
 
 
 class CompileTracker:
-    """Per-canonical-plan-signature compile counts and compile-seconds,
-    observed at the jit entry points (``executor._timed_kernel`` calls
-    ``note()`` on every cold invocation). Bounded: beyond ``max_sigs``
+    """Per-signature compile counts and compile-seconds: in the port,
+    each kernel source that ``ops/_build.py`` compiles (kind ``"nvcc"``,
+    signature its name and source hash; a library loaded from the build
+    directory is not a compile). Bounded: beyond ``max_sigs``
     distinct signatures, new ones fold into an overflow row. A burst of
     ``storm_threshold`` compiles inside ``storm_window_s`` journals one
     ``profiler.recompile_storm`` event (edge-triggered — the storm must
@@ -409,15 +417,19 @@ class StackSampler:
 
 
 class DeviceTelemetry:
-    """Poll ``device.memory_stats()`` into HBM gauges. The CPU backend
-    returns None (or lacks the method entirely); absence leaves the
-    gauges unset rather than erroring, so the poller is safe to run in
-    every test process. Watermark events are edge-triggered per device:
-    one journal entry per excursion above ``watermark_pct``."""
+    """Poll the card's memory statistics into HBM gauges. The device is
+    the one the server runs on (``device``, set by the server; the
+    telemetry never picks one): on the CPU, or with no CUDA, or when a
+    call raises (a dead context), there is nothing to poll and the
+    gauges stay unset rather than erroring, so the poller is safe to run
+    in every test process. Watermark events are edge-triggered per
+    device: one journal entry per excursion above ``watermark_pct``."""
 
     def __init__(self, watermark_pct: float = 0.9, interval_s: float = 5.0) -> None:
         self.watermark_pct = watermark_pct
         self.interval_s = interval_s
+        # the torch.device the server runs on; None polls nothing
+        self.device = None
         self._above: set = set()
         self._peak: dict = {}
         self._thread: Optional[threading.Thread] = None
@@ -430,11 +442,37 @@ class DeviceTelemetry:
         self.last: dict = {}
 
     def _device_stats(self) -> list:
-        """[(device_label, stats_dict)] for devices that expose memory
-        stats. Empty in the port until device telemetry reads
-        ``torch.cuda.memory_stats`` (ROADMAP A7): the poller then
-        publishes only the stager share."""
-        return []
+        """[(device_label, stats_dict)] of the card in ``device``:
+        ``bytes_in_use`` and ``peak_bytes_in_use`` are the caching
+        allocator's allocated bytes (every live tensor of the process,
+        the governor's ledger or not), ``bytes_limit`` the card's total
+        memory, ``bytes_reserved`` what the allocator holds. [] on the
+        CPU, without CUDA, or when a call raises; never initializes
+        CUDA in a process that did not."""
+        dev = self.device
+        if dev is None or getattr(dev, "type", None) != "cuda":
+            return []
+        try:
+            import torch
+
+            if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+                return []
+            index = dev.index if dev.index is not None else torch.cuda.current_device()
+            stats = torch.cuda.memory_stats(index)
+            _free, total = torch.cuda.mem_get_info(index)
+        except Exception:
+            return []
+        return [
+            (
+                f"cuda:{index}",
+                {
+                    "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+                    "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+                    "bytes_limit": int(total),
+                    "bytes_reserved": int(stats.get("reserved_bytes.all.current", 0)),
+                },
+            )
+        ]
 
     def poll_once(self) -> dict:
         self.polls += 1
@@ -520,16 +558,187 @@ class DeviceTelemetry:
         }
 
 
-# -- on-demand device profile capture ------------------------------------------
+# -- on-demand torch.profiler capture ------------------------------------------
 
-# The reference captures a jax.profiler trace here; the port's capture
-# (torch.profiler over the card) comes with device telemetry (ROADMAP
-# A7). Until then the HTTP route answers 501 and the status says so.
-CAPTURE_ITEM = "A7 (device telemetry)"
+_capture_mu = OrderedLock("profiler.capture_mu")
+_capture: Optional[dict] = None
+
+# A capture reports itself started only once the profiler records the
+# card's work, and its stop says whether it did. Late in a long process,
+# torch.profiler (torch 2.11, CUPTI) has recorded none of a session's
+# kernels for up to ~1 s after it started, and a short session before it
+# did not predict the next one's loss (PERF.md §7). So the capture's own
+# session launches marker kernels (``torch.cuda._sleep``'s
+# ``spin_kernel``) every CAPTURE_MARKER_GAP_S for the settle time before
+# the start returns, then one every CAPTURE_HEARTBEAT_S until the stop;
+# the stop counts the markers its trace kept (the lost ones are the
+# first) and fails if one launched after the settle is missing. A loss
+# seen once lengthens the next capture's settle to twice that loss.
+CAPTURE_MARKER = "spin_kernel"
+CAPTURE_MARKER_GAP_S = 0.01
+CAPTURE_HEARTBEAT_S = 0.1
+CAPTURE_SETTLE_S = 3.0
+_capture_lost_s = 0.0  # the largest loss a capture of this process saw
+
+
+def _marker(device) -> None:
+    import torch
+
+    with torch.cuda.device(device):
+        torch.cuda._sleep(1000)
+
+
+def _device_sync(device) -> None:
+    """Wait for the card's work, so a capture's stop sees every kernel
+    launched before it."""
+    import torch
+
+    torch.cuda.synchronize(device)
+
+
+def trace_kernel_count(path: str, needle: str) -> int:
+    """Device kernels in a Chrome trace whose name holds ``needle``."""
+    with open(path) as f:
+        evs = json.load(f).get("traceEvents", [])
+    return sum(1 for e in evs if e.get("cat") == "kernel" and needle in e.get("name", ""))
+
+
+def capture_loss(offsets: list, kept: int, settled: int) -> dict:
+    """What a capture's trace says of its markers: ``offsets`` are their
+    launches in seconds from the session's start, ``kept`` how many the
+    trace holds (the lost ones are the first), ``settled`` how many were
+    launched before the start returned. ``lost_s`` is the first kept
+    marker's offset (all of them when none was kept); the recording is
+    verified when no marker after the settle was lost."""
+    lost = len(offsets) - min(kept, len(offsets))
+    lost_s = 0.0 if not lost else offsets[lost] if lost < len(offsets) else offsets[-1]
+    return {"markers": len(offsets), "kept": kept, "lost": lost, "lost_s": lost_s, "verified": lost <= settled and kept > 0}
+
+
+def _capture_loop(state: dict) -> None:
+    """The capture's own thread: the profiler runs from its start to its
+    stop on one thread (torch.profiler's state is per thread), records
+    every thread's operators where the installed torch can
+    (``profile_all_threads``; else only this thread's), and every
+    kernel on the card (CUPTI), then writes the Chrome trace. On the
+    card it launches the markers (see CAPTURE_MARKER) and waits for the
+    card's work before it stops."""
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if state["cuda"]:
+            acts.append(ProfilerActivity.CUDA)
+        kw: dict = {}
+        try:
+            kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+            state["all_threads"] = True
+        except Exception:
+            state["all_threads"] = False
+        offsets: list = []
+        with profile(activities=acts, **kw) as prof:
+            if state["cuda"]:
+                t0 = time.perf_counter()
+                while not offsets or time.perf_counter() - t0 < state["settle_s"]:
+                    offsets.append(time.perf_counter() - t0)
+                    _marker(state["device"])
+                    time.sleep(CAPTURE_MARKER_GAP_S)
+                _device_sync(state["device"])
+                state["settled"] = len(offsets)
+                state["started"].set()
+                while not state["stop"].wait(CAPTURE_HEARTBEAT_S):
+                    offsets.append(time.perf_counter() - t0)
+                    _marker(state["device"])
+                offsets.append(time.perf_counter() - t0)
+                _marker(state["device"])
+                _device_sync(state["device"])
+            else:
+                state["started"].set()
+                state["stop"].wait()
+        os.makedirs(state["dir"], exist_ok=True)
+        path = os.path.join(state["dir"], f"trace-{os.getpid()}-{int(time.time() * 1000)}.json")
+        prof.export_chrome_trace(path)
+        state["trace"] = path
+        if state["cuda"]:
+            state["markers"] = capture_loss(offsets, trace_kernel_count(path, CAPTURE_MARKER), state["settled"])
+    except Exception as e:  # noqa: BLE001 - report, never raise
+        state["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        state["started"].set()
+
+
+def start_capture(log_dir: str) -> dict:
+    """Begin a ``torch.profiler`` capture, CPU operators and (on a CUDA
+    server) the card's kernels, written as a Chrome trace into
+    ``log_dir`` when it stops. On the card it returns after the settle
+    (markers launched for ``settle_s``; see CAPTURE_MARKER). Returns a
+    status dict; never raises — the profiler may be unavailable or
+    already running."""
+    global _capture
+    device = TELEMETRY.device
+    state = {
+        "dir": log_dir,
+        "cuda": getattr(device, "type", None) == "cuda",
+        "device": device,
+        "settle_s": max(CAPTURE_SETTLE_S, 2 * _capture_lost_s),
+        "started": threading.Event(),
+        "stop": threading.Event(),
+    }
+    with _capture_mu:
+        if _capture is not None:
+            return {"ok": False, "error": "capture already running", "dir": _capture["dir"]}
+        _capture = state
+        state["thread"] = threading.Thread(
+            target=_capture_loop, args=(state,), name="pilosa-profile-capture", daemon=True
+        )
+        state["thread"].start()
+    if not state["started"].wait(60.0 + state["settle_s"]):
+        state["error"] = "the profiler did not start within 60 s"
+        state["stop"].set()
+    if "error" in state:
+        with _capture_mu:
+            if _capture is state:
+                _capture = None
+        return {"ok": False, "error": state["error"]}
+    out = {"ok": True, "dir": log_dir, "cuda": state["cuda"], "all_threads": state.get("all_threads", False)}
+    if state["cuda"]:
+        out.update(settle_s=state["settle_s"], settle_markers=state["settled"])
+    return out
+
+
+def stop_capture() -> dict:
+    """Stop the running capture and write its trace; ``ok: False`` when
+    none runs, the trace could not be written, or (on the card) the
+    trace lost a marker launched after the start returned — the
+    profiler did not record all of the capture. Never raises."""
+    global _capture, _capture_lost_s
+    with _capture_mu:
+        state, _capture = _capture, None
+    if state is None:
+        return {"ok": False, "error": "no capture running"}
+    state["stop"].set()
+    state["thread"].join(120.0)
+    if "error" in state or "trace" not in state:
+        return {"ok": False, "error": state.get("error", "trace not written"), "dir": state["dir"]}
+    out = {"ok": True, "dir": state["dir"], "trace": state["trace"]}
+    markers = state.get("markers")
+    if markers is not None:
+        with _capture_mu:
+            _capture_lost_s = max(_capture_lost_s, markers["lost_s"] if markers["lost"] else 0.0)
+        out["markers"] = markers
+        if not markers["verified"]:
+            out.update(
+                ok=False,
+                error=f"the profiler recorded the card's work only from {markers['lost_s']:.3f} s "
+                f"after the capture began (settle {state['settle_s']:.3f} s)",
+            )
+    return out
 
 
 def capture_status() -> dict:
-    return {"running": False, "dir": None}
+    with _capture_mu:
+        return {"running": _capture is not None, "dir": _capture["dir"] if _capture is not None else None}
 
 
 # process-global singletons; the server applies config knobs

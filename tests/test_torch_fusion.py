@@ -12,11 +12,10 @@ after writes that must invalidate the plan cache. The plain versions of
 the fused program's Distinct (K9) and TopN head (K2 + a view) are held
 against the JAX functions on the same inputs.
 
-Left for later items (ROADMAP): wave fusion through the dispatch engine
+Left for a later item (ROADMAP): wave fusion through the dispatch engine
 (A6: ``test_combined_wave_is_one_fused_launch``,
-``test_read_after_write_fresh_through_fused_wave``) and the poisoned
-lowering of the fault injector (A7:
-``test_poisoned_lowering_degrades_to_classic_path``).
+``test_read_after_write_fresh_through_fused_wave``). The poisoned
+lowering of the fault injector runs in ``tests/test_torch_chaos.py``.
 """
 
 import json

@@ -260,9 +260,6 @@ def test_cli_cluster_flags_exit_naming_their_item(tmp_path, flags, item, capsys)
         ("distributed-enabled", True, "A8"),
         ("federation-leader", True, "A8"),
         ("scrub-interval", 300.0, "A8"),
-        ("journal-max-bytes", 1 << 20, "A7"),
-        ("export-path", "/dev/null", "A7"),
-        ("device-faults", "oom_every=2", "A7"),
         ("translate-primary-url", "http://x:1", "A8"),
     ],
 )
@@ -292,6 +289,37 @@ def test_generate_config_prints_the_ports_defaults():
     keys = {ln.split(" = ")[0] for ln in toml.splitlines() if " = " in ln}
     assert keys == ref_keys | {"device"}
     assert Config.from_dict(tomllib.loads(toml)) == Config()
+
+
+def test_generated_config_journal_budget_is_the_references():
+    out = _run([sys.executable, "-m", "pilosa_tpu_torch", "generate-config"])
+    assert out.returncode == 0, out.stderr
+    from pilosa_tpu.server.config import Config as RefConfig
+
+    ref = {ln.split(" = ")[0]: ln for ln in RefConfig().to_toml().splitlines() if " = " in ln}
+    got = {ln.split(" = ")[0]: ln for ln in out.stdout.splitlines() if " = " in ln}
+    for key in ("journal-max-bytes", "journal-dir", "export-path", "export-url", "device-faults", "chaos-enabled"):
+        assert got[key] == ref[key], key
+    assert got["journal-max-bytes"] == f"journal-max-bytes = {8 << 20}"
+
+
+def test_fault_telemetry_modules_pull_in_no_jax():
+    """The modules this port's fault injection, telemetry export and
+    profiler live in import neither JAX nor the JAX package; chaos and
+    the exporter not even torch, as the reference's."""
+    probe = (
+        "import sys\n"
+        "import pilosa_tpu_torch.utils.chaos, pilosa_tpu_torch.utils.telemetry_export\n"
+        "torchless = 'torch' not in sys.modules\n"
+        "import pilosa_tpu_torch.utils.profiler, pilosa_tpu_torch.executor.hbm, pilosa_tpu_torch.server\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'pilosa_tpu' or m.startswith('pilosa_tpu.'))\n"
+        "print(torchless, bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "[]"]
 
 
 def _free_port() -> int:

@@ -664,8 +664,6 @@ def test_fusion_and_plan_cache_answer_as_the_reference(tmp_path):
         ("POST", "/internal/gang/apply", "A8"),
         ("GET", "/debug/fleet", "A8"),
         ("GET", "/debug/scrub", "A8"),
-        ("GET", "/debug/chaos", "A7"),
-        ("GET", "/debug/profile?capture=start", "A7"),
         ("GET", "/debug/dispatch", "A6"),
         ("GET", "/metrics?fleet=true", "A8"),
     ],
@@ -688,3 +686,98 @@ def test_status_reports_the_device_and_its_gate(tmp_path):
         assert prof["capture"] == {"running": False, "dir": None}
     finally:
         c.close()
+
+
+# -- fault injection and the journal (ROADMAP A7) ------------------------------------
+
+
+def _chaos_sides(tmp_path, **cfg):
+    return {side: Client(side, str(tmp_path / side), **cfg) for side in ("ref", "port")}
+
+
+def test_debug_chaos_answers_as_the_reference(tmp_path):
+    """``GET /debug/chaos`` has the reference's shape: the same keys at
+    every level, the same fault flags, OOM counters and trips, and the
+    governor's ledger with the same tenants."""
+    sides = _chaos_sides(tmp_path, chaos_enabled=True)
+    try:
+        got = {side: c.req("GET", "/debug/chaos") for side, c in sides.items()}
+        for side, c in sides.items():
+            c.req("POST", "/debug/chaos", {"device": "oom_every=3"})
+        installed = {side: c.req("GET", "/debug/chaos")[1] for side, c in sides.items()}
+    finally:
+        for c in sides.values():
+            c.close()
+    (rst, ref), (pst, port) = got["ref"], got["port"]
+    assert rst == pst == 200
+    assert set(port) == set(ref)
+    for key in ("enabled", "oom", "health_trips", "faults"):
+        assert port[key] == ref[key], key
+    assert set(port["governor"]) == set(ref["governor"])
+    assert set(port["governor"]["tenants"]) <= set(ref["governor"]["tenants"])
+    assert port["governor"]["used_bytes"] == ref["governor"]["used_bytes"] == 0
+    assert installed["port"]["faults"] == installed["ref"]["faults"] == {"storage": False, "device": True}
+
+
+def test_chaos_window_gate_errors_and_journal_as_the_reference(tmp_path):
+    """Without ``chaos-enabled`` a POST answers 403; an unknown knob 400;
+    an install then a clear each journal ``chaos.window`` — status codes
+    and bodies ``==`` the reference's, journal records equal but for the
+    time and sequence stamps."""
+    from pilosa_tpu.utils import events as ref_events
+    from pilosa_tpu_torch.utils import events
+
+    journals = {"ref": ref_events, "port": events}
+    out = {}
+    for side in ("ref", "port"):
+        off = Client(side, str(tmp_path / side / "off"))
+        try:
+            forbidden = off.req("POST", "/debug/chaos", {"device": "oom_every=1"}, record=False)
+            assert off.req("GET", "/debug/chaos", record=False)[1]["enabled"] is False
+        finally:
+            off.close()
+        c = Client(side, str(tmp_path / side / "on"), chaos_enabled=True)
+        try:
+            seq0 = journals[side].JOURNAL.snapshot(limit=1)[-1]["seq"] if journals[side].JOURNAL.snapshot() else 0
+            answers = [
+                c.req("POST", "/debug/chaos", {"device": "bogus_every=1"}, record=False),
+                c.req("POST", "/debug/chaos", {"storage": "fsync_fail_every=9", "device": "oom_every=2,stall_s=0.01"},
+                      record=False),
+                c.req("POST", "/debug/chaos", {}, record=False),
+            ]
+            st, body = c.req("GET", f"/debug/events?kind=chaos.window&since={seq0}", record=False)
+        finally:
+            c.close()
+        windows = [{k: v for k, v in e.items() if k not in ("t", "seq")} for e in body["events"]]
+        out[side] = (forbidden, answers, st, windows)
+    assert out["port"] == out["ref"]
+    forbidden, answers, st, windows = out["port"]
+    assert forbidden[0] == 403 and "chaos-enabled" in forbidden[1]["error"]
+    assert [a[0] for a in answers] == [400, 200, 200]
+    assert [w["action"] for w in windows] == ["install", "clear"]
+
+
+def test_default_journal_lives_beside_the_data_as_the_reference(tmp_path):
+    """The default Config keeps the journal on disk under
+    ``<data-dir>/.events`` on both sides, across a restart, and the
+    holder lists no ``.events`` index."""
+    from pilosa_tpu.utils import events as ref_events
+    from pilosa_tpu_torch.utils import events
+
+    for side, journal in (("ref", ref_events), ("port", events)):
+        c = Client(side, str(tmp_path / side))
+        try:
+            c.req("POST", "/index/i", record=False)
+            first = journal.record("chaos.window", action="install")["seq"]
+            c.restart()
+            assert journal.JOURNAL.durable
+            c.req("POST", "/index/j", record=False)
+            _, schema = c.req("GET", "/schema", record=False)
+            _, body = c.req("GET", "/debug/events?kind=chaos.window", record=False)
+        finally:
+            c.close()
+        assert not journal.JOURNAL.durable
+        segs = os.listdir(tmp_path / side / ".events")
+        assert segs and all(s.startswith("events-") for s in segs)
+        assert [i["name"] for i in schema["indexes"] if not _phantom(i)] == ["i", "j"]
+        assert first in [e["seq"] for e in body["events"]]
