@@ -121,13 +121,37 @@ pql)``, the entry point the benchmarks and the HTTP API call:
          a keyed Set of a new column key, read back. It must launch K1 and
          K3; mint and import seconds and the family p50s print on a
          ``phases.keys`` line.
+  cluster the port's static cluster over HTTP: three servers in this
+         process on ``cuda`` (a static ``hosts`` list, replicas = 2,
+         anti-entropy off, default probing and status), run after keys.
+         Each node's data directory holds the tall cell's shards it owns
+         by the port's own placement (``Cluster.shard_nodes``), as hard
+         links of the run's files; an int field is created through the
+         cluster and 64 x 10,000 values imported over HTTP at one node,
+         routed to their owners (its CPU-leg answers come from a worker
+         process run beside the data writers). Every tall TopN and chain
+         and the int field's Sum, Count(Range) and Min/Max are asked at
+         node 0 cold (its legs stage every node's shards), then timed
+         once at each node, against the CPU leg; 10 Sets then 10 Clears
+         through rotating nodes are read back at every node and found in
+         both owners' holders, and every query is asked at every node
+         again (the writes end as they began, so the run's own files,
+         which the links share, replay to the same data); then the node
+         serving shard 0 is closed and the tall queries asked at the
+         other two, each re-map counted. Each node's launches count under its own scope
+         (``ops.cuda.scoped``): every node must launch K2 and K3, and the
+         two nodes that serve only node 0's remote legs must launch them
+         while node 0 alone is asked. HTTP p50 per family beside the
+         single node's, remote legs per query and the
+         ``cluster.map_remote_seconds`` histogram print on a
+         ``phases.cluster`` line.
 
 The device executors stage with the port's defaults, which are the
 server's: 8 GiB budget, delta refresh on at a 0.25 ratio, a 256 MiB
 tier 1 and compressed uploads at a dense/payload ratio of 4.0 (the
 tiered arms change only the budget).
 
-Every dense, tall, writes, tiered, server and keys answer must equal the
+Every dense, tall, writes, tiered, server, keys and cluster answer must equal the
 port's CPU roaring leg (device_policy="never"); every ssb answer (in
 process and over HTTP) must equal a plain numpy computation over the
 generated columns (int64, exact). Each path (dense and tall; ssb;
@@ -165,11 +189,12 @@ step's candidates lie (per shard for Min/Max); for Distinct, the planes
 at the considered words and its minterm split's operations.
 
 The fragments are written by a pool of worker processes, stopped before
-the card is used.
+the card is used; beside them one more worker computes the cluster arm's
+int answers on the CPU leg.
 
 Output: progress on stderr; on stdout the card's name and power limit
 (nvidia-smi), a ``phases.server`` line (its ``faults`` arm among it), a
-``phases.keys`` line, a ``phases.fusion`` line (its
+``phases.keys`` line, a ``phases.cluster`` line, a ``phases.fusion`` line (its
 table, the plan-cache probe and the fused TopN head,
 ``sparse_intersection_counts_stacked_mat``, == plain and timed), a
 ``phases`` line (qps and p50 on the card), a ``kernels`` line, and as
@@ -187,6 +212,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -326,13 +352,21 @@ def _dense_chunks(rows: int, seed: int = 11):
         )
 
 
+def _hot_row_cols(shard: int, h: int) -> np.ndarray:
+    """The columns hot row ``h`` of a tall shard holds."""
+    rng = np.random.default_rng(h * 100003 + shard)
+    return np.unique(rng.integers(0, SW, size=HOT_BITS, dtype=np.uint64))
+
+
+def _hot_row_bits(shard: int, h: int) -> int:
+    return int(_hot_row_cols(shard, h).size)
+
+
 def _tall_chunks(shard: int, rows_per_shard: int):
     """bench_tall._fragment_chunks: hot rows first, then the singleton
     tail (one bit per row, column = row hash)."""
     for h in range(HOT_ROWS):
-        rng = np.random.default_rng(h * 100003 + shard)
-        cols = np.unique(rng.integers(0, SW, size=HOT_BITS, dtype=np.uint64))
-        yield np.uint64(h * SW) + cols
+        yield np.uint64(h * SW) + _hot_row_cols(shard, h)
     base = SINGLES_BASE + shard * rows_per_shard
     step = 4_000_000
     for i in range(0, rows_per_shard, step):
@@ -4074,6 +4108,364 @@ def run_keys(data_dir: str, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# -- cluster: three nodes of the port's static cluster over HTTP -----------------
+
+CLUSTER_DIR = ".cluster"  # under the run's root; the holder skips dot names
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+CLUSTER_INT_FIELD = "v"
+CLUSTER_INT_MAX = 1_000_000
+CLUSTER_INT_VALUES = 10_000  # values a shard, imported over HTTP at one node
+CLUSTER_INT_SEED = 1808
+CLUSTER_WRITE_BITS = 10  # each Set, then Cleared: 20 writes through rotating nodes
+CLUSTER_TIMED = 1  # warm timed passes of each family at nodes 1 and 2 (node 0 has one)
+# each node must launch these, and the two nodes that only serve remote
+# legs in the node-0 segment must launch them there
+CLUSTER_KERNELS = ("sparse_stacked_scores", "tree_count")
+
+
+def cluster_int_data(shards: int, per_shard: int, seed: int = CLUSTER_INT_SEED):
+    """(columns, values) of the int field: ``per_shard`` distinct columns
+    a shard, values uniform in [0, CLUSTER_INT_MAX], from a seed."""
+    rng = np.random.default_rng(seed)
+    cols = np.concatenate(
+        [np.uint64(s * SW) + np.sort(rng.choice(SW, size=per_shard, replace=False)).astype(np.uint64) for s in range(shards)]
+    )
+    vals = rng.integers(0, CLUSTER_INT_MAX + 1, size=cols.size, dtype=np.int64)
+    return cols, vals
+
+
+def cluster_int_queries(vals) -> list[str]:
+    """Sum, Count(Range) of four predicates and Min/Max on the int field."""
+    f = CLUSTER_INT_FIELD
+    return [
+        f"Sum(field={f})",
+        f"Count(Range({f} > 250000))",
+        f"Count(Range({f} <= 500000))",
+        f"Count(Range({f} == {int(vals[len(vals) // 2])}))",
+        f"Count(Range({f} >< [100000, 900000]))",
+        f"Min(field={f})",
+        f"Max(field={f})",
+    ]
+
+
+def cluster_int_answers(shards: int = TALL_SHARDS, per_shard: int = CLUSTER_INT_VALUES) -> dict:
+    """The int queries' answers from the port's CPU leg, on a holder of
+    the int field alone, keyed as the cluster arm's answers are. Run in a
+    worker process while the data sets are written: the CPU leg's Range
+    counts take seconds a query."""
+    from pilosa_tpu_torch import holder_from_dir
+    from pilosa_tpu_torch.core import FieldOptions
+    from pilosa_tpu_torch.executor import Executor
+
+    cols, vals = cluster_int_data(shards, per_shard)
+    d = tempfile.mkdtemp(prefix="cluster_cpu_leg_")
+    h = holder_from_dir(d)
+    cpu = None
+    try:
+        h.create_index("tall").create_field(
+            CLUSTER_INT_FIELD, FieldOptions(type="int", min=0, max=CLUSTER_INT_MAX)
+        ).import_values(cols.tolist(), vals.tolist())
+        cpu = Executor(h, device="cpu", device_policy="never")
+        return {("tall", q): wire(cpu.execute("tall", q)) for q in cluster_int_queries(vals)}
+    finally:
+        if cpu is not None:
+            cpu.close()
+        h.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _free_ports(n: int) -> list[int]:
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def cluster_layout(root: str, dirs: list[str], uris: list[str], shards: int) -> dict:
+    """Hard-link each tall shard's fragment file (and its rank cache) into
+    the data directory of every node that owns it, by the port's own
+    placement (``Cluster.shard_nodes``). Returns the shards by node."""
+    from pilosa_tpu_torch.parallel.cluster import Cluster
+    from pilosa_tpu_torch.parallel.node import Node
+
+    plan = Cluster(uris[0], uris[0], replica_n=CLUSTER_REPLICAS)
+    plan.set_nodes([Node(id=u, uri=u) for u in uris])
+    src = _fragment_dir(root, "tall")
+    held: dict = {u: [] for u in uris}
+    try:
+        for s in range(shards):
+            for node in plan.shard_nodes("tall", s):
+                dst = _fragment_dir(dirs[uris.index(node.id)], "tall")
+                for name in (str(s), f"{s}.cache"):
+                    if os.path.exists(os.path.join(src, name)):
+                        os.link(os.path.join(src, name), os.path.join(dst, name))
+                held[node.id].append(s)
+    finally:
+        plan.close()
+    return held
+
+
+def _launches_by_node(cuda, uris: list[str]) -> dict:
+    return {u: {k.name: k.launches_by_scope.get(u, 0) for k in cuda.KERNELS} for u in uris}
+
+
+def _launch_diff(after: dict, before: dict) -> dict:
+    return {u: {k: n - before[u][k] for k, n in per.items()} for u, per in after.items()}
+
+
+def _remote_hist(metrics) -> dict:
+    """cluster.map_remote_seconds by target node: count and sum (s), and
+    the registry's p50 (its log bucket's upper bound)."""
+    name = metrics.CLUSTER_MAP_REMOTE_SECONDS + ".hist"
+    return {k.split("node:", 1)[-1]: {"count": v["count"], "sum": v["sum"], "p50": v["p50"]}
+            for k, v in metrics.snapshot().items() if k.startswith(name)}
+
+
+def _remote_errors(metrics) -> float:
+    return _metric_sum(metrics, metrics.CLUSTER_REMOTE_ERRORS)
+
+
+def _remote_error_counts(metrics) -> dict:
+    """cluster.remote_errors by target node."""
+    return {k: v for k, v in metrics.snapshot().items() if k.startswith(metrics.CLUSTER_REMOTE_ERRORS + ";")}
+
+
+def _post(addr, path: str, body) -> dict:
+    """POST to one node; the JSON answer, or an AssertionError."""
+    c = HttpClient(*addr)
+    try:
+        st, _, raw = c.request("POST", path, body if isinstance(body, bytes) else json.dumps(body).encode())
+    finally:
+        c.close()
+    if st != 200:
+        raise AssertionError(f"cluster: POST {path}: HTTP {st}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _hold_bit(server, shard: int, row: int, col: int) -> bool:
+    frag = server.holder.fragment("tall", "f", "standard", shard)
+    return frag is not None and frag.ensure_open().bit(row, col)
+
+
+def run_cluster(root: str, card: str, answers: dict, tall_topn: list[str], tall_chains: list[str],
+                single_p50: dict, device: str = "cuda", shards: int = TALL_SHARDS,
+                int_values: int = CLUSTER_INT_VALUES) -> dict:
+    """Three servers of the port in this process on ``device``, a static
+    host list, replicas = 2, anti-entropy off, default probing and status:
+    the tall cell's shards on their owners (hard links of the run's
+    files), an int field created and imported over HTTP at one node
+    (routed to the owners); the tall TopN and chains and the int field's
+    Sum, Count(Range) and Min/Max asked at every node against the CPU
+    leg (``answers``, the int queries' from ``cluster_int_answers``); 20
+    Set/Clear through rotating nodes, read back at every node and found
+    on both owners; then one node closed and the tall queries asked at
+    the other two. (``device="cpu"`` runs it on the kernels' plain
+    versions at a small size, for its tests.)"""
+    from pilosa_tpu_torch.ops import cuda
+    from pilosa_tpu_torch.server import Config, Server
+    from pilosa_tpu_torch.server.config import ClusterConfig
+    from pilosa_tpu_torch.utils import metrics
+    from pilosa_tpu_torch.utils.uri import URI
+
+    t_phase = time.monotonic()
+    croot = os.path.join(root, CLUSTER_DIR)
+    dirs = [os.path.join(croot, f"node{i}") for i in range(CLUSTER_NODES)]
+    ports = _free_ports(CLUSTER_NODES)
+    hosts = [f"127.0.0.1:{p}" for p in ports]
+    uris = [URI.from_address(h).normalize() for h in hosts]
+    held = cluster_layout(root, dirs, uris, shards)
+    out: dict = {"card": card, "nodes": CLUSTER_NODES, "replicas": CLUSTER_REPLICAS, "shards": shards,
+                 "shards_held": {u: len(held[u]) for u in uris}}
+
+    cols, vals = cluster_int_data(shards, int_values)
+    int_qs = cluster_int_queries(vals)
+    families = {
+        "tall_topn": [("tall", q) for q in tall_topn],
+        "tall_chain": [("tall", q) for q in tall_chains],
+        "ints": [("tall", q) for q in int_qs],
+    }
+
+    servers = []
+    try:
+        t0 = time.monotonic()
+        for i, p in enumerate(ports):
+            s = Server(Config(
+                data_dir=dirs[i], bind=f"127.0.0.1:{p}", device=device, anti_entropy_interval=0,
+                cluster=ClusterConfig(disabled=False, coordinator=(i == 0), replicas=CLUSTER_REPLICAS, hosts=hosts),
+            ))
+            s.open()
+            servers.append(s)
+        out["open_s"] = time.monotonic() - t0
+        if [s.uri for s in servers] != uris:
+            raise AssertionError(f"cluster: node URIs {[s.uri for s in servers]} are not the host list's {uris}")
+        addrs = [s.address() for s in servers]
+        base = [_device_counters(s, metrics) for s in servers]
+        # schema through the cluster, then the values imported at node 1 and
+        # routed to their owners
+        _post(addrs[0], f"/index/tall/field/{CLUSTER_INT_FIELD}",
+              {"options": {"type": "int", "min": 0, "max": CLUSTER_INT_MAX}})
+        if any(s.holder.field("tall", CLUSTER_INT_FIELD) is None for s in servers):
+            raise AssertionError("cluster: the int field did not reach every node")
+        t0 = time.monotonic()
+        _post(addrs[1], f"/index/tall/field/{CLUSTER_INT_FIELD}/import-value",
+              {"columnIDs": cols.tolist(), "values": vals.tolist()})
+        steps = {"open": out["open_s"], "int_import": time.monotonic() - t0}
+        out["int_import_s"] = steps["int_import"]
+        for s in servers:
+            v = s.holder.view("tall", CLUSTER_INT_FIELD, "bsig_" + CLUSTER_INT_FIELD)
+            got = set(v.fragments) if v is not None else set()
+            if got != set(held[s.uri]):
+                raise AssertionError(f"cluster: {s.uri} holds int shards {sorted(got)}, owns {held[s.uri]}")
+        # one recalculation, broadcast to every node (the CPU leg's TopN
+        # rankings are recalculated ones)
+        t0 = time.monotonic()
+        recalculate_caches(addrs[0])
+        steps["recalculate"] = time.monotonic() - t0
+
+        def ask(nodes: list, when: str, cold: bool = False) -> dict:
+            """Every family at each of ``nodes``, each answer against the
+            CPU leg; per family the latencies."""
+            t1 = time.monotonic()
+            lat: dict = {f: [] for f in families}
+            for a in nodes:
+                for fam, items in families.items():
+                    lat[fam] += http_sequential(a, items, answers, cold=cold)
+            steps[when] = time.monotonic() - t1
+            log(f"cluster: {when}: every answer at {len(nodes)} node(s) equals the CPU leg")
+            return lat
+
+        # the cold pass at node 0: its legs stage every node's shards (each
+        # node serves the shards it is the first owner of, whoever asks)
+        ask(addrs[:1], "first_pass_node0", cold=True)
+        out["first_pass_s"] = steps["first_pass_node0"]
+        # node 0 alone: nodes 1 and 2 run only remote legs here
+        t0 = time.monotonic()
+        l0 = _launches_by_node(cuda, uris)
+        node0, legs = {}, {}
+        for fam, items in families.items():
+            r0 = sum(v["count"] for v in _remote_hist(metrics).values())
+            node0[fam] = http_sequential(addrs[0], items, answers)
+            legs[fam] = (sum(v["count"] for v in _remote_hist(metrics).values()) - r0) / len(items)
+        remote_only = _launch_diff(_launches_by_node(cuda, uris), l0)
+        out["remote_legs_per_query"] = legs
+        out["remote_only_launches"] = {u: remote_only[u] for u in uris[1:]}
+        for u in uris[1:]:
+            for name in CLUSTER_KERNELS:
+                if device == "cuda" and remote_only[u][name] <= 0:
+                    raise AssertionError(f"cluster: {u} launched no {name} serving node 0's remote legs")
+        steps["node0"] = time.monotonic() - t0
+        timed: dict = {f: list(node0[f]) for f in families}
+        for _ in range(CLUSTER_TIMED):
+            for fam, lat in ask(addrs[1:], "timed_nodes_1_2").items():
+                timed[fam] += lat
+        out["families"] = {
+            fam: {"queries": len(lat), "p50_ms": statistics.median(lat) * 1e3,
+                  "single_node_p50_ms": single_p50.get(fam)}
+            for fam, lat in timed.items()
+        }
+        log("cluster: " + ", ".join(
+            f"{f} p50 {r['p50_ms']:.2f} ms (single node {r['single_node_p50_ms']})" for f, r in out["families"].items()))
+
+        # writes: a Set of 10 bits the hot rows lack, through rotating
+        # nodes, read back at every node and found on both owners; then the
+        # same 10 cleared. The data end as they began, so do the files the
+        # nodes share with the run's holder (hard links: the ops append)
+        t0 = time.monotonic()
+        owner = {sh: srv for srv in servers for sh in held[srv.uri]}
+        # the bits in three shards, one of each pair of owners: a first
+        # write to a tall fragment costs its own time, whichever the bit
+        pairs: dict = {}
+        for sh in range(shards):
+            pairs.setdefault(tuple(sorted(u for u in uris if sh in held[u])), sh)
+        write_shards = sorted(pairs.values())
+        bits = []
+        for k in range(CLUSTER_WRITE_BITS):
+            shard, row = write_shards[k % len(write_shards)], (5 * k) % HOT_ROWS
+            frag = owner[shard].holder.fragment("tall", "f", "standard", shard).ensure_open()
+            bits.append((shard, row, _unset_columns(frag, row, 1, shard * SW + 1000 + k)[0]))
+        rows = sorted({row for _, row, _ in bits})
+        # each hot row's count before the writes, from the generator
+        base_counts = {r: sum(_hot_row_bits(sh, r) for sh in range(shards)) for r in rows}
+        writes = 0
+        for op in ("Set", "Clear"):
+            for k, (shard, row, col) in enumerate(bits):
+                # each write at the next node in turn
+                got = _post(addrs[(writes + k) % CLUSTER_NODES], "/index/tall/query", f"{op}({col}, f={row})".encode())
+                if got["results"] != [True]:
+                    raise AssertionError(f"cluster: {op}({col}, f={row}) answered {got}")
+                owners = [s for s in servers if shard in held[s.uri]]
+                if len(owners) != CLUSTER_REPLICAS or any(_hold_bit(s, shard, row, col) != (op == "Set") for s in owners):
+                    raise AssertionError(f"cluster: {op}({col}, f={row}) did not land on both owners of shard {shard}")
+            writes += len(bits)
+            # read back at every node, one request of a count a row: the
+            # counts with the bits, then without
+            q = " ".join(f"Count(Row(f={r}))" for r in rows)
+            want = {("tall", q): [base_counts[r] + (op == "Set") * sum(1 for _, rr, _ in bits if rr == r) for r in rows]}
+            for a in addrs:
+                http_sequential(a, list(want), want)
+        steps["writes"] = time.monotonic() - t0
+        out["writes"] = {"writes": writes, "rows": len(rows), "seconds": steps["writes"]}
+        ask(addrs, "after_writes")
+
+        # failover: the node that serves shard 0 closed, the tall queries
+        # at the other two; a query that still plans a leg on it re-maps
+        # the leg onto the other owner, once a pass
+        t0 = time.monotonic()
+        dead = next(s for s in servers if s.uri == servers[0].cluster.shard_nodes("tall", 0)[0].id)
+        alive = [s for s in servers if s is not dead]
+        dead.close()
+        errs0 = _remote_error_counts(metrics)
+        remaps = []
+        fo_lat = []
+        for a in [s.address() for s in alive]:
+            for item in families["tall_topn"] + families["tall_chain"]:
+                e1 = _remote_errors(metrics)
+                fo_lat += http_sequential(a, [item], answers)
+                # a TopN maps its shards twice (its two passes), a count once
+                passes = 2 if item[1].startswith("TopN") else 1
+                remaps.append((_remote_errors(metrics) - e1, passes))
+        if any(not 0 <= r <= p for r, p in remaps) or remaps[0][0] < 1:
+            raise AssertionError(f"cluster: re-maps per failover query {remaps}: at most one a pass, and the first re-maps")
+        errs1 = _remote_error_counts(metrics)
+        moved = {k for k, v in errs1.items() if v != errs0.get(k, 0)}
+        if moved != {f"{metrics.CLUSTER_REMOTE_ERRORS};node:{dead.uri}"}:
+            raise AssertionError(f"cluster: remote errors against {moved}, not only the closed node")
+        out["failover"] = {
+            "queries": len(remaps),
+            "queries_remapped": sum(1 for r, _ in remaps if r),
+            "remaps": int(sum(r for r, _ in remaps)),
+            "p50_ms": statistics.median(fo_lat) * 1e3,
+            "closed_node": dead.uri,
+            "closed_node_state": {s.uri: next(n.state for n in s.cluster.nodes if n.uri == dead.uri) for s in alive},
+        }
+        steps["failover"] = time.monotonic() - t0
+        log(f"cluster: failover {out['failover']}")
+        out["map_remote_seconds"] = _remote_hist(metrics)
+        out["launches_by_node"] = _launches_by_node(cuda, uris)
+        for u in uris:
+            for name in CLUSTER_KERNELS:
+                if device == "cuda" and out["launches_by_node"][u][name] <= 0:
+                    raise AssertionError(f"cluster: {u} never launched {name}")
+        for s, b in zip(servers, base):
+            if s is not dead:
+                _require_clean(s, metrics, b, "cluster")
+    finally:
+        for s in servers:
+            try:
+                s.close()
+            except Exception as e:  # the closed node closes again harmlessly
+                log(f"cluster: closing {s.uri}: {e}")
+    out["seconds"] = time.monotonic() - t_phase
+    out["steps_s"] = steps
+    return out
+
+
 PATH_OF = {
     "dense_scores": "dense_tall",
     "sparse_stacked_scores": "dense_tall",
@@ -4138,6 +4530,10 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix="pilosa_tpu_torch_smoke_")
     holder = dev = cpu = None
+    # the cluster arm's int answers from the CPU leg, in a worker process
+    # while the data sets are written (stopped before the card is used)
+    int_pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    int_leg = int_pool.submit(cluster_int_answers)
     try:
         # 2. data, and the ssb oracle while the workers write
         t0 = time.monotonic()
@@ -4155,6 +4551,8 @@ def main() -> int:
         finally:
             builder.join()
         log(f"data written: {built}; ssb oracle: {len(ssb.queries)} answers in {ssb_oracle_s:.1f} s")
+        cluster_int = int_leg.result()
+        int_pool.shutdown()
         if "error" in build_box:
             raise build_box["error"]
         build, build_s = build_box["log"], build_box["seconds"]
@@ -4260,6 +4658,14 @@ def main() -> int:
         for name in KEYS_KERNELS:
             if launches["keys"][name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the keys path")
+        torch.cuda.empty_cache()
+        # the static cluster: three servers of the port in this process,
+        # each holding the tall shards it owns, beside the single node's
+        # HTTP p50 on the same queries
+        single_p50 = {fam: phases["server"]["families"][fam]["sequential"]["p50_ms"] for fam in ("tall_topn", "tall_chain")}
+        phases["cluster"] = run_path(
+            "cluster", lambda: run_cluster(root, card, {**server_answers, **cluster_int}, tall_topn, tall_chains, single_p50)
+        )
         torch.cuda.empty_cache()
         holder = pilosa_tpu_torch.holder_from_dir(root)
         for index in ("dense", "tall"):
@@ -4399,6 +4805,7 @@ def main() -> int:
                     "tiered_path": path_s["tiered"],
                     "server_path": path_s["server"],
                     "keys_path": path_s["keys"],
+                    "cluster_path": path_s["cluster"],
                     "fusion_path": path_s["fusion"],
                     **built,
                 },
@@ -4437,6 +4844,22 @@ def main() -> int:
             "write_read_back": keys["write_read_back"],
             "launches": launches["keys"],
         }}), flush=True)
+        clu = phases["cluster"]
+        print(json.dumps({"phases.cluster": {
+            "card": clu["card"],
+            "seconds": clu["seconds"],
+            "open_s": clu["open_s"],
+            "steps_s": clu["steps_s"],
+            "families": clu["families"],
+            "remote_legs_per_query": clu["remote_legs_per_query"],
+            "map_remote_seconds": clu["map_remote_seconds"],
+            "remote_only_launches": clu["remote_only_launches"],
+            "launches_by_node": clu["launches_by_node"],
+            "writes": clu["writes"],
+            "failover": clu["failover"],
+            "shards_held": clu["shards_held"],
+            "launches": launches["cluster"],
+        }}), flush=True)
         fus = phases["fusion"]
         print(json.dumps({"phases.fusion": {
             "card": card,
@@ -4449,6 +4872,7 @@ def main() -> int:
         print(json.dumps({"phases": phases}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
+        int_pool.shutdown(cancel_futures=True)
         for ex in (dev, cpu):
             if ex is not None:
                 ex.close()

@@ -5,8 +5,10 @@ export, backup, restore, check, inspect, metrics, events, debug-bundle,
 config, generate-config. Config precedence: flags > env (PILOSA_TPU_*)
 > TOML file (reference cmd/root.go:90-146). ``server --device cpu``
 runs the kernels' plain versions; without it the server needs CUDA.
-A flag that needs a subsystem the port lacks (a cluster, a mesh,
-multihost) exits non-zero naming its ROADMAP item.
+``--hosts`` with ``anti-entropy-interval = 0`` (in the config file or
+the environment) serves a static cluster; a flag that needs a subsystem
+the port lacks (join and resize, a mesh, multihost) exits non-zero
+naming its ROADMAP item.
 
 Run as ``python -m pilosa_tpu_torch <subcommand>``.
 """
@@ -48,17 +50,17 @@ def main(argv=None) -> int:
     p.add_argument("--device-policy", choices=["never", "auto", "always"])
     p.add_argument(
         "--mesh-devices",
-        help="device mesh over the shard axis (not ported yet: ROADMAP A8)",
+        help="device mesh over the shard axis (not ported yet: ROADMAP A8e)",
     )
     p.add_argument(
         "--distributed",
         action="store_true",
         default=None,
-        help="multihost serving (not ported yet: ROADMAP A8)",
+        help="multihost serving (not ported yet: ROADMAP A8d)",
     )
     p.add_argument(
         "--coordinator-address",
-        help="multihost coordinator host:port (not ported yet: ROADMAP A8)",
+        help="multihost coordinator host:port (not ported yet: ROADMAP A8d)",
     )
     p.add_argument(
         "--process-id",

@@ -5,6 +5,7 @@ from pilosa_tpu_torch.executor.executor import (
     ExecOptions,
     Executor,
     NotFoundError,
+    ValCount,
     pairs_add,
     resolve_device,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "ExecOptions",
     "Executor",
     "NotFoundError",
+    "ValCount",
     "pairs_add",
     "resolve_device",
 ]

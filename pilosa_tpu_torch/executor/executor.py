@@ -50,13 +50,20 @@ query (writes mint, reads only look up) and results translate back;
 ``SetRowAttrs``/``SetColumnAttrs`` write the attribute stores, a
 top-level ``Row()`` carries its row's attributes, and a TopN attribute
 filter narrows each shard's candidate rows before they are scored, so
-the rows that pass are scored on the device path like any other. The
-cluster, mesh and dispatch engine of the JAX executor are not here (A6,
-A8).
+the rows that pass are scored on the device path like any other.
+
+On a static cluster (``cluster``, parallel/cluster.py) a query's shards
+map onto their owners: ``_map_reduce`` goes to ``cluster.map_reduce``,
+whose legs run each owner's shards as a remote leg (``opt.remote``,
+shard-batched), and writes fan out to every owner. At the node asked,
+the plan cache, the CSE rewrite, fusion and the batched legs stay out of
+the way: they would see only the shards it holds. The mesh and the
+dispatch engine of the JAX executor are not here (ROADMAP A8e, A6).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import threading
 import time
@@ -165,8 +172,9 @@ def pairs_add(a: list[tuple[int, int]], b: list[tuple[int, int]]) -> list[tuple[
 class ExecOptions:
     """reference execOptions (executor.go:1714). ``cache`` = False
     bypasses the plan result cache (lookups, inserts and the CSE
-    rewrite). ``remote`` is carried for the HTTP API; the port has no
-    cluster yet (ROADMAP A8), so it changes nothing."""
+    rewrite). ``remote`` marks a cluster's remote leg: it runs on this
+    node's shards only and answers un-finalized (TopN's pass-1 pairs,
+    GroupBy's group list)."""
 
     remote: bool = False
     exclude_row_attrs: bool = False
@@ -361,8 +369,11 @@ class Executor:
         fusion_enabled: bool = True,
         fusion_max_calls: int = 64,
         plan_cache_device_bytes: int = DEVICE_CACHE_BYTES,
+        cluster=None,
     ) -> None:
         self.holder = holder
+        # the static cluster (parallel/cluster.py); None: one node
+        self.cluster = cluster
         # key <-> id translation (translate/); None: ids only
         self.translate_store = translate_store
         self.device = resolve_device(device)
@@ -467,11 +478,13 @@ class Executor:
         shards: Optional[list[int]] = None,
         opt: Optional[ExecOptions] = None,
     ) -> list[Any]:
-        sp = trace.current()
-        if sp is None:  # untraced: no span objects anywhere below
-            return self._execute(index_name, query, shards, opt)
-        with sp.child(metrics.STAGE_EXECUTOR, index=index_name):
-            return self._execute(index_name, query, shards, opt)
+        # a cluster node counts its own launches (nodes may share a process)
+        with ops.cuda.scoped(self.cluster.node_id if self.cluster is not None else None):
+            sp = trace.current()
+            if sp is None:  # untraced: no span objects anywhere below
+                return self._execute(index_name, query, shards, opt)
+            with sp.child(metrics.STAGE_EXECUTOR, index=index_name):
+                return self._execute(index_name, query, shards, opt)
 
     def _execute(
         self,
@@ -554,9 +567,10 @@ class Executor:
             parent = trace.current()  # contextvars don't follow pool workers
             attrib = trace.attrib_current()  # nor does the waterfall
             pdl = dl  # nor the request deadline
+            scope = ops.cuda.launch_scope()  # nor the launch scope
 
             def run_call(call):
-                with trace.activate(parent), _deadline().activate(pdl), trace.attrib_activate(attrib):
+                with trace.activate(parent), _deadline().activate(pdl), trace.attrib_activate(attrib), ops.cuda.scoped(scope):
                     return self._execute_call(index_name, call, shards, opt)
 
             pool = self._read_pool_acquire()
@@ -654,10 +668,9 @@ class Executor:
 
     def _local_batchable(self, opt) -> bool:
         """Whether this call's legs all run here, so the plan cache, the
-        CSE rewrite and the shard-batched legs may serve it. Always, on
-        one node; the multi-device plane (ROADMAP A8) makes it depend on
-        ``opt.remote``, as in the reference."""
-        return True
+        CSE rewrite and the shard-batched legs may serve it: on one node,
+        and on a cluster's remote leg (reference executor.go:1484)."""
+        return self.cluster is None or opt.remote
 
     def _execute_call_cached(self, index, c: Call, shards, opt) -> Any:
         """Whole-call result cache around dispatch (plan/cache.py): a
@@ -708,8 +721,9 @@ class Executor:
             parent = trace.current()
             attrib = trace.attrib_current()
             dl = _deadline().current()
+            scope = ops.cuda.launch_scope()
             return self.health.guard(
-                lambda: self._execute_call_inner_on(parent, attrib, dl, index, c, shards, opt)
+                lambda: self._execute_call_inner_on(parent, attrib, dl, scope, index, c, shards, opt)
             )
         except DeviceOom:
             # an unrecovered OOM degraded this call: the OOM cooldown
@@ -740,8 +754,8 @@ class Executor:
         metrics.count(metrics.EXECUTOR_DEVICE_DOWN_FALLBACK)
         return self._execute_call_inner(index, c, shards, opt)
 
-    def _execute_call_inner_on(self, parent, attrib, dl, index, c, shards, opt) -> Any:
-        with trace.activate(parent), trace.attrib_activate(attrib), _deadline().activate(dl):
+    def _execute_call_inner_on(self, parent, attrib, dl, scope, index, c, shards, opt) -> Any:
+        with trace.activate(parent), trace.attrib_activate(attrib), _deadline().activate(dl), ops.cuda.scoped(scope):
             return self._execute_call_inner(index, c, shards, opt)
 
     def _execute_call_inner(self, index, c: Call, shards, opt) -> Any:
@@ -753,19 +767,19 @@ class Executor:
         if name == "Max":
             return self._execute_minmax(index, c, shards, opt, is_min=False)
         if name == "Clear":
-            return self._execute_clear_bit(index, c)
+            return self._execute_clear_bit(index, c, opt)
         if name == "Count":
             return self._execute_count(index, c, shards, opt)
         if name == "Set":
-            return self._execute_set_bit(index, c)
+            return self._execute_set_bit(index, c, opt)
         if name == "SetValue":
-            self._execute_set_value(index, c)
+            self._execute_set_value(index, c, opt)
             return None
         if name == "SetRowAttrs":
-            self._execute_set_row_attrs(index, c)
+            self._execute_set_row_attrs(index, c, opt)
             return None
         if name == "SetColumnAttrs":
-            self._execute_set_column_attrs(index, c)
+            self._execute_set_column_attrs(index, c, opt)
             return None
         if name == "TopN":
             return self._execute_topn(index, c, shards, opt)
@@ -783,10 +797,14 @@ class Executor:
 
     def _map_reduce(self, index, shards, c, opt, map_fn, reduce_fn, zero_factory=None):
         """Single-node: loop shards in order (deterministic reduce order).
+        A cluster maps the shards onto their owners instead
+        (``cluster.map_reduce``), unless this is a remote leg.
 
         zero_factory builds a FRESH accumulator: reduce_fn may mutate its
         first argument (Row.merge), and mapped values can be cached
         fragment rows that must never be mutated."""
+        if self.cluster is not None and not opt.remote:
+            return self.cluster.map_reduce(index, shards, c, opt, map_fn, reduce_fn, zero_factory)
         result = zero_factory() if zero_factory else None
         parent = trace.current()
         # one contextvar read, then a monotonic compare per shard: expired
@@ -1387,7 +1405,7 @@ class Executor:
             raise ValueError("Count() only accepts a single bitmap input")
         child = c.children[0]
 
-        if shards and self._use_device_batched(index, child, shards):
+        if self._local_batchable(opt) and shards and self._use_device_batched(index, child, shards):
             try:
                 with trace.child(metrics.STAGE_DEVICE_BATCH, call="Count"):
                     n = self._count_device_batched(index, child, shards)
@@ -1475,7 +1493,7 @@ class Executor:
             raise ValueError("Sum() only accepts a single bitmap input")
 
         # shard-batched: one launch for all shards
-        if shards and self._use_device_batched(index, c, shards):
+        if self._local_batchable(opt) and shards and self._use_device_batched(index, c, shards):
             field_name, _ = c.string_arg("field")
             bsig = self._bsi_field(index, field_name)
             frags = self._bsi_frags(index, field_name, shards) if bsig is not None else ()
@@ -1536,7 +1554,7 @@ class Executor:
         reduce_fn = (lambda a, b: a.smaller(b)) if is_min else (lambda a, b: a.larger(b))
 
         # shard-batched: every shard's recurrence in one launch
-        if shards and self._use_device_batched(index, c, shards):
+        if self._local_batchable(opt) and shards and self._use_device_batched(index, c, shards):
             field_name, _ = c.string_arg("field")
             bsig = self._bsi_field(index, field_name)
             frags = self._bsi_frags(index, field_name, shards) if bsig is not None else ()
@@ -1608,7 +1626,12 @@ class Executor:
         metrics.count(metrics.ANALYTICS_QUERIES, call="GroupBy")
         dims = analytics.resolve_dims(self.holder, index, plan, shards, self.analytics_max_groups)
         merged = None
-        if shards and all(ids for _, ids in dims) and self._use_device_batched(index, c, shards):
+        if (
+            self._local_batchable(opt)
+            and shards
+            and all(ids for _, ids in dims)
+            and self._use_device_batched(index, c, shards)
+        ):
             try:
                 with trace.child(metrics.STAGE_DEVICE_BATCH, call="GroupBy"):
                     merged = self._groupby_device_batched(index, plan, dims, shards)
@@ -1625,6 +1648,10 @@ class Executor:
             merged = self._map_reduce(
                 index, shards, c, opt, map_fn, analytics.merge_group_lists, zero_factory=list
             )
+        if opt.remote:
+            # un-finalized wire list: the coordinator merges the legs, then
+            # orders and applies the limit once
+            return merged or []
         return analytics.finalize_groups(plan, merged or [])
 
     def _groupby_device_batched(self, index, plan, dims, shards) -> list[dict]:
@@ -1676,7 +1703,8 @@ class Executor:
         if bsig is None:
             raise NotFoundError(f"bsiGroup not found: {field}")
         if (
-            shards
+            self._local_batchable(opt)
+            and shards
             and bsig.bit_depth() <= analytics.DISTINCT_DEVICE_MAX_DEPTH
             and self._use_device_batched(index, c, shards)
         ):
@@ -1717,7 +1745,7 @@ class Executor:
         bsig = self._bsi_field(index, field)
         if bsig is None:
             raise NotFoundError(f"bsiGroup not found: {field}")
-        if shards and self._use_device_batched(index, c, shards):
+        if self._local_batchable(opt) and shards and self._use_device_batched(index, c, shards):
             try:
                 with trace.child(metrics.STAGE_DEVICE_BATCH, call="Percentile"):
                     vc = self._percentile_device_batched(index, c, shards, bsig, nth_bp)
@@ -1780,7 +1808,9 @@ class Executor:
         # needs no device launch at all
         carry = _ScoreCarry()
         pairs = self._execute_topn_shards(index, c, shards, opt, carry, prescored=prescored)
-        if not pairs or ids_arg:
+        # a remote leg answers its pass-1 pairs untrimmed: the coordinator
+        # recounts the union of every leg's candidates in pass 2
+        if not pairs or ids_arg or opt.remote:
             return _pairs_result(pairs)
         # Pass 2: re-query the union of candidate ids for exact counts.
         other = c.clone()
@@ -1934,7 +1964,7 @@ class Executor:
 
     # -- writes (reference executor.go:998-1258) -----------------------------
 
-    def _execute_set_bit(self, index, c: Call) -> bool:
+    def _execute_set_bit(self, index, c: Call, opt) -> bool:
         field_name = c.field_arg()
         f = self.holder.field(index, field_name)
         if f is None:
@@ -1949,10 +1979,14 @@ class Executor:
         ts_str, ok = c.string_arg("_timestamp")
         if ok:
             timestamp = datetime.strptime(ts_str, TIME_FORMAT)
+        if self.cluster is not None and not opt.remote:
+            return self.cluster.set_bit(index, c, f, row_id, col_id, timestamp, opt)
+        # the local apply: every node that lands the bit (directly or as
+        # a remote leg) records the write once
         heat.record_write(index, field_name, col_id // SHARD_WIDTH, 1)
         return f.set_bit(row_id, col_id, timestamp)
 
-    def _execute_clear_bit(self, index, c: Call) -> bool:
+    def _execute_clear_bit(self, index, c: Call, opt) -> bool:
         field_name = c.field_arg()
         f = self.holder.field(index, field_name)
         if f is None:
@@ -1963,10 +1997,12 @@ class Executor:
         col_id, ok = c.uint_arg("_col")
         if not ok:
             raise ValueError("Clear() col argument required")
+        if self.cluster is not None and not opt.remote:
+            return self.cluster.clear_bit(index, c, f, row_id, col_id, opt)
         heat.record_write(index, field_name, col_id // SHARD_WIDTH, 1)
         return f.clear_bit(row_id, col_id)
 
-    def _execute_set_row_attrs(self, index, c: Call) -> None:
+    def _execute_set_row_attrs(self, index, c: Call, opt) -> None:
         field_name, ok = c.string_arg("_field")
         if not ok:
             raise ValueError("SetRowAttrs() field required")
@@ -1980,8 +2016,9 @@ class Executor:
         if f.row_attr_store is None:
             raise ValueError("row attr store not configured")
         f.row_attr_store.set_attrs(row_id, attrs)
+        self._forward_write(index, c, opt)
 
-    def _execute_set_column_attrs(self, index, c: Call) -> None:
+    def _execute_set_column_attrs(self, index, c: Call, opt) -> None:
         idx = self.holder.index(index)
         col_id, ok = c.uint_arg("_col")
         if not ok:
@@ -1990,8 +2027,9 @@ class Executor:
         if idx.column_attrs is None:
             raise ValueError("column attr store not configured")
         idx.column_attrs.set_attrs(col_id, attrs)
+        self._forward_write(index, c, opt)
 
-    def _execute_set_value(self, index, c: Call) -> None:
+    def _execute_set_value(self, index, c: Call, opt) -> None:
         col_id, ok = c.uint_arg("col")
         if not ok:
             raise ValueError("SetValue() col argument required")
@@ -2004,6 +2042,13 @@ class Executor:
             if isinstance(value, bool) or not isinstance(value, int):
                 raise ValueError("invalid BSI group value type")
             f.set_value(col_id, value)
+        self._forward_write(index, c, opt)
+
+    def _forward_write(self, index, c: Call, opt) -> None:
+        """SetValue and the attribute writes apply on every node of a
+        cluster (reference executeSetValue's remote fan-out)."""
+        if self.cluster is not None and not opt.remote:
+            self.cluster.forward_to_all(index, c, opt)
 
     def close(self, drain: float = 5.0) -> None:
         """Shut the read pool down (called from Server.close). Checkouts
@@ -2178,7 +2223,11 @@ class _ChunkedLazyScores:
             finally:
                 self._prefetching = False
 
-        threading.Thread(target=warm, name="stage-prefetch", daemon=True).start()
+        # in a copy of this context: a staging launch counts under the
+        # node's launch scope (ops.cuda)
+        threading.Thread(
+            target=contextvars.copy_context().run, args=(warm,), name="stage-prefetch", daemon=True
+        ).start()
 
     def _publish(self, ids_by_shard, mat) -> None:
         if self._carry is None:

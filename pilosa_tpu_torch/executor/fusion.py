@@ -185,6 +185,11 @@ class QueryFuser:
         ``"error"`` bypass and the per-call path answers, as the
         reference treats every error here."""
         ex = self.ex
+        if ex.cluster is not None:
+            # a cluster's calls map onto their shards' owners (and a remote
+            # leg bypasses below, as "opt"), as in the reference
+            self._bypass("topology")
+            return None
         if opt.remote or opt.serial:
             self._bypass("opt")
             return None

@@ -11,8 +11,11 @@ The kernels are built on first use (see ``_build.py``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import threading
+from typing import Optional
 
 import torch
 
@@ -20,10 +23,35 @@ from pilosa_tpu_torch.analysis.locks import OrderedLock
 from pilosa_tpu_torch.ops import _build
 
 
+# The scope a launch is also counted under (``Kernel.launches_by_scope``):
+# the serving node, where several nodes of a cluster share one process
+# and so these counts. The executor sets it at its entry point and hands
+# it over at each thread hop, as it does the request's deadline.
+_SCOPE: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
+    "pilosa_launch_scope", default=None
+)
+
+
+def launch_scope() -> Optional[str]:
+    """The scope this context's launches are counted under, or None."""
+    return _SCOPE.get()
+
+
+@contextlib.contextmanager
+def scoped(scope: Optional[str]):
+    """Count this context's launches under ``scope`` as well."""
+    token = _SCOPE.set(scope)
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
 class Kernel:
     """One hand-written kernel: its source, the TPU-side function it
-    replaces, and how many times it was launched, in all and at each
-    query count Q (``launches_by_q``)."""
+    replaces, and how many times it was launched, in all, at each
+    query count Q (``launches_by_q``) and under each launch scope
+    (``launches_by_scope``)."""
 
     def __init__(self, name: str, source: str, replaces: str) -> None:
         self.name = name
@@ -31,6 +59,7 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self.launches_by_q: dict[int, int] = {}
+        self.launches_by_scope: dict[str, int] = {}
         self._mu = threading.Lock()
 
     @property
@@ -40,14 +69,18 @@ class Kernel:
             return sum(n for q, n in self.launches_by_q.items() if q > 1)
 
     def note_launch(self, q: int) -> None:
+        scope = _SCOPE.get()
         with self._mu:
             self.launches += 1
             self.launches_by_q[q] = self.launches_by_q.get(q, 0) + 1
+            if scope is not None:
+                self.launches_by_scope[scope] = self.launches_by_scope.get(scope, 0) + 1
 
     def reset(self) -> None:
         with self._mu:
             self.launches = 0
             self.launches_by_q = {}
+            self.launches_by_scope = {}
 
 
 DENSE_SCORES = Kernel(

@@ -1,13 +1,16 @@
 """Programmatic API (L6) — validated surface over holder/executor
 (reference api.go).
 
-The port of ``pilosa_tpu/server/api.py`` for one node: queries, schema,
-imports, export, fragment data, backup and restore, keyed indexes and
-fields, key imports, column attributes, attribute diffs and the
-translate stores (the executor's ``translate_store``). The cluster and
-multihost legs of the reference are not ported: a cluster raises at
-construction (ROADMAP A8). ``status`` adds a ``device`` block: the
-executor's device and its health gate.
+The port of ``pilosa_tpu/server/api.py``: queries, schema, imports,
+export, fragment data, backup and restore, keyed indexes and fields, key
+imports, column attributes, attribute diffs and the translate stores
+(the executor's ``translate_store``). On a static cluster (``cluster``,
+parallel/cluster.py) schema changes go to every node as messages,
+imports and ingest waves route to their shards' owners, and ``status``
+lists the nodes. Keys on a cluster (the translate plane, ROADMAP A8c)
+and the multihost legs of the reference (A8d) are not ported.
+``status`` adds a ``device`` block: the executor's device and its
+health gate.
 """
 
 from __future__ import annotations
@@ -25,12 +28,11 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.executor import ExecOptions
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.server import deadline, pipeline
+from pilosa_tpu_torch.server.config import A8C
 from pilosa_tpu_torch.utils import events, heat, metrics, profiler, trace
 
-A8 = "A8 (the multi-device plane)"
-
 # the cluster state a single node reports (reference cluster.go:42-45);
-# the reference's gate on RESIZING/STARTING has no cluster to ask here
+# a static cluster is NORMAL from the moment its server serves
 STATE_NORMAL = "NORMAL"
 
 
@@ -61,13 +63,21 @@ class NotFoundError(APIError, _SharedNotFound):
 
 class API:
     def __init__(self, holder, executor, cluster=None, server=None) -> None:
-        if cluster is not None:
-            raise NotImplementedError(
-                f"clusters are not ported to pilosa_tpu_torch yet (ROADMAP {A8})"
-            )
         self.holder = holder
         self.executor = executor
+        self.cluster = cluster
         self.server = server
+
+    def _send_sync(self, msg: dict) -> None:
+        """A schema change goes to every other node of a cluster."""
+        if self.server is not None:
+            self.server.send_sync(msg)
+
+    def _refuse_keys(self, what: str) -> None:
+        """Keys on a cluster need the translate plane: minting on each
+        node would fork the cluster's id space."""
+        if self.cluster is not None:
+            raise unported(f"{what} on a cluster", A8C)
 
     # -- query (reference api.Query:96-150) --
 
@@ -139,6 +149,8 @@ class API:
             idx = self.holder.index(index)
             if idx is None:
                 raise NotFoundError(f"index not found: {index}")
+            if self.cluster is not None and (idx.keys or any(f.options.keys for f in idx.fields.values())):
+                self._refuse_keys("a keyed index or field")
             results = self.executor.execute(index, q, shards, opt)
         resp: dict = {"results": results}
         # total covers parse → results plus the pre-span pipeline wait;
@@ -172,25 +184,35 @@ class API:
     # -- schema CRUD --
 
     def create_index(self, name: str, keys: bool = False) -> None:
+        if keys:
+            self._refuse_keys("a keyed index")
         try:
             self.holder.create_index(name, keys=keys)
         except ValueError as e:
             raise APIError(str(e), status=409 if "exists" in str(e) else 400)
+        self._send_sync({"type": "create-index", "index": name, "keys": keys})
 
     def delete_index(self, name: str) -> None:
         try:
             self.holder.delete_index(name)
         except ValueError as e:
             raise NotFoundError(str(e))
+        self._send_sync({"type": "delete-index", "index": name})
 
     def create_field(self, index: str, field: str, options: dict) -> None:
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
+        fopts = FieldOptions.from_dict(options or {})
+        if fopts.keys:
+            self._refuse_keys("a keyed field")
         try:
-            idx.create_field(field, FieldOptions.from_dict(options or {}))
+            idx.create_field(field, fopts)
         except ValueError as e:
             raise APIError(str(e), status=409 if "exists" in str(e) else 400)
+        self._send_sync(
+            {"type": "create-field", "index": index, "field": field, "options": options or {}}
+        )
 
     def delete_field(self, index: str, field: str) -> None:
         idx = self.holder.index(index)
@@ -200,6 +222,7 @@ class API:
             idx.delete_field(field)
         except ValueError as e:
             raise NotFoundError(str(e))
+        self._send_sync({"type": "delete-field", "index": index, "field": field})
 
     def delete_view(self, index: str, field: str, view: str) -> None:
         f = self.holder.field(index, field)
@@ -262,6 +285,8 @@ class API:
         if f is None:
             raise NotFoundError(f"field not found: {field}")
         ts = self.executor.translate_store
+        if column_keys or row_keys:
+            self._refuse_keys("a keyed import")
         if column_keys:
             if ts is None:
                 raise APIError("translate store not configured")
@@ -270,6 +295,12 @@ class API:
             if ts is None:
                 raise APIError("translate store not configured")
             row_ids = ts.translate_rows_to_ids(index, field, row_keys)
+        # route bit groups to their shard owners (the reference's client
+        # groups by owner before posting, http/client.go:276,922; routing
+        # here keeps single-endpoint imports correct in a cluster)
+        if self._clustered():
+            self._route_import(index, field, row_ids, column_ids, timestamps)
+            return
         f.import_bits(row_ids, column_ids, _parse_timestamps(timestamps))
 
     def import_bits_local(self, index, field, row_ids, column_ids, timestamps=None):
@@ -280,6 +311,29 @@ class API:
             raise NotFoundError(f"field not found: {field}")
         f.import_bits(row_ids, column_ids, _parse_timestamps(timestamps))
 
+    def _clustered(self) -> bool:
+        return self.cluster is not None and len(self.cluster.nodes) > 1
+
+    def _owner_groups(self, index: str, column_ids):
+        """(shard, positions, owners) for each shard the columns touch, in
+        shard order."""
+        groups: dict[int, list[int]] = {}
+        for i, col in enumerate(column_ids):
+            groups.setdefault(int(col) // SHARD_WIDTH, []).append(i)
+        for shard, idxs in sorted(groups.items()):
+            yield shard, idxs, self.cluster.shard_nodes(index, shard)
+
+    def _route_import(self, index, field, row_ids, column_ids, timestamps) -> None:
+        for _, idxs, owners in self._owner_groups(index, column_ids):
+            rows = [row_ids[i] for i in idxs]
+            cols = [column_ids[i] for i in idxs]
+            tss = [timestamps[i] for i in idxs] if timestamps else None
+            for node in owners:
+                if node.id == self.cluster.node_id:
+                    self.import_bits_local(index, field, rows, cols, tss)
+                else:
+                    self.cluster.client.import_bits_local(node.uri, index, field, rows, cols, tss)
+
     # -- ingest write waves (server/ingest.py group commit) --
 
     def apply_write_wave(
@@ -288,8 +342,33 @@ class API:
         """Apply one coalesced ingest write wave: sets AND clears in a
         single batch, one op-log group commit + fsync and one
         generation bump per touched fragment. Returns the number of
-        bits that changed."""
-        return self.apply_write_wave_local(index, field, row_ids, column_ids, sets)
+        bits that changed. In a cluster, shard groups route to their
+        owners first; a remote owner acks only after its own ingest
+        queue group-commits, so durability is owner-side."""
+        if not self._clustered():
+            return self.apply_write_wave_local(index, field, row_ids, column_ids, sets)
+        flags = sets if sets is not None else [True] * len(column_ids)
+        total = 0
+        for _, idxs, owners in self._owner_groups(index, column_ids):
+            rows = [int(row_ids[i]) for i in idxs]
+            cols = [int(column_ids[i]) for i in idxs]
+            ss = [bool(flags[i]) for i in idxs]
+            # every owner applies the group, but it counts ONCE toward the
+            # wave's total (replicas must not inflate the changed count);
+            # the local owner's exact count is preferred when there is one
+            local_changed = None
+            remote_changed = None
+            for node in owners:
+                if node.id == self.cluster.node_id:
+                    local_changed = self.apply_write_wave_local(index, field, rows, cols, ss)
+                else:
+                    c = self.cluster.client.ingest(node.uri, index, field, rows, cols, ss)
+                    remote_changed = max(remote_changed or 0, c)
+            if local_changed is not None:
+                total += local_changed
+            elif remote_changed is not None:
+                total += remote_changed
+        return total
 
     def apply_write_wave_local(
         self, index: str, field: str, row_ids, column_ids, sets=None
@@ -326,9 +405,20 @@ class API:
             raise NotFoundError(f"field not found: {field}")
         ts = self.executor.translate_store
         if column_keys:
+            self._refuse_keys("a keyed import")
             if ts is None:
                 raise APIError("translate store not configured")
             column_ids = ts.translate_columns_to_ids(index, column_keys)
+        if self._clustered():
+            for _, idxs, owners in self._owner_groups(index, column_ids):
+                cols = [column_ids[i] for i in idxs]
+                vals = [values[i] for i in idxs]
+                for node in owners:
+                    if node.id == self.cluster.node_id:
+                        self.import_values_local(index, field, cols, vals)
+                    else:
+                        self.cluster.client.import_values_local(node.uri, index, field, cols, vals)
+            return
         f.import_values(column_ids, values)
 
     def import_values_local(self, index, field, column_ids, values):
@@ -678,6 +768,7 @@ class API:
             # resolves exactly the archive's keys (an archive without
             # translate members leaves the local stores as they are)
             ts.restore_stores(translate_blobs)
+        self._send_sync({"type": "schema", "schema": schema})
         metrics.count(metrics.RESTORE_APPLIED)
         return {"fragments": len(fragments), "version": version}
 
@@ -694,6 +785,7 @@ class API:
         pc = getattr(self.executor, "plan_cache", None)
         if pc is not None:
             pc.epoch_reset()
+        self._send_sync({"type": "recalculate-caches"})
 
     # -- info / status --
 
@@ -710,10 +802,11 @@ class API:
         }
 
     def status(self) -> dict:
+        cl = self.cluster
         out = {
-            "state": STATE_NORMAL,
-            "nodes": [],
-            "localID": "",
+            "state": cl.state if cl is not None else STATE_NORMAL,
+            "nodes": [n.to_dict() for n in cl.nodes] if cl is not None else [],
+            "localID": cl.node_id if cl is not None else "",
         }
         integ = self._integrity_status()
         if integ:
@@ -761,6 +854,43 @@ class API:
             name: idx.max_shard() for name, idx in self.holder.indexes.items()
         }
 
+    def hosts(self) -> list[dict]:
+        if self.cluster is None:
+            return []
+        return [n.to_dict() for n in self.cluster.nodes]
+
+    def shard_nodes(self, index: str, shard: int) -> list[dict]:
+        if self.cluster is None:
+            return []
+        return [n.to_dict() for n in self.cluster.shard_nodes(index, shard)]
+
+    # -- cluster messages and liveness (wired by the cluster layer) --
+
+    def cluster_message(self, msg: dict) -> None:
+        if self.server is None:
+            raise APIError("cluster not configured")
+        self.server.receive_message(msg)
+
+    def probe_node(self, uri: str) -> bool:
+        """Probe ``uri``'s /status with the cluster's short probe
+        timeout: the relay half of SWIM indirect probing. Only URIs of
+        known cluster members are probed, as memberlist's ping-req only
+        targets members, so the endpoint is no open relay into arbitrary
+        internal addresses."""
+        if self.cluster is None:
+            return False
+        from pilosa_tpu_torch.utils.uri import same_endpoint
+
+        with self.cluster.mu:
+            known = any(same_endpoint(n.uri, uri) for n in self.cluster.nodes)
+        if not known:
+            return False
+        try:
+            self.cluster._probe_client.status(uri)
+            return True
+        except Exception:
+            return False
+
     # -- attribute diffs (reference api.go attr-diff path, holder.go:654-740) --
 
     def column_attr_diff(self, index: str, blocks: list) -> dict:
@@ -780,6 +910,7 @@ class API:
     # -- key translation --
 
     def _translate_store(self):
+        self._refuse_keys("the translate store")
         ts = self.executor.translate_store
         if ts is None:
             raise APIError("translate store not configured")

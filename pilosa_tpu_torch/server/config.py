@@ -90,10 +90,11 @@ class Config:
     # the executor default (the port does not measure its own crossover
     # yet: ROADMAP A6)
     auto_device_min_containers: int = 0
-    # The multi-device plane is not ported (ROADMAP A8): the keys below
-    # keep the JAX package's names and TOML spellings, and a value that
-    # turns one on is refused by check_ported. mesh-devices: devices to
-    # mesh the shard axis over (0/1 = one device).
+    # The multi-device plane past the static cluster is not ported
+    # (ROADMAP A8b-A8e): the keys below keep the JAX package's names and
+    # TOML spellings, and a value that turns one on is refused by
+    # check_ported. mesh-devices: devices to mesh the shard axis over
+    # (0/1 = one device).
     mesh_devices: int | str = 0
     # multihost serving over one global mesh across processes
     distributed_enabled: bool = False
@@ -517,23 +518,41 @@ def _mesh_on(cfg: Config) -> bool:
 
 
 _A6 = "A6 (dispatch and autotune)"
-_A8 = "A8 (the multi-device plane)"
+# the slices of the multi-device plane still to come (A8a, the static
+# cluster, is ported)
+A8B = "A8b (anti-entropy, join and resize)"
+A8C = "A8c (the translate plane over a cluster)"
+A8D = "A8d (gangs, multihost and federation, with the fleet and the scrubber)"
+A8E = "A8e (the device mesh, with B4)"
+
+
+def _clustered(c: Config) -> bool:
+    return not c.cluster.disabled
 
 # the setting, as TOML spells it -> (is it turned on?, the ROADMAP
 # item that ports its subsystem)
 _UNPORTED = {
     "dispatch-enabled = true": (lambda c: c.dispatch_enabled, _A6),
     "prefetch-enabled = true": (lambda c: c.prefetch_enabled, _A6),
-    "mesh-devices > 1": (_mesh_on, _A8),
-    "distributed-enabled = true": (lambda c: c.distributed_enabled, _A8),
-    "distributed-coordinator": (lambda c: bool(c.distributed_coordinator), _A8),
-    "distributed-faults": (lambda c: bool(c.distributed_faults), _A8),
-    "federation-rejoin": (lambda c: bool(c.federation_rejoin), _A8),
-    "federation-leader = true": (lambda c: c.federation_leader, _A8),
-    "[cluster] disabled = false": (lambda c: not c.cluster.disabled, _A8),
-    "[cluster] hosts": (lambda c: bool(c.cluster.hosts), _A8),
-    "[cluster] coordinator-host": (lambda c: bool(c.cluster.coordinator_host), _A8),
-    "scrub-interval > 0": (lambda c: c.scrub_interval > 0, _A8),
+    "mesh-devices > 1": (_mesh_on, A8E),
+    "distributed-enabled = true": (lambda c: c.distributed_enabled, A8D),
+    "distributed-coordinator": (lambda c: bool(c.distributed_coordinator), A8D),
+    "distributed-faults": (lambda c: bool(c.distributed_faults), A8D),
+    "federation-rejoin": (lambda c: bool(c.federation_rejoin), A8D),
+    "federation-leader = true": (lambda c: c.federation_leader, A8D),
+    # a cluster without a host list joins through its coordinator
+    "[cluster] disabled = false without hosts": (
+        lambda c: _clustered(c) and not c.cluster.hosts,
+        A8B,
+    ),
+    "[cluster] coordinator-host": (lambda c: bool(c.cluster.coordinator_host), A8B),
+    # the reference syncs a cluster's replicas on this interval
+    # (sync_holder); one node has nothing to sync
+    "anti-entropy-interval > 0 on a cluster": (
+        lambda c: _clustered(c) and c.anti_entropy_interval > 0,
+        A8B,
+    ),
+    "scrub-interval > 0": (lambda c: c.scrub_interval > 0, A8D),
     # forwards every mint to another node: the cluster's translate plane
-    "translate-primary-url": (lambda c: bool(c.translate_primary_url), _A8),
+    "translate-primary-url": (lambda c: bool(c.translate_primary_url), A8C),
 }

@@ -5,8 +5,11 @@ The port of ``pilosa_tpu/server/http_handler.py``: every route the
 single-node API serves answers with the same status codes and bodies,
 JSON and protobuf (``utils/publicproto.py``). A route of a subsystem
 this port lacks answers 501 with its ROADMAP item in the body, never
-404: the cluster and gang messages, fleet and scrub (A8) and the
-dispatch engine (A6). Keyed ingest, ``/debug/translate``,
+404: resize and anti-entropy (A8b), gangs, fleet and scrub (A8d) and
+the dispatch engine (A6). The static cluster's routes answer: its
+messages (``/internal/cluster/message``, protobuf or JSON), shard
+ownership (``/internal/fragment/nodes``) and the indirect liveness
+probe (``/internal/probe``). Keyed ingest, ``/debug/translate``,
 ``/internal/translate/{data,stores,keys}``, the attribute diffs, the
 fault-injection windows (``/debug/chaos``) and the on-demand profile
 capture (``/debug/profile?capture=``) answer as the reference's single
@@ -27,12 +30,13 @@ from pilosa_tpu_torch.core import Row
 from pilosa_tpu_torch.core.fragment import FragmentQuarantinedError
 from pilosa_tpu_torch.executor.executor import ValCount
 from pilosa_tpu_torch.server import deadline as deadline_mod
-from pilosa_tpu_torch.server.api import A8, API, APIError, unported
+from pilosa_tpu_torch.server.api import API, APIError, unported
+from pilosa_tpu_torch.server.config import A8B, A8D
 from pilosa_tpu_torch.server.deadline import DeadlineExceeded
 from pilosa_tpu_torch.server import pipeline as pipeline_mod
 from pilosa_tpu_torch.server.pipeline import CLASS_BULK, CLASS_INTERNAL, Overloaded
 from pilosa_tpu_torch.utils.errors import NotFoundError as ExecNotFound
-from pilosa_tpu_torch.utils import events, heat, metrics, profiler, publicproto, slo, trace
+from pilosa_tpu_torch.utils import events, heat, metrics, privateproto, profiler, publicproto, slo, trace
 from pilosa_tpu_torch.utils.stats import NOP_STATS
 
 A6 = "A6 (dispatch and autotune)"
@@ -40,7 +44,7 @@ A6 = "A6 (dispatch and autotune)"
 
 class GangUnavailable(Exception):
     """A multihost gang that cannot serve (503 + Retry-After). The port
-    has no gang yet (ROADMAP A8); the class keeps the handler's error
+    has no gang yet (ROADMAP A8d); the class keeps the handler's error
     mapping whole for when it does."""
 
     status = 503
@@ -204,6 +208,11 @@ class Handler:
             Route("POST", r"/internal/fragment/data", self.post_fragment_data),
             Route("GET", r"/internal/shards/max", lambda req: {"standard": a.max_shards()}),
             Route("GET", r"/internal/fragments", lambda req: a.fragment_inventory()),
+            # the static cluster: control messages, shard ownership and
+            # the indirect liveness probe
+            Route("POST", r"/internal/cluster/message", self.post_cluster_message),
+            Route("GET", r"/internal/fragment/nodes", self.get_fragment_nodes),
+            Route("POST", r"/internal/probe", self.post_probe),
             # key translation's pull plane and the owner's mint endpoint,
             # and the attribute stores' anti-entropy diffs
             Route("GET", r"/internal/translate/data", self.get_translate_data),
@@ -663,6 +672,32 @@ class Handler:
         self.api.recalculate_caches()
         return {}
 
+    def post_cluster_message(self, req) -> dict:
+        if privateproto.CONTENT_TYPE in req.headers.get("content-type", ""):
+            try:
+                msg = privateproto.unmarshal_message(req.body or b"")
+            except Exception as e:
+                # any decode failure is malformed input (wire-type
+                # confusion raises TypeError/AttributeError, not just
+                # ValueError): it answers 400, never executes or 500s
+                raise APIError(f"unmarshaling message: {e}", 400)
+        else:
+            msg = json.loads(req.body or b"{}")
+        self.api.cluster_message(msg)
+        return {}
+
+    def get_fragment_nodes(self, req) -> list:
+        q = req.query
+        return self.api.shard_nodes(_qreq(q, "index"), int(_qreq(q, "shard")))
+
+    def post_probe(self, req) -> dict:
+        """SWIM ping-req relay: probe the named node on the caller's
+        behalf and report whether it answered (indirect liveness;
+        reference memberlist IndirectChecks)."""
+        body = json.loads(req.body or b"{}")
+        _require(body, "uri")
+        return {"alive": self.api.probe_node(body["uri"])}
+
     def get_fragment_blocks(self, req) -> dict:
         q = req.query
         return {
@@ -748,7 +783,7 @@ class Handler:
         returns the AGGREGATED view instead: every registered rank's
         registry snapshot, each sample tagged ``instance=<label>``."""
         if req.query.get("fleet", ["false"])[0] == "true":
-            raise unported("fleet metrics", A8)
+            raise unported("fleet metrics", A8D)
         health = getattr(self.api.executor, "health", None)
         if health is not None:
             metrics.gauge(
@@ -970,8 +1005,8 @@ class Handler:
     def post_debug_chaos(self, req) -> dict:
         """Install or clear fault windows on a LIVE server. Body:
         ``{"storage": "<spec>", "device": "<spec>"}``; an empty/absent
-        spec clears that family (distributed faults ride the cluster,
-        ROADMAP A8). Gated by ``chaos-enabled``: a production server
+        spec clears that family (distributed faults ride the gangs,
+        ROADMAP A8d). Gated by ``chaos-enabled``: a production server
         must not expose a fault injector. Each transition journals
         ``chaos.window``."""
         server = getattr(self.api, "server", None)
@@ -1015,7 +1050,7 @@ class Handler:
         except ValueError:
             raise APIError("invalid top: must be an integer", status=400)
         if q.get("fleet", ["false"])[0] == "true":
-            raise unported("fleet heat", A8)
+            raise unported("fleet heat", A8D)
         try:
             return heat.LEDGER.snapshot(index=index, dim=dim, top_k=top)
         except ValueError as e:
@@ -1320,22 +1355,19 @@ def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):
 # (method, route, what, ROADMAP item) of the reference's routes whose
 # subsystems are not in the port yet
 _UNPORTED_ROUTES = (
-    ("POST", r"/cluster/resize/set-coordinator", "cluster resize", A8),
-    ("POST", r"/cluster/resize/remove-node", "cluster resize", A8),
-    ("POST", r"/cluster/resize/abort", "cluster resize", A8),
-    ("POST", r"/internal/cluster/message", "cluster messages", A8),
-    ("GET", r"/internal/fragment/nodes", "shard ownership", A8),
-    ("POST", r"/internal/fragment/block/data", "anti-entropy block merges", A8),
-    ("POST", r"/internal/probe", "cluster liveness probes", A8),
-    ("POST", r"/internal/gang/apply", "multihost gangs", A8),
-    ("POST", r"/internal/gang/rejoin", "multihost gangs", A8),
-    ("POST", r"/internal/trace/push", "gang trace push", A8),
-    ("POST", r"/internal/fleet/register", "the fleet collector", A8),
-    ("GET", r"/internal/fleet/snapshots", "the fleet collector", A8),
-    ("GET", r"/internal/fleet/heat", "the fleet collector", A8),
-    ("GET", r"/debug/fleet", "the fleet collector", A8),
-    ("GET", r"/debug/multihost", "multihost gangs", A8),
-    ("GET", r"/debug/scrub", "the integrity scrubber", A8),
-    ("POST", r"/debug/scrub", "the integrity scrubber", A8),
+    ("POST", r"/cluster/resize/set-coordinator", "cluster resize", A8B),
+    ("POST", r"/cluster/resize/remove-node", "cluster resize", A8B),
+    ("POST", r"/cluster/resize/abort", "cluster resize", A8B),
+    ("POST", r"/internal/fragment/block/data", "anti-entropy block merges", A8B),
+    ("POST", r"/internal/gang/apply", "multihost gangs", A8D),
+    ("POST", r"/internal/gang/rejoin", "multihost gangs", A8D),
+    ("POST", r"/internal/trace/push", "gang trace push", A8D),
+    ("POST", r"/internal/fleet/register", "the fleet collector", A8D),
+    ("GET", r"/internal/fleet/snapshots", "the fleet collector", A8D),
+    ("GET", r"/internal/fleet/heat", "the fleet collector", A8D),
+    ("GET", r"/debug/fleet", "the fleet collector", A8D),
+    ("GET", r"/debug/multihost", "multihost gangs", A8D),
+    ("GET", r"/debug/scrub", "the integrity scrubber", A8D),
+    ("POST", r"/debug/scrub", "the integrity scrubber", A8D),
     ("GET", r"/debug/dispatch", "the dispatch engine", A6),
 )

@@ -22,11 +22,23 @@ exporter; ``device-faults`` installs the device fault schedule and
 ``chaos-enabled`` opens ``POST /debug/chaos``. The device telemetry
 polls the card the server runs on.
 
-Not constructed here, with the ROADMAP item that ports each: the
-cluster, multihost gangs, the fleet collector, the integrity scrubber,
-and the translate plane's forwarding and replication (A8), the
-dispatch engine and autotune (A6). ``Config.check_ported`` refuses a
-configuration that turns one on, and their HTTP routes answer 501.
+A static cluster (``[cluster] disabled = false`` with a ``hosts`` list and
+``anti-entropy-interval = 0``) runs as the reference's does: node id =
+URI, every node derives the same placement, ``open()`` attaches the
+cluster before the listener answers and exchanges schema and max shards
+with the live peers, and two loops probe the peers' liveness
+(``probe-interval``) and push this node's status (``status-interval``).
+The local leg of a query runs this node's shards through the executor
+as a remote leg does (shard-batched on the card). Several servers may
+share one process, as the tests run them; each node's kernel launches
+count under its own launch scope (ops.cuda).
+
+Not constructed here, with the ROADMAP item that ports each: join,
+resize and anti-entropy (A8b), the translate plane over a cluster
+(A8c), multihost gangs, the fleet collector and the integrity scrubber
+(A8d), the device mesh (A8e), the dispatch engine and autotune (A6).
+``Config.check_ported`` refuses a configuration that turns one on, and
+their HTTP routes answer 501.
 """
 
 from __future__ import annotations
@@ -40,11 +52,11 @@ import torch
 
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.core import Holder
-from pilosa_tpu_torch.executor import DeviceStager, Executor, resolve_device
+from pilosa_tpu_torch.executor import DeviceStager, ExecOptions, Executor, resolve_device
 from pilosa_tpu_torch.executor.devicehealth import DeviceHealth
 from pilosa_tpu_torch.executor.hbm import HbmGovernor
 from pilosa_tpu_torch.plan.cache import PlanCache
-from pilosa_tpu_torch.server.api import A8, API
+from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.config import Config
 from pilosa_tpu_torch.server.http_handler import Handler, make_http_server
 from pilosa_tpu_torch.server.ingest import IngestQueue
@@ -66,10 +78,6 @@ from pilosa_tpu_torch.utils.stats import (
 
 class Server:
     def __init__(self, config: Optional[Config] = None, cluster=None) -> None:
-        if cluster is not None:
-            raise NotImplementedError(
-                f"clusters are not ported to pilosa_tpu_torch yet (ROADMAP {A8})"
-            )
         self.config = config or Config()
         self.config.check_ported()
         self.device = resolve_device(self.config.device)
@@ -141,7 +149,9 @@ class Server:
             trace.TRACER.on_export = self.exporter.tap_span
         # only hook gc.callbacks when someone consumes the counter
         self.gc_notifier = GCNotifier() if self.stats is not NOP_STATS else None
-        self.holder = Holder(data_dir, new_attr_store=new_attr_store)
+        self.holder = Holder(
+            data_dir, broadcaster=self._broadcast_create_shard, new_attr_store=new_attr_store
+        )
         # key translation (translate/): partitioned durable key <-> id
         # logs under <data>/translate, which the holder does not open as
         # an index
@@ -208,8 +218,10 @@ class Server:
             fusion_max_calls=self.config.fusion_max_calls,
             plan_cache_device_bytes=self.config.plan_cache_device_bytes,
             translate_store=self.translate_store,
+            cluster=cluster,
         )
-        self.api = API(self.holder, self.executor, server=self)
+        self.cluster = cluster
+        self.api = API(self.holder, self.executor, cluster=cluster, server=self)
         # multi-tenant QoS (server/tenancy.py): per-index admission
         # buckets, weighted-fair scheduling, HBM quotas, per-tenant
         # SLOs. Disabled (zero-cost passthrough) when no tenant-* knob
@@ -329,6 +341,16 @@ class Server:
                 os.path.expanduser(self.config.tls.certificate_key_path),
             )
             self.httpd.socket = ctx.wrap_socket(self.httpd.socket, server_side=True)
+        # the cluster attaches before the listener answers: this node's
+        # URI is known once the socket is bound, and no query may meet a
+        # node that still answers from its own shards alone
+        if self.cluster is None and not self.config.cluster.disabled:
+            self.cluster = self._build_cluster()
+        if self.cluster is not None:
+            self.executor.cluster = self.cluster
+            self.api.cluster = self.cluster
+            self.cluster.local_executor = self._local_leg
+            self.cluster.attach_server(self)
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, daemon=True
         )
@@ -379,6 +401,21 @@ class Server:
         if self.config.profiler_hz > 0:
             profiler.SAMPLER.hz = self.config.profiler_hz
             profiler.SAMPLER.start()
+        # the join-time state sync runs before open() returns (memberlist's
+        # push/pull at join): a node must know its live peers' schema and
+        # max shards the moment it serves, or cross-shard answers shrink
+        # to the shards it has heard of. Peers still down are skipped;
+        # their own boot-time push heals the other direction.
+        if (
+            self.cluster is not None
+            and len(self.cluster.nodes) > 1
+            and self.config.cluster.status_interval > 0
+        ):
+            try:
+                self.cluster.push_node_status(sync=True)
+                self.cluster.pull_node_status()
+            except Exception as e:
+                self.logger.printf("startup node-status sync error: %s", e)
         self._start_background_loops()
 
     def _set_file_limit(self) -> None:
@@ -461,7 +498,41 @@ class Server:
                 except Exception as e:
                     self.logger.printf("slo tick error: %s", e)
 
-        for fn in (cache_flush_loop, runtime_monitor_loop, diagnostics_loop, slo_tick_loop):
+        def liveness_loop():
+            # reference memberlist probing (gossip/gossip.go:431-494):
+            # unresponsive peers go SUSPECT, then DOWN, so query planning
+            # fails over before it pays a timeout
+            interval = self.config.cluster.probe_interval
+            if interval <= 0:
+                return
+            while not self._closed.wait(interval):
+                try:
+                    if self.cluster is not None and len(self.cluster.nodes) > 1:
+                        self.cluster.probe_nodes()
+                except Exception as e:
+                    self.logger.printf("liveness probe error: %s", e)
+
+        def node_status_loop():
+            # reference periodic NodeStatus push (server.go:565-630): the
+            # drift healer behind the join-time sync in open()
+            interval = self.config.cluster.status_interval
+            if interval <= 0:
+                return
+            while not self._closed.wait(interval):
+                try:
+                    if self.cluster is not None and len(self.cluster.nodes) > 1:
+                        self.cluster.push_node_status()
+                except Exception as e:
+                    self.logger.printf("node-status push error: %s", e)
+
+        for fn in (
+            cache_flush_loop,
+            runtime_monitor_loop,
+            diagnostics_loop,
+            slo_tick_loop,
+            liveness_loop,
+            node_status_loop,
+        ):
             threading.Thread(target=fn, daemon=True).start()
 
     def _count_fragments(self) -> int:
@@ -471,6 +542,77 @@ class Server:
                 for v in f.views.values():
                     n += len(v.fragments)
         return n
+
+    def _local_leg(self, index: str, c, shards: list, opt):
+        """The cluster's local leg: this node's shards through the
+        executor as a remote leg runs them (one shard-batched launch, not
+        one a shard), decoded as a remote leg's answer is. The reference
+        routes a gang leader's local leg the same way
+        (``pilosa_tpu/parallel/federation.py``)."""
+        o = ExecOptions(
+            remote=True,
+            exclude_row_attrs=opt.exclude_row_attrs,
+            exclude_columns=opt.exclude_columns,
+            cache=opt.cache,
+        )
+        res = self.executor.execute(index, str(c), shards, o)
+        return self.cluster._decode_remote(c, res[0]) if res else None
+
+    def _build_cluster(self):
+        """The static cluster of ``[cluster] hosts``: node id = URI, so
+        every node derives the identical ring (the reference's
+        cluster-disabled mode generalised to N fixed hosts)."""
+        from pilosa_tpu_torch.parallel.cluster import Cluster
+        from pilosa_tpu_torch.parallel.node import Node
+
+        cc = self.config.cluster
+        cluster = Cluster(
+            node_id=self.uri,
+            uri=self.uri,
+            replica_n=cc.replicas,
+            static=True,
+            coordinator=cc.coordinator,
+            topology_path=os.path.join(os.path.expanduser(self.config.data_dir), ".topology"),
+            logger=self.logger,
+            probe_timeout=cc.probe_timeout,
+            down_after=cc.down_after,
+            ssl_context=self.client_ssl_context(),
+        )
+        cluster.set_nodes(
+            [Node(id=self._normalize_host_uri(h), uri=self._normalize_host_uri(h)) for h in cc.hosts]
+        )
+        return cluster
+
+    def _normalize_host_uri(self, h: str) -> str:
+        """host[:port] or URI -> canonical URI string: a missing scheme
+        defaults to this server's, a missing port to the reference's
+        10101 (utils/uri.py; reference uri.go:82-264), so equivalent
+        spellings compare equal. An address the strict parser rejects
+        (hostnames the reference's hostRegexp also rejects) is used as
+        given, with a warning: a config that works must not become a
+        boot crash."""
+        from pilosa_tpu_torch.utils.uri import URI, URIError
+
+        try:
+            return URI.from_address(h, default_scheme=self.scheme).normalize()
+        except URIError:
+            self.logger.printf(
+                "address %r does not parse as a URI (reference uri.go host rules); using it verbatim", h
+            )
+            return h if h.startswith("http") else f"{self.scheme}://{h}"
+
+    def client_ssl_context(self):
+        """SSL context for node-to-node clients; honors skip-verify
+        (reference http/client.go transport from TLS config)."""
+        if not self.config.tls.enabled:
+            return None
+        import ssl
+
+        ctx = ssl.create_default_context()
+        if self.config.tls.skip_verify:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        return ctx
 
     def address(self) -> tuple[str, int]:
         if self.httpd is None:
@@ -524,8 +666,70 @@ class Server:
         if self.httpd is not None:
             self.httpd.shutdown()
             self.httpd.server_close()
+        if self.cluster is not None:
+            self.cluster.close()
         self.executor.close()
         if self.executor.health is not None:
             self.executor.health.close()
         self.holder.close()
         self.translate_store.close()
+
+    # -- broadcaster seam (reference broadcast.go:27-31) --
+
+    def _broadcast_create_shard(self, index: str, shard: int) -> None:
+        """A new max shard appeared here: tell the cluster (reference
+        view.go:216-247 CreateShardMessage)."""
+        self.send_async({"type": "create-shard", "index": index, "shard": shard})
+
+    def send_sync(self, msg: dict) -> None:
+        if self.cluster is not None:
+            self.cluster.send_sync(msg)
+
+    def send_async(self, msg: dict) -> None:
+        if self.cluster is not None:
+            self.cluster.send_async(msg)
+
+    # -- message application (reference Server.ReceiveMessage:435-517) --
+
+    def receive_message(self, msg: dict) -> None:
+        typ = msg.get("type")
+        if typ == "create-index":
+            self.holder.create_index_if_not_exists(msg["index"], msg.get("keys", False))
+        elif typ == "delete-index":
+            try:
+                self.holder.delete_index(msg["index"])
+            except ValueError:
+                pass
+        elif typ == "create-field":
+            from pilosa_tpu_torch.core.field import FieldOptions
+
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                idx.create_field_if_not_exists(
+                    msg["field"], FieldOptions.from_dict(msg.get("options", {}))
+                )
+        elif typ == "delete-field":
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                try:
+                    idx.delete_field(msg["field"])
+                except ValueError:
+                    pass
+        elif typ == "create-shard":
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                idx.set_remote_max_shard(msg["shard"])
+        elif typ == "recalculate-caches":
+            for idx in self.holder.indexes.values():
+                for f in idx.fields.values():
+                    for v in f.views.values():
+                        for frag in v.fragments.values():
+                            frag.cache.recalculate()
+            # rank reorders change TopN walks without a generation bump:
+            # this node's cached remote legs are stale too
+            if self.plan_cache is not None:
+                self.plan_cache.epoch_reset()
+        elif typ == "schema":
+            self.holder.apply_schema(msg.get("schema", []))
+        elif self.cluster is not None:
+            self.cluster.receive_message(msg)

@@ -130,6 +130,60 @@ def test_attribute_and_key_modules_pull_in_no_jax():
     assert lines[-1] == "FOREIGN []"
 
 
+_CLUSTER_PROBE = r"""
+import json, socket, sys, tempfile, urllib.request
+import pilosa_tpu_torch.parallel.client
+import pilosa_tpu_torch.parallel.cluster
+import pilosa_tpu_torch.parallel.node
+import pilosa_tpu_torch.parallel.wire
+import pilosa_tpu_torch.utils.privateproto
+import pilosa_tpu_torch.utils.uri
+from pilosa_tpu_torch.server import Config, Server
+from pilosa_tpu_torch.server.config import ClusterConfig
+
+socks = [socket.socket() for _ in range(2)]
+for k in socks:
+    k.bind(("127.0.0.1", 0))
+ports = [k.getsockname()[1] for k in socks]
+for k in socks:
+    k.close()
+hosts = [f"127.0.0.1:{p}" for p in ports]
+d = tempfile.mkdtemp()
+servers = []
+for i, p in enumerate(ports):
+    s = Server(Config(data_dir=f"{d}/n{i}", bind=f"127.0.0.1:{p}", device="cpu", anti_entropy_interval=0,
+                      cluster=ClusterConfig(disabled=False, hosts=hosts, probe_interval=0, status_interval=0)))
+    s.open()
+    servers.append(s)
+def post(s, path, body):
+    return urllib.request.urlopen(urllib.request.Request(s.uri + path, data=body, method="POST")).read().decode()
+post(servers[0], "/index/i", b"{}")
+post(servers[0], "/index/i/field/f", b"{}")
+for c in (3, (1 << 20) + 3, (2 << 20) + 3):
+    post(servers[0], "/index/i/query", f"Set({c}, f=1)".encode())
+print(post(servers[1], "/index/i/query", b"Count(Row(f=1))"))
+for s in servers:
+    s.close()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "pilosa_tpu" or m.startswith("pilosa_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_cluster_modules_pull_in_no_jax():
+    """The static cluster's modules (parallel/{client,cluster,node,wire},
+    utils/{privateproto,uri}) import neither JAX nor the JAX package, and
+    a write and a read cross a 2-node cluster through them."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _CLUSTER_PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2] == '{"results": [3]}'
+    assert lines[-1] == "FOREIGN []"
+
+
 _FOREIGN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+pilosa_tpu\b(?!_)|from\s+pilosa_tpu\b(?!_))")
 _FOREIGN_NAME = re.compile(r"\bpilosa_tpu\.")
 
@@ -142,6 +196,7 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chain_batch_probe.py")
     yield os.path.join(REPO, "ab_probe.py")
+    yield os.path.join(REPO, "cluster_probe.py")
 
 
 def test_sources_name_no_jax_and_no_jax_package():

@@ -659,8 +659,8 @@ def test_fusion_and_plan_cache_answer_as_the_reference(tmp_path):
 @pytest.mark.parametrize(
     "method,path,item",
     [
-        ("POST", "/internal/cluster/message", "A8"),
-        ("GET", "/internal/fragment/nodes?index=i&shard=0", "A8"),
+        ("POST", "/internal/fragment/block/data", "A8"),
+        ("POST", "/cluster/resize/abort", "A8"),
         ("POST", "/internal/gang/apply", "A8"),
         ("GET", "/debug/fleet", "A8"),
         ("GET", "/debug/scrub", "A8"),
